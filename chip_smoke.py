@@ -6,9 +6,12 @@
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, one JSON line each; any failure exits non-zero:
 
-  1. build      compile every kernel of the main path from ``src/repro_torch``
-  2. kernels    each kernel against its plain PyTorch version on the card,
-                grant for grant, over a set of shapes
+  1. build      compile every kernel of the port from ``src/repro_torch``
+                (one ``nvcc`` per source, all started together)
+  2. kernels    each kernel against its plain PyTorch version on the card:
+                the arbiter grant for grant over a set of shapes, then
+                flash attention, paged attention and banked_copy at the JAX
+                tests' shapes and at the serving path's shapes
   3. golden     the three golden single-slice cases on the card, bit for bit
                 against ``tests/data/golden_single_slice.json``
   4. fig4/table1  the paper's Fig. 4 sweep (X = 1..16) and Table I
@@ -20,6 +23,17 @@ Phases, one JSON line each; any failure exits non-zero:
                 of the main path, from ``torch.profiler``
   6. timing     per-call device time of each kernel, its plain version and
                 one PyTorch call computing the same function
+  7. serving    the second main path: stablelm-1.6b at full width (random
+                weights from a seed) through ``repro_torch.launch.serve``,
+                16 requests of 128..1024 prompt tokens, 32 new tokens each,
+                8 slots; pool isolation after every step; kernel launches
+                equal to their prediction from a traffic-only run; the first
+                wave teacher-forced through the plain attention versions, its
+                logits held to the kernel run's, in bf16 and in float32 (the
+                weights keep the reference's init with ``wq``/``wk`` scaled
+                by 1/8: see ``_tempered``)
+  8. serving_profile  device kernels, busy time and idle share per decode step
+  9. llm_timing the three serving kernels' timing rows at the path's shapes
 then the kernels line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -39,6 +53,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM non-tensor-core float32 rate, used as the int32 ALU peak
 ALU_OPS_PER_S = 67e12
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12
+#: the kernels of the serving path, in the order of the kernels line
+LLM_KERNELS = ("banked_copy", "paged_attention", "flash_attention")
 
 
 def emit(phase: str, **fields) -> None:
@@ -125,7 +143,7 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    paths = _build.build(["bank_arbiter"])
+    paths = _build.build(["bank_arbiter", *LLM_KERNELS])
     emit("build", seconds=time.perf_counter() - t0, libraries={k: str(v) for k, v in paths.items()})
 
 
@@ -375,6 +393,485 @@ def phase_timing(launches: int, max_abs_err: int) -> dict:
     }
 
 
+def _cuda_randn(gen, shape, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def _unique_tables(gen, B, width, NB, used):
+    """``[B, width]`` int32 tables: ``used[b]`` distinct pool blocks each, -1 after."""
+    import torch
+
+    perm = torch.randperm(NB, generator=gen, device="cuda")
+    tbl = torch.full((B, width), -1, dtype=torch.int32, device="cuda")
+    k = 0
+    for b, n in enumerate(used):
+        tbl[b, :n] = perm[k : k + n].int()
+        k += n
+    return tbl
+
+
+def _max_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def phase_llm_kernels() -> dict:
+    """Flash attention, paged attention and banked_copy against their plain
+    versions on the card; returns ``{name: largest abs difference}``.
+    Tolerances are those of ``tests/test_kernels.py``: float32 2e-5, bf16
+    2e-2 (flash) and 3e-2 (paged), banked_copy exact."""
+    import torch
+
+    from repro_torch.kernels.banked_copy.ops import banked_copy
+    from repro_torch.kernels.banked_copy.ref import banked_copy_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {name: 0.0 for name in LLM_KERNELS}
+    rows = []
+
+    def record(kernel, case, err, tol):
+        worst[kernel] = max(worst[kernel], err)
+        rows.append(dict(kernel=kernel, case=case, max_abs_err=err, tol=tol))
+        check(err <= tol, f"{kernel} {case}: kernel differs from its plain version by {err}")
+
+    # flash: (case, B, S, T, H, G, D, causal, window, dtype); the JAX tests'
+    # [BH, S, D] x [BG, T, D] cases in the port's [B, S, H, D] layout, then
+    # the serving path's prefill shapes (stablelm-1.6b: H = G = 32, D = 64)
+    flash_cases = [
+        ("jax_4_2_256_causal", 1, 256, 256, 4, 2, 64, True, 0),
+        ("jax_2_2_512_d128", 1, 512, 512, 2, 2, 128, True, 0),
+        ("jax_4_4_256x512_full", 1, 256, 512, 4, 4, 64, False, 0),
+        ("jax_2_1_256_window64", 1, 256, 256, 2, 1, 64, True, 64),
+        ("ragged_T600_full", 1, 256, 600, 4, 2, 64, False, 0),
+        ("gqa_batch2_S300", 2, 300, 300, 32, 8, 64, True, 0),
+        ("path_S128", 1, 128, 128, 32, 32, 64, True, 0),
+        ("path_S517", 1, 517, 517, 32, 32, 64, True, 0),
+        ("path_S1024", 1, 1024, 1024, 32, 32, 64, True, 0),
+    ]
+    for name, B, S, T, H, G, D, causal, window in flash_cases:
+        for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
+            q = _cuda_randn(gen, (B, S, H, D), dtype)
+            k = _cuda_randn(gen, (B, T, G, D), dtype)
+            v = _cuda_randn(gen, (B, T, G, D), dtype)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            record("flash_attention", f"{name}_{str(dtype)[6:]}", _max_err(got, want), tol)
+
+    # paged: the JAX tests' shapes, then the decode path's: 8 slots over
+    # strided layer views of an all-layer pool, one slot idle (length 0)
+    paged_cases = [
+        ("jax_2_8_2_64", 2, 8, 2, 64, 16, 16, 4, False),
+        ("jax_3_4_1_128", 3, 4, 1, 128, 32, 8, 6, False),
+        ("jax_2_16_4_64", 2, 16, 4, 64, 64, 32, 3, False),
+        ("path_8x32x64_pool_view", 8, 32, 32, 64, 2048, 16, 128, True),
+    ]
+    for name, B, H, G, D, NB, bs, mb, path in paged_cases:
+        for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
+            if path and dtype == f32:
+                continue
+            q = _cuda_randn(gen, (B, H, D), dtype)
+            if path:
+                pool = _cuda_randn(gen, (NB, bs, 24, 2, G, D), dtype)
+                kp, vp = pool[:, :, 5, 0], pool[:, :, 5, 1]
+                lens = torch.randint(128, 1057, (B,), generator=gen, device="cuda")
+                lens[3] = 0
+            else:
+                kp = _cuda_randn(gen, (NB, bs, G, D), dtype)
+                vp = _cuda_randn(gen, (NB, bs, G, D), dtype)
+                lens = torch.randint(1, mb * bs + 1, (B,), generator=gen, device="cuda")
+            used = [-(-int(n) // bs) for n in lens.tolist()]
+            tbl = _unique_tables(gen, B, mb, NB, used)
+            lens = lens.int()
+            got = paged_attention(q, kp, vp, tbl, lens)
+            torch.cuda.synchronize()
+            want = paged_attention_ref(q, kp, vp, tbl, lens)
+            record("paged_attention", f"{name}_{str(dtype)[6:]}", _max_err(got, want), tol)
+            if path:
+                check(bool((got[3] == 0).all()), f"paged {name}: idle slot not 0")
+            del q, kp, vp
+
+    # banked_copy: the JAX tests' shapes and dtypes, two unaligned tiles, and
+    # the admission path's burst of 64 blocks into the 2048-block pool
+    copy_cases = [
+        ("jax_2_4_32_16_128", 2, 4, 32, 16, 128, (f32, bf16, torch.int32)),
+        ("jax_3_2_16_8_256", 3, 2, 16, 8, 256, (f32, bf16, torch.int32)),
+        ("jax_1_8_64_32_64", 1, 8, 64, 32, 64, (f32, bf16, torch.int32)),
+        ("unaligned_3x5", 2, 3, 16, 3, 5, (f32, bf16)),
+        ("path_64_blocks", 1, 64, 2048, 16, 24 * 2 * 32 * 64, (bf16,)),
+    ]
+    for name, B, nblk, NB, bs, W, dtypes in copy_cases:
+        for dtype in dtypes:
+            if dtype == torch.int32:
+                pool = torch.randint(0, 100, (NB, bs, W), generator=gen, device="cuda").int()
+                new = torch.randint(0, 100, (B, nblk, bs, W), generator=gen, device="cuda").int()
+            else:
+                pool = _cuda_randn(gen, (NB, bs, W), dtype)
+                new = _cuda_randn(gen, (B, nblk, bs, W), dtype)
+            used = [nblk - (b % 2) for b in range(B)]  # odd rows end with a -1 entry
+            tbl = _unique_tables(gen, B, nblk, NB, used)
+            got = banked_copy(pool.clone(), new, tbl)
+            torch.cuda.synchronize()
+            want = banked_copy_ref(pool, new, tbl)
+            record("banked_copy", f"{name}_{str(dtype)[6:]}", float(not torch.equal(got, want)), 0)
+            del pool, new, got, want
+    emit("llm_kernels", cases=rows, max_abs_err=worst)
+    return worst
+
+
+def _serving_engine_cls():
+    from repro_torch.serving.engine import ServingEngine
+
+    class RecordingEngine(ServingEngine):
+        """Keeps the logits behind every token of the requests in ``record``;
+        with ``forced`` it takes those tokens in place of its own picks
+        (teacher forcing)."""
+
+        record: frozenset = frozenset()
+        forced = None
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.logits = {}
+
+        def _pick(self, reqs, logits):
+            picked = super()._pick(reqs, logits)
+            for n, r in enumerate(reqs):
+                if r.rid in self.record:
+                    self.logits[(r.rid, len(r.out_tokens))] = logits[n].clone()
+                if self.forced is not None:
+                    picked[n] = self.forced[r.rid][len(r.out_tokens)]
+            return picked
+
+    return RecordingEngine
+
+
+def _tempered(model):
+    """``model`` with every layer's ``wq`` and ``wk`` scaled by 1/8 (exact in
+    bf16): attention scores of std ~1, as in a trained model.  Under the
+    reference's fan-in init they have std ~64 and the network is chaotic at
+    any precision, so two paths that differ in the last bit of one sum give
+    unrelated logits (PERF.md, Findings)."""
+    import torch
+
+    with torch.no_grad():
+        for blk in model.layers:
+            blk.attn.wq.mul_(0.125)
+            blk.attn.wk.mul_(0.125)
+    return model
+
+
+def _logits_gap(a: dict, b: dict) -> dict:
+    """Per-token max |a - b| over the logits rows of the same tokens (max,
+    mean and median over tokens, the first token's, which comes from the
+    prefill) and the share of tokens whose argmax agrees."""
+    import torch
+
+    keys = sorted(a)
+    gaps = torch.stack([(a[k].float() - b[k].float()).abs().max() for k in keys]).cpu()
+    agree = sum(int(torch.argmax(a[k]) == torch.argmax(b[k])) for k in keys)
+    first = [g for k, g in zip(keys, gaps.tolist()) if k[1] == 0]
+    return {
+        "max": float(gaps.max()),
+        "mean": float(gaps.mean()),
+        "median": float(gaps.median()),
+        "first_token_max": max(first),
+        "argmax_agreement": agree / len(keys),
+    }
+
+
+def phase_serving() -> dict:
+    """The serving main path at full width; returns what the later phases
+    need (model, prompts, launch counts, host time per decode step)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg, spec = get_config("stablelm-1.6b"), serve.FULL
+    t0 = time.perf_counter()
+    model = _tempered(M.init_params(cfg, 0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = serve.make_prompts(cfg, spec, seed=0)
+    engine_cls = _serving_engine_cls()
+
+    # prediction: the traffic-only engine runs the same control flow
+    plan, _ = serve.new_engine(None, None, spec, prompts)
+    plan.run()
+    L = cfg.num_layers
+    want = {
+        "flash_attention": L * plan.stats.admissions,
+        "banked_copy": plan.stats.admissions,
+        "paged_attention": L * plan.stats.decode_steps,
+        "bank_arbiter": 0,
+    }
+
+    eng, reqs = serve.new_engine(cfg, model, spec, prompts, engine_cls=engine_cls)
+    first_wave = reqs[: spec.max_batch]
+    eng.record = frozenset(r.rid for r in first_wave)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        eng.step()
+        check(eng.pool.check_isolation(), f"pool isolation broken at step {eng.steps}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in want}
+    summary = serve.summarize(eng, reqs, wall)
+    check(launches == want, f"serving launches {launches}, predicted {want}")
+    check(eng.steps == plan.steps, f"{eng.steps} engine steps, traffic-only run took {plan.steps}")
+    check(
+        all(r.done and len(r.out_tokens) == spec.max_new_tokens for r in reqs),
+        "a request did not finish with its token count",
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernel_logits = eng.logits
+    forced = {r.rid: list(r.out_tokens) for r in first_wave}
+    del eng
+
+    # teacher forcing: the first wave again, fed the kernel run's tokens, on
+    # the same batches, blocks and GEMM shapes, through the plain attention
+    # path in bf16, and through kernels and plain path in float32
+    def forced_run(m, impl):
+        m.impl = impl
+        reset_launches()
+        tf, _ = serve.new_engine(cfg, m, spec, prompts[: spec.max_batch], engine_cls=engine_cls)
+        tf.record, tf.forced = frozenset(forced), forced
+        tf.run()
+        m.impl = "kernel"
+        ran = sum(LAUNCHES.values())
+        check((ran > 0) == (impl == "kernel"), f"{impl} path launched {ran} kernels")
+        check(set(tf.logits) == set(kernel_logits), "teacher-forced run saw other tokens")
+        return tf.logits
+
+    plain_logits = forced_run(model, "ref")
+    model32 = _tempered(
+        M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
+    )
+    kernel32, plain32 = forced_run(model32, "kernel"), forced_run(model32, "ref")
+    del model32
+    forcing = {
+        "bf16_kernel_vs_plain": _logits_gap(kernel_logits, plain_logits),
+        "f32_kernel_vs_plain": _logits_gap(kernel32, plain32),
+        "bf16_kernel_vs_f32_plain": _logits_gap(kernel_logits, plain32),
+    }
+    emit("teacher_forcing", tokens=len(kernel_logits), **forcing)
+    # tolerances and their reasons are stated in PERF.md (Findings) before their first run
+    for name, max_gap, agreement in (("bf16", 0.5, 0.9), ("f32", 1e-2, 0.99)):
+        gap = forcing[f"{name}_kernel_vs_plain"]
+        check(
+            gap["max"] <= max_gap and gap["argmax_agreement"] >= agreement,
+            f"{name} teacher forcing: kernel and plain paths differ: {gap}",
+        )
+    emit(
+        "serving",
+        arch=cfg.name,
+        params=cfg.num_params(),
+        init_s=init_s,
+        **{k: summary[k] for k in ("requests", "done", "out_tokens", "steps", "wall_s")},
+        prompt_tokens=summary["stats"]["prefill_tokens"],
+        prefill_tokens_per_s=summary["prefill_tokens_per_s"],
+        decode_ms_per_step=summary["decode_ms_per_step"],
+        out_tokens_per_s=summary["out_tokens_per_s"],
+        pool_imbalance=summary["pool_imbalance"],
+        peak_memory_gb=peak_gb,
+        launches=launches,
+        predicted=want,
+        stats=summary["stats"],
+        teacher_forcing=forcing,
+    )
+    return dict(
+        model=model,
+        spec=spec,
+        prompts=prompts,
+        launches=launches,
+        decode_ms_per_step=summary["decode_ms_per_step"],
+    )
+
+
+def phase_serving_profile(serving: dict) -> None:
+    """Where a decode step's time goes: 8 decode-only steps of the first wave
+    under ``torch.profiler`` against the unprofiled host time per step."""
+    from repro_torch.launch import serve
+
+    spec, steps = serving["spec"], 8
+    eng, _ = serve.new_engine(
+        serving["model"].cfg, serving["model"], spec, serving["prompts"][: spec.max_batch]
+    )
+    eng.step()  # admissions and the first decode step
+    eng.step()
+    kernels, wall = device_kernels(lambda: [eng.step() for _ in range(steps)])
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    paged_us = sum(v for k, v in by_name.items() if "paged_attention" in k)
+    host_us = serving["decode_ms_per_step"] * 1e3
+    emit(
+        "serving_profile",
+        decode_steps=steps,
+        device_kernels_per_step=len(kernels) / steps,
+        device_busy_us_per_step=busy_us / steps,
+        host_us_per_step_unprofiled=host_us,
+        device_idle_share=1 - busy_us / steps / host_us if busy_us else None,
+        paged_attention_us_per_step=paged_us / steps,
+        paged_attention_share_of_device_time=paged_us / busy_us if busy_us else None,
+        top_kernels_us_per_step={k[:80]: v / steps for k, v in top},
+        profiled_wall_s=wall,
+    )
+
+
+def _timing_row(name, fns, iters, nbytes, ops, launches, err, library):
+    """Device and call times of kernel / plain / library and the bound."""
+    call_ms = {k: time_ms(fn, iters) for k, fn in fns.items()}
+    dev_ms = {k: device_ms(fn, max(5, iters // 5)) for k, fn in fns.items()}
+    ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    emit(
+        "timing",
+        kernel=name,
+        device_us={k: None if v is None else v * 1e3 for k, v in dev_ms.items()},
+        call_us={k: v * 1e3 for k, v in call_ms.items()},
+        bytes=nbytes,
+        ops=ops,
+        bound_us=max(bytes_ms, ops_ms) * 1e3,
+        library=library,
+    )
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+        "replaces": {
+            "banked_copy": "src/repro/kernels/banked_copy/kernel.py:29",
+            "paged_attention": "src/repro/kernels/paged_attention/kernel.py:65",
+            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
+        }[name],
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms["kernel"],
+        "plain_ms": ms["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ms["library"],
+        "call_ms": call_ms["kernel"],
+        "library": library,
+    }
+
+
+def phase_llm_timing(serving: dict, errs: dict) -> list:
+    """Timing rows of the serving kernels at the path's shapes (bf16,
+    stablelm-1.6b): flash at the longest prompt (S = 1024), paged attention
+    over 8 slots at the first wave's mid-decode lengths, banked_copy of a
+    64-block burst into the 2048-block pool."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.banked_copy.ops import banked_copy
+    from repro_torch.kernels.banked_copy.ref import banked_copy_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    cfg, spec, launches = serving["model"].cfg, serving["spec"], serving["launches"]
+    H, G, D, L = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    NB, bs, mb = 2048, spec.block_size, spec.max_len // spec.block_size
+    bf16, gen = torch.bfloat16, torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+
+    S = 1024
+    q, k, v = (_cuda_randn(gen, (1, S, n, D), bf16) for n in (H, G, G))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
+    check(_max_err(lib, flash_attention_ref(q, k, v)) <= 2e-2, "SDPA yardstick disagrees")
+    rows.append(
+        _timing_row(
+            "flash_attention",
+            {
+                "kernel": lambda: flash_attention(q, k, v),
+                "plain": lambda: flash_attention_ref(q, k, v),
+                "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            },
+            100,
+            4 * S * H * D * 2,
+            4 * D * H * S * (S + 1) // 2,
+            launches["flash_attention"],
+            errs["flash_attention"],
+            "F.scaled_dot_product_attention(is_causal=True)",
+        )
+    )
+    del q, k, v, qt, kt, vt, lib
+
+    B = spec.max_batch
+    lens = [len(p) + spec.max_new_tokens // 2 for p in serving["prompts"][:B]]
+    pool = _cuda_randn(gen, (NB, bs, L, 2, G, D), bf16)
+    kp, vp = pool[:, :, 0, 0], pool[:, :, 0, 1]
+    tbl = _unique_tables(gen, B, mb, NB, [-(-n // bs) for n in lens])
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = _cuda_randn(gen, (B, H, D), bf16)
+    # yardstick: SDPA over K/V gathered beforehand (the gather is not timed)
+    kg = kp[tbl.long().clamp(min=0)].reshape(B, mb * bs, G, D).transpose(1, 2).contiguous()
+    vg = vp[tbl.long().clamp(min=0)].reshape(B, mb * bs, G, D).transpose(1, 2).contiguous()
+    mask = (torch.arange(mb * bs, device="cuda")[None] < ln[:, None].long())[:, None, None]
+    q4 = q[:, :, None]
+    lib = F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)[:, :, 0]
+    check(_max_err(lib, paged_attention_ref(q, kp, vp, tbl, ln)) <= 3e-2, "paged yardstick")
+    tokens = sum(lens)
+    rows.append(
+        _timing_row(
+            "paged_attention",
+            {
+                "kernel": lambda: paged_attention(q, kp, vp, tbl, ln),
+                "plain": lambda: paged_attention_ref(q, kp, vp, tbl, ln),
+                "library": lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask),
+            },
+            200,
+            2 * tokens * G * D * 2 + 2 * B * H * D * 2 + B * mb * 4 + B * 4,
+            4 * D * H * tokens,
+            launches["paged_attention"],
+            errs["paged_attention"],
+            "F.scaled_dot_product_attention on K/V gathered beforehand",
+        )
+    )
+    del pool, kp, vp, kg, vg, lib
+
+    nblk, W = 64, L * 2 * G * D
+    pool = _cuda_randn(gen, (NB, bs, W), bf16)
+    burst = _cuda_randn(gen, (1, nblk, bs, W), bf16)
+    tbl = _unique_tables(gen, 1, nblk, NB, [nblk])
+    idx = tbl[0].long()
+    rows.append(
+        _timing_row(
+            "banked_copy",
+            {
+                "kernel": lambda: banked_copy(pool, burst, tbl),
+                "plain": lambda: banked_copy_ref(pool, burst, tbl),
+                "library": lambda: pool.index_copy_(0, idx, burst[0]),
+            },
+            50,
+            2 * nblk * bs * W * 2 + nblk * 4,
+            0,
+            launches["banked_copy"],
+            errs["banked_copy"],
+            "Tensor.index_copy_",
+        )
+    )
+    del pool, burst
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -392,7 +889,11 @@ def main() -> int:
     main_path = phase_full_width()
     phase_profile(main_path)
     kernel = phase_timing(main_path["launches"], max_abs_err)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    llm_errs = phase_llm_kernels()
+    serving = phase_serving()
+    phase_serving_profile(serving)
+    rows = phase_llm_timing(serving, llm_errs)
+    print(json.dumps({"kernels": [kernel, *rows]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True,

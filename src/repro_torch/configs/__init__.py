@@ -1,0 +1,24 @@
+"""Architecture registry of the port: the configs it runs, by name."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig, check_supported, pad_vocab, smoke
+
+__all__ = ["ModelConfig", "check_supported", "get_config", "list_archs", "pad_vocab", "smoke"]
+
+_ARCH_MODULES: Dict[str, str] = {
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; the port runs {list_archs()}")
+    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG

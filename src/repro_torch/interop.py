@@ -2,8 +2,9 @@
 
 The reference is a JAX package; nothing here imports it.  Its objects come
 in as plain Python and numpy values (``dataclasses.asdict`` of its
-``SimParams``, numpy arrays of its trace columns and state fields), the way a
-weight converter takes a checkpoint's arrays.
+``SimParams`` and ``ModelConfig``, numpy arrays of its trace columns, state
+fields and parameter tree), the way a weight converter takes a checkpoint's
+arrays.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.address import MemoryGeometry
 from repro_torch.core.simulator import SimParams, Trace
 from repro_torch.core.state import SimState
+from repro_torch.models.model import Transformer, empty_model
 
 #: the reference's arbiter backends, both of which the Hopper kernel replaces
 _REFERENCE_ARBITERS = ("jax", "pallas")
@@ -59,3 +62,27 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device) -> SimState:
     if extra:
         raise ValueError(f"non-empty fields the dense port does not carry: {extra}")
     return SimState(**{n: torch.from_numpy(np.array(fields[n])[None]).to(device) for n in names})
+
+
+@torch.no_grad()
+def model_from_reference(
+    cfg: ModelConfig,
+    tree: Mapping,
+    *,
+    device=None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    kv_dtype: torch.dtype = torch.bfloat16,
+    impl: str = "kernel",
+) -> Transformer:
+    """A port :class:`Transformer` holding the reference's parameters.
+
+    ``tree`` is the reference's parameter tree with numpy leaves (its
+    ``init_params`` output through ``np.asarray``): nested dicts, the layer
+    stack's leaves stacked ``[L, ...]``, layouts as in the reference
+    (``wq [d, h, k]``, ``wo [h, k, d]``, ``embed [Vp, d]``, ``lm_head [d, Vp]``).
+    Weight matrices are cast to ``compute_dtype`` once here; norm scales and
+    biases stay float32.  ``device`` defaults to CUDA."""
+    model = empty_model(
+        cfg, device=device, compute_dtype=compute_dtype, kv_dtype=kv_dtype, impl=impl
+    )
+    return model.load_tree(tree)

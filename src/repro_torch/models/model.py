@@ -1,0 +1,231 @@
+"""Dense decoder stack of the port: the reference's ``models/model.py`` for
+uniform dense GQA architectures.
+
+Public API (each mirrors the reference's function of the same name):
+  param_specs(cfg)                         -> ParamSpec tree (layers stacked [L, ...])
+  init_params(cfg, seed, device=...)       -> Transformer with seeded random weights
+  prefill(model, tokens, kv_out)           -> logits [B, 1, Vp] of the last position
+  decode_step(model, tokens, pos, cache)   -> logits [B, 1, Vp]
+
+The stack is a ``ModuleList`` of blocks run in a Python loop (the reference
+scans stacked params).  Weight matrices and the embedding are stored in the
+compute dtype, cast once at load where the reference casts per einsum; norm
+scales and biases stay float32, as the reference's norms read them.  The KV
+dtype is bfloat16 by default, the reference's cache dtype.  Families, MLA,
+MoE and sliding windows this slice does not carry raise ``NotImplementedError``
+(``configs.base.check_supported``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.models.attention import ATTENTION, GQAAttention, PagedKV, gqa_specs
+from repro_torch.models.layers import Norm, ParamSpec, init_leaf, iter_specs, leaf_seed, norm_spec
+from repro_torch.models.mlp import MLP, mlp_specs
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    check_supported(cfg)
+    d, Vp = cfg.d_model, cfg.padded_vocab
+    layer = {
+        "attn_norm": norm_spec(cfg, d),
+        "attn": gqa_specs(cfg),
+        "ffn_norm": norm_spec(cfg, d),
+        "ffn": mlp_specs(cfg, cfg.d_ff),
+    }
+    return {
+        "embed": ParamSpec((Vp, d), ("vocab", "embed_table"), stddev=0.02),
+        "final_norm": norm_spec(cfg, d),
+        "lm_head": ParamSpec((d, Vp), ("embed", "vocab"), init="fan_in"),
+        "layers": _stack(layer, cfg.num_layers),
+    }
+
+
+def _stack(tree: dict, n: int) -> dict:
+    return {
+        k: v.stacked(n) if isinstance(v, ParamSpec) else _stack(v, n) for k, v in tree.items()
+    }
+
+
+class Block(torch.nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        self.attn_norm = Norm(cfg, cfg.d_model)
+        self.attn = GQAAttention(cfg, dtype)
+        self.ffn_norm = Norm(cfg, cfg.d_model)
+        self.ffn = MLP(cfg, cfg.d_ff, dtype)
+
+
+class Transformer(torch.nn.Module):
+    """The dense stack.  ``impl`` picks the attention functions: ``"kernel"``
+    (the wrappers: the Hopper kernels on CUDA tensors, their plain versions
+    on CPU tensors) or ``"ref"`` (the plain versions on any device)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        kv_dtype: torch.dtype = torch.bfloat16,
+        impl: str = "kernel",
+    ):
+        super().__init__()
+        check_supported(cfg)
+        if impl not in ATTENTION:
+            raise ValueError(f"impl must be one of {sorted(ATTENTION)}; got {impl!r}")
+        self.cfg = cfg
+        self.kv_dtype = kv_dtype
+        self.impl = impl
+        d, Vp = cfg.d_model, cfg.padded_vocab
+        self.embed = torch.nn.Parameter(torch.empty(Vp, d, dtype=compute_dtype), False)
+        self.final_norm = Norm(cfg, d)
+        self.lm_head = torch.nn.Parameter(torch.empty(d, Vp, dtype=compute_dtype), False)
+        self.layers = torch.nn.ModuleList(Block(cfg, compute_dtype) for _ in range(cfg.num_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def kv_width(self) -> int:
+        """Elements of one token's K and V across every layer (a pool row)."""
+        cfg = self.cfg
+        return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.resolved_head_dim
+
+    def load_tree(self, tree: Mapping[str, Any]) -> "Transformer":
+        """Copy a parameter tree laid out as ``param_specs`` (the reference's
+        tree: nested dicts, layer leaves stacked ``[L, ...]``, array-likes)
+        into the modules, casting each leaf to its parameter's dtype."""
+        for keys, spec in iter_specs(param_specs(self.cfg)):
+            leaf = tree
+            for k in keys:
+                leaf = leaf[k]
+            self._assign(keys, leaf, spec)
+        return self
+
+    def state_tree(self) -> dict:
+        """The parameters as a float32 numpy tree laid out as ``param_specs``
+        (the inverse of ``load_tree``)."""
+        tree: dict = {}
+        for keys, _ in iter_specs(param_specs(self.cfg)):
+            if keys[0] == "layers":
+                val = torch.stack([_param(layer, keys[1:]) for layer in self.layers])
+            else:
+                val = _param(self, keys)
+            node = tree
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = val.float().cpu().numpy()
+        return tree
+
+    @torch.no_grad()
+    def _assign(self, keys, value, spec: ParamSpec) -> None:
+        value = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+        if tuple(value.shape) != spec.shape:
+            raise ValueError(f"{keys}: shape {tuple(value.shape)}, expected {spec.shape}")
+        if keys[0] == "layers":
+            for layer, v in zip(self.layers, value):
+                _param(layer, keys[1:]).copy_(v)
+        else:
+            _param(self, keys).copy_(value)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens.long()]
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return self.final_norm(x) @ self.lm_head
+
+
+def _param(module: torch.nn.Module, keys) -> torch.Tensor:
+    for k in keys:
+        module = getattr(module, k)
+    return module
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; there is no silent CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the port runs on the CUDA device by default and this machine has none; "
+                "pass device='cpu' to run the plain PyTorch path on the host"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def empty_model(cfg: ModelConfig, *, device=None, **kwargs) -> Transformer:
+    """A :class:`Transformer` with uninitialised parameters on ``device``
+    (default: CUDA); ``kwargs`` go to its constructor."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = Transformer(cfg, **kwargs)
+    return model.to_empty(device=dev)
+
+
+@torch.no_grad()
+def init_params(
+    cfg: ModelConfig,
+    seed: int = 0,
+    *,
+    device=None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    kv_dtype: torch.dtype = torch.bfloat16,
+    impl: str = "kernel",
+) -> Transformer:
+    """A :class:`Transformer` with random weights drawn on ``device``
+    (default: CUDA) by the reference's init rules, each leaf from its own
+    generator seeded from ``seed`` and the leaf's path."""
+    model = empty_model(
+        cfg, device=device, compute_dtype=compute_dtype, kv_dtype=kv_dtype, impl=impl
+    )
+    for keys, spec in iter_specs(param_specs(cfg)):
+        model._assign(keys, init_leaf(spec, leaf_seed(seed, keys), model.device), spec)
+    return model
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor, kv_out=None) -> torch.Tensor:
+    """Run the prompt ``tokens [B, S]``.  ``kv_out`` (``[B, S, L, 2, G, D]``,
+    or None) receives every layer's fresh K/V.  Returns the last position's
+    logits ``[B, 1, Vp]`` in the compute dtype."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = model._embed(tokens)
+    for layer, blk in enumerate(model.layers):
+        kv = None if kv_out is None else kv_out[:, :, layer]
+        x = x + blk.attn.prefill(
+            blk.attn_norm(x), positions, kv, kv_dtype=model.kv_dtype, impl=model.impl
+        )
+        x = x + blk.ffn(blk.ffn_norm(x))
+    return model._logits(x[:, -1:])
+
+
+@torch.no_grad()
+def decode_step(
+    model: Transformer, tokens: torch.Tensor, pos: torch.Tensor, cache: PagedKV
+) -> torch.Tensor:
+    """One token per sequence: tokens ``[B, 1]``, pos ``[B]`` absolute index.
+    Writes each active slot's K/V into the pool and returns ``[B, 1, Vp]``."""
+    positions = pos.reshape(-1, 1)
+    x = model._embed(tokens)
+    for layer, blk in enumerate(model.layers):
+        x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl)
+        x = x + blk.ffn(blk.ffn_norm(x))
+    return model._logits(x)
+
+
+__all__ = [
+    "PagedKV",
+    "Transformer",
+    "decode_step",
+    "empty_model",
+    "init_params",
+    "param_specs",
+    "prefill",
+    "resolve_device",
+]

@@ -80,3 +80,131 @@ def test_main_path_launches_kernel_once_per_cycle(card):
     ref = simulate(trace, SimParams(max_cycles=2000, arbiter="ref"))
     for k in got:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+# ---------------------------------------------------------------- serving kernels
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _tables(gen, B, width, NB, used):
+    perm = torch.randperm(NB, generator=gen, device="cuda")
+    tbl = torch.full((B, width), -1, dtype=torch.int32, device="cuda")
+    k = 0
+    for b, n in enumerate(used):
+        tbl[b, :n] = perm[k : k + n].int()
+        k += n
+    return tbl
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "B,S,T,H,G,D,causal,window",
+    [
+        (1, 256, 256, 4, 2, 64, True, 0),
+        (1, 512, 512, 2, 2, 128, True, 0),
+        (1, 256, 600, 4, 4, 64, False, 0),  # ragged T, every key live
+        (1, 256, 256, 2, 1, 64, True, 64),
+        (2, 77, 77, 8, 2, 16, True, 0),
+        (1, 517, 517, 32, 32, 64, True, 0),
+    ],
+)
+def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, window, dtype, tol):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(S + T)
+    q = _randn(gen, (B, S, H, D), dtype)
+    k, v = _randn(gen, (B, T, G, D), dtype), _randn(gen, (B, T, G, D), dtype)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize(
+    "B,H,G,D,NB,bs,mb",
+    [
+        (2, 8, 2, 64, 16, 16, 4),
+        (3, 4, 1, 128, 32, 8, 6),
+        (2, 16, 4, 64, 64, 32, 3),
+        (8, 32, 32, 64, 512, 16, 32),
+    ],
+)
+def test_paged_attention_kernel_matches_plain(card, B, H, G, D, NB, bs, mb, dtype, tol):
+    """Ragged lengths, an empty request (length 0, no block) and a strided
+    layer view of an all-layer pool."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(B * H + NB)
+    pool = _randn(gen, (NB, bs, 3, 2, G, D), dtype)
+    kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
+    lens = torch.randint(1, mb * bs + 1, (B,), generator=gen, device="cuda")
+    lens[B - 1] = 0
+    tbl = _tables(gen, B, mb, NB, [-(-int(n) // bs) for n in lens.tolist()])
+    q = _randn(gen, (B, H, D), dtype)
+    got = paged_attention(q, kp, vp, tbl, lens.int())
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, kp, vp, tbl, lens.int())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert (got[B - 1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize(
+    "B,nblk,NB,bs,W",
+    [(2, 4, 32, 16, 128), (3, 2, 16, 8, 256), (1, 8, 64, 32, 64), (2, 3, 16, 3, 5)],
+)
+def test_banked_copy_kernel_matches_plain(card, B, nblk, NB, bs, W, dtype):
+    from repro_torch.kernels.banked_copy.ops import banked_copy
+    from repro_torch.kernels.banked_copy.ref import banked_copy_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(B * nblk + W)
+    if dtype == torch.int32:
+        pool = torch.randint(0, 100, (NB, bs, W), generator=gen, device="cuda").int()
+        new = torch.randint(0, 100, (B, nblk, bs, W), generator=gen, device="cuda").int()
+    else:
+        pool, new = _randn(gen, (NB, bs, W), dtype), _randn(gen, (B, nblk, bs, W), dtype)
+    tbl = _tables(gen, B, nblk, NB, [nblk - (b % 2) for b in range(B)])
+    got = banked_copy(pool.clone(), new, tbl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, banked_copy_ref(pool, new, tbl))
+
+
+def test_short_serving_run_launches_as_predicted(card):
+    """A reduced stablelm-1.6b (head dim 32) served on the card: launch counts
+    as the traffic-only run predicts them, and the same tokens as the plain
+    attention path (float32 compute and KV, where no near-tie is in reach)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = smoke(get_config("stablelm-1.6b"), head_dim=32)
+    spec = serve.SMOKE
+    prompts = serve.make_prompts(cfg, spec, seed=1)
+    plan, _ = serve.new_engine(None, None, spec, prompts)
+    plan.run()
+    model = M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
+    tokens = {}
+    for impl in ("kernel", "ref"):
+        model.impl = impl
+        reset_launches()
+        eng, reqs = serve.new_engine(cfg, model, spec, prompts)
+        eng.run()
+        tokens[impl] = [r.out_tokens for r in reqs]
+        launches = dict(LAUNCHES)
+        if impl == "kernel":
+            L = cfg.num_layers
+            assert launches["flash_attention"] == L * plan.stats.admissions
+            assert launches["banked_copy"] == plan.stats.admissions
+            assert launches["paged_attention"] == L * plan.stats.decode_steps
+            assert eng.steps == plan.steps and all(r.done for r in reqs)
+        else:
+            assert sum(launches.values()) == 0
+    assert tokens["kernel"] == tokens["ref"]

@@ -1,5 +1,6 @@
 """The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
-imports JAX or the reference package, and the port runs with both blocked."""
+imports JAX or the reference package, and the port (simulator and serving)
+runs with both blocked."""
 
 import ast
 import os
@@ -34,7 +35,7 @@ def _imported_roots(path: Path):
 
 def test_port_sources_import_neither_jax_nor_the_reference():
     sources = _port_sources()
-    assert len(sources) >= 12
+    assert len(sources) >= 30
     bad = [
         f"{p.relative_to(REPO)}:{line} imports {root}"
         for p in sources
@@ -56,7 +57,12 @@ from repro_torch.core.simulator import SimParams, simulate
 from repro_torch.core.traffic import random_uniform
 from repro_torch.data import golden_cases
 from repro_torch.kernels.bank_arbiter import ops  # noqa: F401
+from repro_torch.kernels.banked_copy import ops as _bc  # noqa: F401
+from repro_torch.kernels.flash_attention import ops as _fa  # noqa: F401
+from repro_torch.kernels.paged_attention import ops as _pa  # noqa: F401
+from repro_torch.launch import serve
 assert len(golden_cases()) == 3
+serve.main(["--smoke", "--device", "cpu", "--requests", "3"])
 out = simulate(random_uniform(2, 4, burst=4, seed=1), SimParams(max_cycles=400), device="cpu")
 assert bool(out["all_done"]) and out["throughput"].shape == (4,)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
