@@ -11,7 +11,10 @@ Phases, one JSON line each; any failure exits non-zero:
   2. kernels    each kernel against its plain PyTorch version on the card:
                 the arbiter grant for grant over a set of shapes, then
                 flash attention, paged attention and banked_copy at the JAX
-                tests' shapes and at the serving path's shapes
+                tests' shapes, at the edges (S = 1, ragged T, GQA 8:1, head
+                dims 16..128, lengths 0, 1, at a split and past the table)
+                and at the serving path's shapes; flash and paged twice at
+                the path's shapes, bit for bit
   3. golden     the three golden single-slice cases on the card, bit for bit
                 against ``tests/data/golden_single_slice.json``
   4. fig4/table1  the paper's Fig. 4 sweep (X = 1..16) and Table I
@@ -34,6 +37,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 by 1/8: see ``_tempered``)
   8. serving_profile  device kernels, busy time and idle share per decode step
   9. llm_timing the three serving kernels' timing rows at the path's shapes
+                (and flash at the short prompts, S = 128 and 517)
 then the kernels line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -418,7 +422,8 @@ def _max_err(got, want) -> float:
 
 def phase_llm_kernels() -> dict:
     """Flash attention, paged attention and banked_copy against their plain
-    versions on the card; returns ``{name: largest abs difference}``.
+    versions on the card, then two calls of flash and paged at the path's
+    shapes compared bit for bit; returns ``{name: largest abs difference}``.
     Tolerances are those of ``tests/test_kernels.py``: float32 2e-5, bf16
     2e-2 (flash) and 3e-2 (paged), banked_copy exact."""
     import torch
@@ -427,7 +432,7 @@ def phase_llm_kernels() -> dict:
     from repro_torch.kernels.banked_copy.ref import banked_copy_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import blocks_per_split, paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -453,6 +458,13 @@ def phase_llm_kernels() -> dict:
         ("path_S128", 1, 128, 128, 32, 32, 64, True, 0),
         ("path_S517", 1, 517, 517, 32, 32, 64, True, 0),
         ("path_S1024", 1, 1024, 1024, 32, 32, 64, True, 0),
+        ("S1", 1, 1, 1, 4, 4, 64, True, 0),
+        ("S15", 1, 15, 15, 4, 4, 64, True, 0),
+        ("S2048_gqa4", 1, 2048, 2048, 4, 1, 64, True, 0),
+        ("ragged_T333_gqa8_d32", 1, 100, 333, 8, 1, 32, False, 0),
+        ("window64_gqa8", 1, 300, 300, 32, 4, 64, True, 64),
+        ("d16", 2, 77, 77, 8, 2, 16, True, 0),
+        ("batch2_gqa4_d128", 2, 200, 200, 16, 4, 128, True, 0),
     ]
     for name, B, S, T, H, G, D, causal, window in flash_cases:
         for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
@@ -470,6 +482,8 @@ def phase_llm_kernels() -> dict:
         ("jax_2_8_2_64", 2, 8, 2, 64, 16, 16, 4, False),
         ("jax_3_4_1_128", 3, 4, 1, 128, 32, 8, 6, False),
         ("jax_2_16_4_64", 2, 16, 4, 64, 64, 32, 3, False),
+        ("heads8_3_16_2_64", 3, 16, 2, 64, 64, 16, 8, False),
+        ("d16_4_16_2_16", 4, 16, 2, 16, 64, 16, 8, False),
         ("path_8x32x64_pool_view", 8, 32, 32, 64, 2048, 16, 128, True),
     ]
     for name, B, H, G, D, NB, bs, mb, path in paged_cases:
@@ -497,6 +511,25 @@ def phase_llm_kernels() -> dict:
                 check(bool((got[3] == 0).all()), f"paged {name}: idle slot not 0")
             del q, kp, vp
 
+    # paged at the edges: lengths of 1, one split, two splits, the table's
+    # end, past it (clamped) and 0, with 8 query heads per group
+    for bs, D in ((16, 64), (8, 16), (32, 128)):
+        span = blocks_per_split(bs) * bs
+        mb = 3 * span // bs + 1
+        lens = [1, span, 2 * span, mb * bs, mb * bs + 9, 0]
+        B, H, G, NB = len(lens), 16, 2, len(lens) * mb
+        for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
+            kp, vp = (_cuda_randn(gen, (NB, bs, G, D), dtype) for _ in range(2))
+            tbl = _unique_tables(gen, B, mb, NB, [min(-(-n // bs), mb) for n in lens])
+            q = _cuda_randn(gen, (B, H, D), dtype)
+            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = paged_attention(q, kp, vp, tbl, ln)
+            torch.cuda.synchronize()
+            want = paged_attention_ref(q, kp, vp, tbl, ln)
+            err = _max_err(got, want)
+            record("paged_attention", f"edge_lengths_bs{bs}_d{D}_{str(dtype)[6:]}", err, tol)
+            check(bool((got[B - 1] == 0).all()), f"paged edge lengths bs={bs}: empty request not 0")
+
     # banked_copy: the JAX tests' shapes and dtypes, two unaligned tiles, and
     # the admission path's burst of 64 blocks into the 2048-block pool
     copy_cases = [
@@ -521,7 +554,23 @@ def phase_llm_kernels() -> dict:
             want = banked_copy_ref(pool, new, tbl)
             record("banked_copy", f"{name}_{str(dtype)[6:]}", float(not torch.equal(got, want)), 0)
             del pool, new, got, want
-    emit("llm_kernels", cases=rows, max_abs_err=worst)
+
+    # the redesigned kernels repeat to the bit at the path's shapes
+    repeat = {}
+    q, k, v = (_cuda_randn(gen, (1, 1024, 32, 64), bf16) for _ in range(3))
+    repeat["flash_attention"] = torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+    pool = _cuda_randn(gen, (2048, 16, 2, 2, 32, 64), bf16)
+    kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
+    lens = [585, 1061, 0, 700, 1024, 128, 845, 990]
+    tbl = _unique_tables(gen, 8, 128, 2048, [-(-n // 16) for n in lens])
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = _cuda_randn(gen, (8, 32, 64), bf16)
+    repeat["paged_attention"] = torch.equal(
+        paged_attention(q, kp, vp, tbl, ln), paged_attention(q, kp, vp, tbl, ln)
+    )
+    del pool, kp, vp
+    check(all(repeat.values()), f"a kernel's second call differs from its first: {repeat}")
+    emit("llm_kernels", cases=rows, max_abs_err=worst, repeats_bit_for_bit=repeat)
     return worst
 
 
@@ -612,6 +661,7 @@ def phase_serving() -> dict:
         "flash_attention": L * plan.stats.admissions,
         "banked_copy": plan.stats.admissions,
         "paged_attention": L * plan.stats.decode_steps,
+        "paged_attention_merge": L * plan.stats.decode_steps,
         "bank_arbiter": 0,
     }
 
@@ -716,7 +766,7 @@ def phase_serving_profile(serving: dict) -> None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    paged_us = sum(v for k, v in by_name.items() if "paged_attention" in k)
+    paged_us = sum(v for k, v in by_name.items() if "paged_split" in k or "paged_merge" in k)
     host_us = serving["decode_ms_per_step"] * 1e3
     emit(
         "serving_profile",
@@ -732,7 +782,7 @@ def phase_serving_profile(serving: dict) -> None:
     )
 
 
-def _timing_row(name, fns, iters, nbytes, ops, launches, err, library):
+def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=None):
     """Device and call times of kernel / plain / library and the bound."""
     call_ms = {k: time_ms(fn, iters) for k, fn in fns.items()}
     dev_ms = {k: device_ms(fn, max(5, iters // 5)) for k, fn in fns.items()}
@@ -742,6 +792,7 @@ def _timing_row(name, fns, iters, nbytes, ops, launches, err, library):
     emit(
         "timing",
         kernel=name,
+        shape=shape,
         device_us={k: None if v is None else v * 1e3 for k, v in dev_ms.items()},
         call_us={k: v * 1e3 for k, v in call_ms.items()},
         bytes=nbytes,
@@ -772,7 +823,8 @@ def _timing_row(name, fns, iters, nbytes, ops, launches, err, library):
 
 def phase_llm_timing(serving: dict, errs: dict) -> list:
     """Timing rows of the serving kernels at the path's shapes (bf16,
-    stablelm-1.6b): flash at the longest prompt (S = 1024), paged attention
+    stablelm-1.6b): flash at the longest prompt (S = 1024; S = 128 and 517 on
+    timing lines of their own), paged attention
     over 8 slots at the first wave's mid-decode lengths, banked_copy of a
     64-block burst into the 2048-block pool."""
     import torch
@@ -791,13 +843,14 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
     bf16, gen = torch.bfloat16, torch.Generator(device="cuda").manual_seed(1)
     rows = []
 
-    S = 1024
-    q, k, v = (_cuda_randn(gen, (1, S, n, D), bf16) for n in (H, G, G))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
-    check(_max_err(lib, flash_attention_ref(q, k, v)) <= 2e-2, "SDPA yardstick disagrees")
-    rows.append(
-        _timing_row(
+    # flash at the short prompts (timing lines only, where a 64-row tile
+    # leaves the card underfilled) and at the longest (the kernels line)
+    for S in (128, 517, 1024):
+        q, k, v = (_cuda_randn(gen, (1, S, n, D), bf16) for n in (H, G, G))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
+        check(_max_err(lib, flash_attention_ref(q, k, v)) <= 2e-2, "SDPA yardstick disagrees")
+        row = _timing_row(
             "flash_attention",
             {
                 "kernel": lambda: flash_attention(q, k, v),
@@ -810,9 +863,11 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
             launches["flash_attention"],
             errs["flash_attention"],
             "F.scaled_dot_product_attention(is_causal=True)",
+            shape=dict(B=1, S=S, H=H, G=G, D=D, causal=True),
         )
-    )
-    del q, k, v, qt, kt, vt, lib
+        if S == 1024:
+            rows.append(row)
+        del q, k, v, qt, kt, vt, lib
 
     B = spec.max_batch
     lens = [len(p) + spec.max_new_tokens // 2 for p in serving["prompts"][:B]]
@@ -843,6 +898,7 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
             launches["paged_attention"],
             errs["paged_attention"],
             "F.scaled_dot_product_attention on K/V gathered beforehand",
+            shape=dict(B=B, H=H, G=G, D=D, block_size=bs, lengths=lens),
         )
     )
     del pool, kp, vp, kg, vg, lib
@@ -866,6 +922,7 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
             launches["banked_copy"],
             errs["banked_copy"],
             "Tensor.index_copy_",
+            shape=dict(blocks=nblk, block_size=bs, W=W, pool_blocks=NB),
         )
     )
     del pool, burst

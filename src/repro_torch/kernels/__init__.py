@@ -10,7 +10,13 @@ that its main path went through the kernels.
 from __future__ import annotations
 
 #: kernel launches per kernel name, bumped by each wrapper where it launches
-LAUNCHES = {"bank_arbiter": 0, "banked_copy": 0, "paged_attention": 0, "flash_attention": 0}
+LAUNCHES = {
+    "bank_arbiter": 0,
+    "banked_copy": 0,
+    "paged_attention": 0,
+    "paged_attention_merge": 0,
+    "flash_attention": 0,
+}
 
 
 def reset_launches() -> None:

@@ -2,8 +2,9 @@
 
 Each kernel source ``kernels/<name>/csrc/<name>.cu`` has a plain C interface.
 ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library under
-``kernels/_build/`` (listed in ``.gitignore``), named after a hash of the
-source so an edited source is rebuilt.  Several sources build in parallel,
+``kernels/_build/`` (listed in ``.gitignore``), named after a hash of every
+file under the kernel's ``csrc/`` and the flags, so an edited source or
+header is rebuilt.  Several sources build in parallel,
 one ``nvcc`` process each.  A failed build raises with nvcc's stderr.
 """
 
@@ -43,25 +44,34 @@ def _nvcc() -> str:
     raise RuntimeError(f"nvcc not found (looked in {cuda_home}/bin and on PATH)")
 
 
-def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1(source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+def _lib_path(name: str, flags, build_dir: Path) -> Path:
+    digest = hashlib.sha1(" ".join(flags).encode())
+    for f in sorted(source_path(name).parent.rglob("*")):
+        if f.is_file():
+            digest.update(f.name.encode() + f.read_bytes())
+    return build_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names) -> dict:
+def build(names, *, extra_flags=(), build_dir: Path = BUILD_DIR, log: dict | None = None) -> dict:
     """Compile every named kernel whose library is missing, all ``nvcc``
-    processes started together, and return ``{name: library path}``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in names}
+    processes started together, and return ``{name: library path}``.
+    ``extra_flags`` go after ``NVCC_FLAGS``; ``log`` receives nvcc's stderr
+    per kernel built (``-Xptxas -v`` prints registers, shared memory and
+    spills there)."""
+    flags = (*NVCC_FLAGS, *extra_flags)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    paths = {name: _lib_path(name, flags, build_dir) for name in names}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     procs = {}
     for name, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(source_path(name))]
         procs[name] = (tmp, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True))
     errors = []
     for name, (tmp, proc) in procs.items():
         _, err = proc.communicate()
+        if log is not None:
+            log[name] = err
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {source_path(name)} (exit {proc.returncode}):\n{err}")
         else:

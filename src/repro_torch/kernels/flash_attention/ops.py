@@ -1,10 +1,14 @@
 """Entry point of the flash-attention forward.
 
 ``flash_attention`` is what prefill attention calls, once per layer, on the
-prompt's fresh Q, K and V.  On CUDA tensors it launches the hand-written
+prompt's fresh Q, K and V.  On CUDA tensors it launches a hand-written
 Hopper kernel (``csrc/flash_attention.cu``) and counts the launch in
-``repro_torch.kernels.LAUNCHES["flash_attention"]``; on CPU tensors it runs
-the plain version (``ref.py``).  There is no fallback between the two.
+``repro_torch.kernels.LAUNCHES["flash_attention"]``: bfloat16 inputs go to
+the tensor-core kernel (``wgmma`` fed by TMA), float32 inputs to the
+CUDA-core kernel, which keeps float32's digits where the tensor cores would
+round to TF32.  The split is by type; a launch that fails raises.  On CPU
+tensors it runs the plain version (``ref.py``).  There is no fallback
+between any two of these.
 """
 
 from __future__ import annotations
@@ -18,19 +22,20 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's C entry point per input dtype
+_ENTRY = {torch.float32: "flash_attention_fwd_f32", torch.bfloat16: "flash_attention_fwd_bf16"}
 
 _fns: dict = {}
 
 
-def _kernel_fn():
-    if not _fns:
-        fn = _build.load("flash_attention").flash_attention_fwd
+def _kernel_fn(dtype: torch.dtype):
+    if dtype not in _fns:
+        fn = getattr(_build.load("flash_attention"), _ENTRY[dtype])
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-        fn.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes += [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fns["fn"] = fn
-    return _fns["fn"]
+        _fns[dtype] = fn
+    return _fns[dtype]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
@@ -44,12 +49,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> No
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not fit as GQA")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}: the kernel is built for {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or {k.dtype, v.dtype} != {q.dtype}:
+    if q.dtype not in _ENTRY or {k.dtype, v.dtype} != {q.dtype}:
         raise TypeError(f"q/k/v must share float32 or bfloat16; got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.device.type != "cuda" or {k.device, v.device} != {q.device}:
         raise ValueError(f"q/k/v must lie on one CUDA device; got {q.device}/{k.device}/{v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries (TMA)")
     if window < 0 or B >= 2**16 or H >= 2**16 or max(S, k.shape[1]) >= 2**31:
         raise ValueError(f"unsupported sizes: B={B}, H={H}, S={S}, window={window}")
 
@@ -74,7 +81,7 @@ def flash_attention(
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    err = _kernel_fn()(
+    err = _kernel_fn(q.dtype)(
         q.data_ptr(),
         k.data_ptr(),
         v.data_ptr(),
@@ -88,7 +95,6 @@ def flash_attention(
         int(causal),
         int(window),
         float(scale),
-        _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

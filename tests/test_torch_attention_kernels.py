@@ -22,9 +22,15 @@ from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.banked_copy.ops import banked_copy  # noqa: E402
 from repro_torch.kernels.banked_copy.ref import banked_copy_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
-from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_mask,
+    flash_attention_ref,
+)
+from repro_torch.kernels.paged_attention.ops import blocks_per_split, paged_attention  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_ref,
+    paged_attention_split_ref,
+)
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -222,3 +228,96 @@ def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         banked_copy(meta[4], torch.ones(1, 2, 2, 3, device="meta"), meta[5])
     assert LAUNCHES == before
+
+
+# ------------------------------------------------ the redesigned kernels' arithmetic
+
+
+def _split_inputs(rng, dtype):
+    """Five requests over a 9-block table of 4-token blocks: ragged, with a
+    hole of -1 blocks (empty splits), length at the table's end, length past
+    it (clamped), and an empty request."""
+    B, H, G, D, NB, bs, mb = 5, 16, 2, 32, 64, 4, 9
+    q, kp, vp = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+        for s in ((B, H, D), (NB, bs, G, D), (NB, bs, G, D))
+    )
+    tbl = torch.from_numpy(rng.choice(NB, (B, mb), replace=False).astype(np.int32))
+    tbl[1, 2:6] = -1
+    tbl[4] = -1
+    lens = torch.tensor([23, 30, mb * bs, mb * bs + 5, 0], dtype=torch.int32)
+    return q, kp, vp, tbl, lens
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("bps", range(1, 11))
+def test_paged_split_and_merge_matches_plain(bps, dtype, tol):
+    """The CUDA kernel's arithmetic: splits of every size from one block to
+    more than the table, empty splits inside a request, the empty request."""
+    q, kp, vp, tbl, lens = _split_inputs(np.random.default_rng(9), dtype)
+    got = paged_attention_split_ref(q, kp, vp, tbl, lens, blocks_per_split=bps)
+    want = paged_attention_ref(q, kp, vp, tbl, lens)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert (got[4] == 0).all()
+
+
+def test_paged_split_size_covers_whole_blocks():
+    assert [blocks_per_split(bs) for bs in (1, 3, 16, 32, 256, 512)] == [256, 86, 16, 8, 1, 1]
+
+
+def _flash_rounded_p(q, k, v, *, causal, window, tile=64):
+    """The bf16 flash kernel's arithmetic: per 64-key tile an online softmax
+    in float32, P (against the running max) rounded to bf16 before P V, the
+    sum of P kept unrounded."""
+    B, S, H, D = q.shape
+    T, G = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, S, G, H // G, D) * D**-0.5
+    kf, vf = k.float(), v.float()
+    ok = attention_mask(S, T, causal=causal, window=window)
+    m = torch.full((B, G, H // G, S), -torch.inf)
+    l = torch.zeros((B, G, H // G, S))
+    o = torch.zeros((B, G, H // G, S, D))
+    for k0 in range(0, T, tile):
+        s = torch.einsum("bsgmd,btgd->bgmst", qf, kf[:, k0 : k0 + tile])
+        s = s.masked_fill(~ok[:, k0 : k0 + tile], -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        base = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp(m - base)
+        p = torch.exp(s - base[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bgmst,btgd->bgmsd", p.bfloat16().float(), vf[:, k0 : k0 + tile])
+        o = o * alpha[..., None] + pv
+        m = m_new
+    out = torch.where((l > 0)[..., None], o / torch.where(l > 0, l, 1.0)[..., None], 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).bfloat16()
+
+
+@pytest.mark.parametrize(
+    "B,S,T,H,G,D,causal,window",
+    [
+        (1, 256, 256, 4, 2, 64, True, 0),
+        (1, 512, 512, 2, 2, 128, True, 0),
+        (1, 256, 600, 4, 4, 64, False, 0),
+        (1, 256, 256, 2, 1, 64, True, 64),
+        (2, 77, 77, 8, 2, 16, True, 0),
+        (1, 517, 517, 32, 32, 64, True, 0),
+        (1, 1, 1, 4, 4, 64, True, 0),
+        (1, 15, 15, 4, 4, 64, True, 0),
+        (1, 2048, 2048, 4, 1, 64, True, 0),
+        (1, 100, 333, 8, 1, 32, False, 0),
+        (1, 300, 300, 32, 4, 64, True, 64),
+        (2, 200, 200, 16, 4, 128, True, 0),
+    ],
+)
+def test_flash_bf16_p_rounding_stays_within_tolerance(B, S, T, H, G, D, causal, window):
+    """Rounding P to bf16 before P V (the tensor-core kernel's one new
+    rounding) keeps the output within flash's bf16 tolerance of 2e-2, at the
+    card tests' shapes."""
+    rng = np.random.default_rng(S + T + D)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16()
+        for s in ((B, S, H, D), (B, T, G, D), (B, T, G, D))
+    )
+    got = _flash_rounded_p(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)

@@ -109,6 +109,12 @@ def _tables(gen, B, width, NB, used):
         (1, 256, 256, 2, 1, 64, True, 64),
         (2, 77, 77, 8, 2, 16, True, 0),
         (1, 517, 517, 32, 32, 64, True, 0),
+        (1, 1, 1, 4, 4, 64, True, 0),
+        (1, 15, 15, 4, 4, 64, True, 0),
+        (1, 2048, 2048, 4, 1, 64, True, 0),  # GQA 4:1
+        (1, 100, 333, 8, 1, 32, False, 0),  # ragged T, GQA 8:1
+        (1, 300, 300, 32, 4, 64, True, 64),
+        (2, 200, 200, 16, 4, 128, True, 0),
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, window, dtype, tol):
@@ -134,6 +140,8 @@ def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, wi
         (3, 4, 1, 128, 32, 8, 6),
         (2, 16, 4, 64, 64, 32, 3),
         (8, 32, 32, 64, 512, 16, 32),
+        (3, 16, 2, 64, 64, 16, 8),  # 8 query heads per group
+        (4, 16, 2, 16, 64, 16, 8),  # head dim 16
     ],
 )
 def test_paged_attention_kernel_matches_plain(card, B, H, G, D, NB, bs, mb, dtype, tol):
@@ -154,6 +162,54 @@ def test_paged_attention_kernel_matches_plain(card, B, H, G, D, NB, bs, mb, dtyp
     want = paged_attention_ref(q, kp, vp, tbl, lens.int())
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert (got[B - 1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("bs,D", [(16, 64), (8, 16), (32, 128)])
+def test_paged_attention_kernel_edge_lengths(card, bs, D, dtype, tol):
+    """Lengths of 1, exactly one split, two splits, the table's end, past the
+    table's end (clamped) and 0; 8 query heads per group."""
+    from repro_torch.kernels.paged_attention.ops import blocks_per_split, paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    span = blocks_per_split(bs) * bs
+    mb = 3 * span // bs + 1
+    lens = [1, span, 2 * span, mb * bs, mb * bs + 9, 0]
+    B, H, G, NB = len(lens), 16, 2, len(lens) * mb
+    gen = torch.Generator(device="cuda").manual_seed(bs + D)
+    kp, vp = _randn(gen, (NB, bs, G, D), dtype), _randn(gen, (NB, bs, G, D), dtype)
+    tbl = _tables(gen, B, mb, NB, [min(-(-n // bs), mb) for n in lens])
+    q = _randn(gen, (B, H, D), dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"])
+    got = paged_attention(q, kp, vp, tbl, ln)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"]) == (
+        before[0] + 1,
+        before[1] + 1,
+    )
+    want = paged_attention_ref(q, kp, vp, tbl, ln)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert (got[B - 1] == 0).all()
+
+
+def test_attention_kernels_repeat_bit_for_bit(card):
+    """Two calls of each redesigned kernel on the same inputs give the same
+    bits (the paged merge sums its splits in a fixed order, no atomics)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_randn(gen, (1, 1024, 32, 64), dtype) for _ in range(3))
+        assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+        pool = _randn(gen, (512, 16, 2, 2, 32, 64), dtype)
+        kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
+        lens = [585, 1061, 0, 700]
+        tbl = _tables(gen, 4, 128, 512, [-(-n // 16) for n in lens])
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = _randn(gen, (4, 32, 64), dtype)
+        assert torch.equal(paged_attention(q, kp, vp, tbl, ln), paged_attention(q, kp, vp, tbl, ln))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
@@ -181,11 +237,20 @@ def test_short_serving_run_launches_as_predicted(card):
     """A reduced stablelm-1.6b (head dim 32) served on the card: launch counts
     as the traffic-only run predicts them, and the same tokens as the plain
     attention path (float32 compute and KV, where no near-tie is in reach)."""
+    _serve_reduced(head_dim=32)
+
+
+def test_short_serving_run_at_head_dim_16(card):
+    """The reduced configs' own head dim of 16 decodes through the kernels."""
+    _serve_reduced(head_dim=16)
+
+
+def _serve_reduced(head_dim):
     from repro_torch.configs import get_config, smoke
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = smoke(get_config("stablelm-1.6b"), head_dim=32)
+    cfg = smoke(get_config("stablelm-1.6b"), head_dim=head_dim)
     spec = serve.SMOKE
     prompts = serve.make_prompts(cfg, spec, seed=1)
     plan, _ = serve.new_engine(None, None, spec, prompts)
@@ -204,6 +269,7 @@ def test_short_serving_run_launches_as_predicted(card):
             assert launches["flash_attention"] == L * plan.stats.admissions
             assert launches["banked_copy"] == plan.stats.admissions
             assert launches["paged_attention"] == L * plan.stats.decode_steps
+            assert launches["paged_attention_merge"] == L * plan.stats.decode_steps
             assert eng.steps == plan.steps and all(r.done for r in reqs)
         else:
             assert sum(launches.values()) == 0
