@@ -9,7 +9,10 @@ Phases, one JSON line each; any failure exits non-zero:
   1. build      compile every kernel of the port from ``src/repro_torch``
                 (one ``nvcc`` per source, all started together)
   2. kernels    each kernel against its plain PyTorch version on the card:
-                the arbiter grant for grant over a set of shapes, then
+                the arbiter grant for grant over a set of shapes (B = 1..64,
+                ragged lanes, views with storage offsets, 130 banks, each
+                cluster size it can pick, a CUDA-graph replay on new inputs,
+                two calls bit for bit), then
                 flash attention, paged attention and banked_copy at the JAX
                 tests' shapes, at the edges (S = 1, ragged T, GQA 8:1, head
                 dims 16..128, lengths 0, 1, at a split and past the table)
@@ -25,7 +28,9 @@ Phases, one JSON line each; any failure exits non-zero:
   5. profile    device kernels, device busy time and idle share per cycle
                 of the main path, from ``torch.profiler``
   6. timing     per-call device time of each kernel, its plain version and
-                one PyTorch call computing the same function
+                one PyTorch call computing the same function: the arbiter at
+                the main path's shape (B = 1) and a sweep's (B = 64), each
+                beside the empty kernel of its launch shape (its floor)
   7. serving    the second main path: stablelm-1.6b at full width (random
                 weights from a seed) through ``repro_torch.launch.serve``,
                 16 requests of 128..1024 prompt tokens, 32 new tokens each,
@@ -117,30 +122,15 @@ def device_ms(fn, iters: int):
     return busy_us / iters / 1e3 if busy_us > 0 else None
 
 
-def arb_inputs(rng, B, S, NB, X, *, elig_p=0.4, bank_dtype=None, key_hi=None):
-    """Random arbitration inputs on the card: keys packed as the simulator
-    packs them (or drawn from ``[0, key_hi)`` to force ties)."""
-    import numpy as np
+def _offset_view(t, offset: int):
+    """``t``'s values in a view whose data start ``offset`` elements into a
+    larger buffer (a storage offset; not 16-byte aligned for odd offsets)."""
     import torch
 
-    from repro_torch.core.qos import arbitration_priority_key
-    from repro_torch.core.simulator import SimParams, _age_cap
-
-    age_cap = _age_cap(SimParams(), X)
-    if key_hi is None:
-        level = rng.integers(0, 8, (B, S))
-        age = rng.integers(0, min(age_cap + 1, 4096), (B, S))
-        rr = rng.integers(0, X, (B, S))
-        key = arbitration_priority_key(level, age, rr, age_cap=age_cap, num_masters=X)
-    else:
-        key = rng.integers(0, key_hi, (B, S))
-    bank = rng.integers(0, NB, (B, S))
-    elig = rng.random((B, S)) < elig_p
-    return (
-        torch.tensor(np.asarray(key), dtype=torch.int32, device="cuda"),
-        torch.tensor(bank, dtype=bank_dtype or torch.int16, device="cuda"),
-        torch.tensor(elig, device="cuda"),
-    )
+    flat = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = flat[offset : offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def phase_build() -> None:
@@ -157,12 +147,14 @@ def phase_kernels() -> int:
     import numpy as np
     import torch
 
+    from repro_torch.kernels.bank_arbiter.bench import arb_inputs
     from repro_torch.kernels.bank_arbiter.ops import bank_arbiter_winners
     from repro_torch.kernels.bank_arbiter.ref import bank_arbiter_ref
 
     rng = np.random.default_rng(0)
     cases = [
-        # (name, B, S, NB, X, options)
+        # (name, B, S, NB, X, options); "cluster" forces the CTAs per lane,
+        # "offsets" puts key/bank/elig in views with those storage offsets
         ("sim_core_64x16", 1, 64, 16, 4, {}),
         ("sim_core_256x256", 1, 256, 256, 8, {}),
         ("sim_core_2048x256", 1, 2048, 256, 16, {}),
@@ -175,11 +167,22 @@ def phase_kernels() -> int:
         ("ties", 2, 8192, 256, 32, {"key_hi": 4, "elig_p": 0.9}),
         ("no_eligible", 2, 8192, 256, 32, {"elig_p": 0.0}),
         ("filler_keys", 1, 2048, 64, 8, {"key_hi": 2**30 + 1, "elig_p": 0.5}),
+        ("batch64", 64, 8192, 256, 32, {}),
+        ("nb130_8192", 2, 8192, 130, 32, {}),
+        ("offset_views_1_3_5", 3, 8193, 256, 32, {"offsets": (1, 3, 5)}),
+        ("offset_views_4_2_13", 3, 8193, 130, 32, {"offsets": (4, 2, 13), "cluster": 8}),
+        ("S64_cluster8", 1, 64, 16, 4, {"cluster": 8}),
+        *(("paper_cluster%d" % c, 1, 8192, 256, 32, {"cluster": c}) for c in (1, 2, 4, 8)),
+        *(("ragged_nb130_cluster%d" % c, 3, 8193, 130, 32, {"cluster": c}) for c in (1, 2, 4, 8)),
     ]
     worst, rows = 0, []
     for name, B, S, NB, X, opts in cases:
+        opts = dict(opts)
+        cluster, offsets = opts.pop("cluster", None), opts.pop("offsets", None)
         key, bank, elig = arb_inputs(rng, B, S, NB, X, **opts)
-        got = bank_arbiter_winners(key, bank, elig, num_banks=NB)
+        if offsets:
+            key, bank, elig = (_offset_view(t, o) for t, o in zip((key, bank, elig), offsets))
+        got = bank_arbiter_winners(key, bank, elig, num_banks=NB, _cluster=cluster)
         torch.cuda.synchronize()
         want = bank_arbiter_ref(key, bank, elig, num_banks=NB)
         torch.cuda.synchronize()
@@ -190,7 +193,33 @@ def phase_kernels() -> int:
         check(err == 0, f"{name}: kernel disagrees with the plain version")
         if opts.get("elig_p") == 0.0:
             check(bool((got == S).all()), f"{name}: no-winner sentinel")
-    emit("kernels", cases=rows, max_abs_err=worst)
+
+    # one call captured in a CUDA graph, replayed on new inputs copied into
+    # its static tensors; then two calls on the same inputs, bit for bit
+    B, S, NB = 1, 8192, 256
+    static = arb_inputs(rng, B, S, NB, 32)
+    bank_arbiter_winners(*static, num_banks=NB)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bank_arbiter_winners(*static, num_banks=NB)
+    for n in range(3):
+        fresh = arb_inputs(rng, B, S, NB, 32)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        err = int((out.long() - bank_arbiter_ref(*fresh, num_banks=NB).long()).abs().max())
+        worst = max(worst, err)
+        rows.append(dict(case=f"cuda_graph_replay_{n}", B=B, S=S, NB=NB, max_abs_err=err))
+        check(err == 0, f"CUDA-graph replay {n} disagrees with the plain version")
+    repeat = {}
+    for B in (1, 64):
+        key, bank, elig = arb_inputs(rng, B, S, NB, 32, key_hi=8, elig_p=0.9)
+        first = bank_arbiter_winners(key, bank, elig, num_banks=NB)
+        repeat[f"B{B}"] = torch.equal(first, bank_arbiter_winners(key, bank, elig, num_banks=NB))
+    check(all(repeat.values()), f"the arbiter's second call differs from its first: {repeat}")
+    emit("kernels", cases=rows, max_abs_err=worst, repeats_bit_for_bit=repeat)
     return worst
 
 
@@ -339,48 +368,64 @@ def phase_profile(main: dict) -> None:
 
 
 def phase_timing(launches: int, max_abs_err: int) -> dict:
-    """Times at the main path's shape (B=1, S=32*256, NB=256): device time
-    per call from the profiler (``ms``; CUDA events over back-to-back calls
-    where the profiler records nothing) and the per-call time of
-    back-to-back calls between CUDA events, which includes the host's
-    launch overhead."""
+    """Times at the main path's shape (B=1, S=32*256, NB=256) and at a
+    sweep's (B=64): device time per call from the profiler (``ms``; CUDA
+    events over back-to-back calls where the profiler records nothing) and
+    the per-call time of back-to-back calls between CUDA events, which
+    includes the host's launch overhead; beside them the device time of the
+    empty kernel of the arbiter's launch shape (``floor``)."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.bank_arbiter.ops import bank_arbiter_winners
+    from repro_torch.kernels.bank_arbiter.bench import arb_inputs
+    from repro_torch.kernels.bank_arbiter.ops import (
+        bank_arbiter_winners,
+        floor_launch,
+        launch_shape,
+    )
     from repro_torch.kernels.bank_arbiter.ref import KEY_FILLER, bank_arbiter_ref
 
-    B, S, NB, X = 1, 8192, 256, 32
-    key, bank, elig = arb_inputs(np.random.default_rng(1), B, S, NB, X)
-    # yardstick: one library call on the packed (key << 32 | slot) int64
-    slots = torch.arange(S, device="cuda", dtype=torch.int64)
-    packed = torch.where(elig, (key.long() << 32) | slots, (KEY_FILLER << 32) | S)
-    seg = torch.where(elig, bank.long(), NB)
-    init = torch.full((B, NB + 1), (KEY_FILLER << 32) | S, dtype=torch.int64, device="cuda")
-    lib_win = (init.scatter_reduce(1, seg, packed, "amin")[:, :NB] & 0xFFFFFFFF).int()
-    check(
-        torch.equal(lib_win, bank_arbiter_ref(key, bank, elig, num_banks=NB)),
-        "scatter_reduce yardstick disagrees",
-    )
-    fns = {
-        "kernel": lambda: bank_arbiter_winners(key, bank, elig, num_banks=NB),
-        "plain": lambda: bank_arbiter_ref(key, bank, elig, num_banks=NB),
-        "library": lambda: init.scatter_reduce(1, seg, packed, "amin"),
-    }
-    call_ms = {k: time_ms(fn, 2000) for k, fn in fns.items()}
-    dev_ms = {k: device_ms(fn, 200) for k, fn in fns.items()}
-    ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
-    nbytes = S * (key.element_size() + bank.element_size() + elig.element_size()) + NB * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * S / ALU_OPS_PER_S * 1e3  # a test, a pack and an atomic per slot
-    emit(
-        "timing",
-        shape=dict(B=B, S=S, NB=NB),
-        device_us={k: None if v is None else v * 1e3 for k, v in dev_ms.items()},
-        call_us={k: v * 1e3 for k, v in call_ms.items()},
-        bytes=nbytes,
-        bound_us=max(bytes_ms, ops_ms) * 1e3,
-    )
+    rows = {}
+    for B in (1, 64):
+        S, NB, X = 8192, 256, 32
+        key, bank, elig = arb_inputs(np.random.default_rng(B), B, S, NB, X)
+        # yardstick: one library call on the packed (key << 32 | slot) int64
+        slots = torch.arange(S, device="cuda", dtype=torch.int64)
+        packed = torch.where(elig, (key.long() << 32) | slots, (KEY_FILLER << 32) | S)
+        seg = torch.where(elig, bank.long(), NB)
+        init = torch.full((B, NB + 1), (KEY_FILLER << 32) | S, dtype=torch.int64, device="cuda")
+        lib_win = (init.scatter_reduce(1, seg, packed, "amin")[:, :NB] & 0xFFFFFFFF).int()
+        check(
+            torch.equal(lib_win, bank_arbiter_ref(key, bank, elig, num_banks=NB)),
+            "scatter_reduce yardstick disagrees",
+        )
+        fns = {
+            "kernel": lambda: bank_arbiter_winners(key, bank, elig, num_banks=NB),
+            "floor": lambda: floor_launch(B, S, num_banks=NB, device=key.device),
+            "plain": lambda: bank_arbiter_ref(key, bank, elig, num_banks=NB),
+            "library": lambda: init.scatter_reduce(1, seg, packed, "amin"),
+        }
+        call_ms = {k: time_ms(fn, 2000) for k, fn in fns.items()}
+        dev_ms = {k: device_ms(fn, 200) for k, fn in fns.items()}
+        ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
+        nbytes = B * S * (key.element_size() + bank.element_size() + elig.element_size())
+        nbytes += B * NB * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 3 * B * S / ALU_OPS_PER_S * 1e3  # a test, a pack and an atomic per slot
+        cluster, threads, tile = launch_shape(
+            B, S, torch.cuda.get_device_properties(0).multi_processor_count
+        )
+        emit(
+            "timing",
+            shape=dict(B=B, S=S, NB=NB),
+            launch=dict(cluster=cluster, threads=threads, tile=tile),
+            device_us={k: None if v is None else v * 1e3 for k, v in dev_ms.items()},
+            call_us={k: v * 1e3 for k, v in call_ms.items()},
+            bytes=nbytes,
+            bound_us=max(bytes_ms, ops_ms) * 1e3,
+        )
+        rows[B] = dict(ms=ms, call_ms=call_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    main = rows[1]
     return {
         "name": "bank_arbiter",
         "route": "cuda",
@@ -388,12 +433,15 @@ def phase_timing(launches: int, max_abs_err: int) -> dict:
         "replaces": "src/repro/kernels/bank_arbiter/kernel.py:79",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": ms["kernel"],
-        "plain_ms": ms["plain"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": ms["library"],
-        "call_ms": call_ms["kernel"],
+        "ms": main["ms"]["kernel"],
+        "plain_ms": main["ms"]["plain"],
+        "bound_ms": max(main["bytes_ms"], main["ops_ms"]),
+        "bound_by": "bytes" if main["bytes_ms"] >= main["ops_ms"] else "operations",
+        "library_ms": main["ms"]["library"],
+        "call_ms": main["call_ms"]["kernel"],
+        "floor_ms": main["ms"]["floor"],
+        "B64_ms": rows[64]["ms"]["kernel"],
+        "B64_floor_ms": rows[64]["ms"]["floor"],
     }
 
 

@@ -18,18 +18,57 @@ from repro_torch.kernels.bank_arbiter.ref import bank_arbiter_ref
 
 #: static shared memory a block may use without opting in (one u64 per bank)
 SHARED_LIMIT = 48 * 1024
+#: CTAs per lane the kernel takes: the portable thread-block cluster sizes
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: a lane is spread over more CTAs only while each keeps this many slots
+MIN_SLOTS_PER_CTA = 512
+#: slots a CTA stages in shared memory at a time, and the block size cap
+MAX_TILE, MAX_THREADS = 4096, 512
 
 _fns: dict = {}
+_sms: dict = {}
 
 
-def _kernel_fn(bank_dtype: torch.dtype):
+def _lib():
     if not _fns:
         lib = _build.load("bank_arbiter")
         for dtype, fn in ((torch.int16, lib.bank_arbiter_i16), (torch.int32, lib.bank_arbiter_i32)):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _fns[dtype] = fn
-    return _fns[bank_dtype]
+        lib.bank_arbiter_floor.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.bank_arbiter_floor.restype = ctypes.c_int
+        _fns["floor"] = lib.bank_arbiter_floor
+    return _fns
+
+
+def launch_shape(B: int, S: int, num_sms: int, cluster: int | None = None) -> tuple[int, int, int]:
+    """``(CTAs per lane, threads per CTA, slots per tile)`` of the launch.
+
+    The cluster size is the smallest portable one whose ``B * C`` CTAs cover
+    the card's SMs, so it is 1 once ``B`` alone fills the card, and it stops
+    growing where a CTA would keep fewer than ``MIN_SLOTS_PER_CTA`` slots.
+    ``cluster`` forces it (tests).  A CTA folds ``ceil(S / C)`` slots, rounded
+    up to 16, in tiles of at most ``MAX_TILE`` staged in shared memory, with
+    one thread per two slots of a tile, in whole warps, at most
+    ``MAX_THREADS``."""
+    if cluster is None:
+        fit = max(1, S // MIN_SLOTS_PER_CTA)
+        cluster = next(
+            (c for c in CLUSTER_SIZES if B * c >= num_sms or 2 * c > fit), CLUSTER_SIZES[-1]
+        )
+    elif cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster}; the kernel takes {CLUSTER_SIZES} CTAs per lane")
+    share = -(-S // cluster)
+    tile = min(MAX_TILE, max(16, -(-share // 16) * 16))
+    return cluster, min(MAX_THREADS, 32 * -(-tile // 64)), tile
+
+
+def _num_sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def _check(key: torch.Tensor, bank: torch.Tensor, elig: torch.Tensor, num_banks: int) -> None:
@@ -52,24 +91,31 @@ def _check(key: torch.Tensor, bank: torch.Tensor, elig: torch.Tensor, num_banks:
             f"num_banks={num_banks} needs {num_banks * 8} bytes of shared memory; "
             f"the kernel takes 1..{SHARED_LIMIT // 8} banks"
         )
-    if key.shape[1] >= 2**31:
+    if key.shape[1] >= 2**31 - MAX_TILE:
         raise ValueError(f"S={key.shape[1]} slots do not fit the kernel's int slot ids")
 
 
 def bank_arbiter_winners(
-    key: torch.Tensor, bank: torch.Tensor, elig: torch.Tensor, *, num_banks: int
+    key: torch.Tensor,
+    bank: torch.Tensor,
+    elig: torch.Tensor,
+    *,
+    num_banks: int,
+    _cluster: int | None = None,
 ) -> torch.Tensor:
     """Winning slot per bank: key/bank/elig ``[B, S]`` -> ``[B, num_banks]``
     int32, ``S`` where a bank has no eligible slot.  Keys must lie in
-    ``[0, 2**30]`` and eligible slots' banks in ``[0, num_banks)``."""
+    ``[0, 2**30]`` and eligible slots' banks in ``[0, num_banks)``.
+    ``_cluster`` forces the CTAs per lane (tests)."""
     if key.device.type == "cpu":
         return bank_arbiter_ref(key, bank, elig, num_banks=num_banks)
     _check(key, bank, elig, num_banks)
     B, S = key.shape
+    cluster, threads, tile = launch_shape(B, S, _num_sms(key.device), _cluster)
     win = torch.empty((B, num_banks), dtype=torch.int32, device=key.device)
     if B == 0:
         return win
-    err = _kernel_fn(bank.dtype)(
+    err = _lib()[bank.dtype](
         key.data_ptr(),
         bank.data_ptr(),
         elig.data_ptr(),
@@ -77,9 +123,29 @@ def bank_arbiter_winners(
         B,
         S,
         num_banks,
+        cluster,
+        threads,
+        tile,
         torch.cuda.current_stream(key.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"bank_arbiter kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(
+            f"bank_arbiter kernel launch failed (cluster {cluster}, {threads} threads): "
+            f"cudaError_t {err}"
+        )
     LAUNCHES["bank_arbiter"] += 1
     return win
+
+
+def floor_launch(
+    B: int, S: int, *, num_banks: int, device: torch.device, _cluster: int | None = None
+) -> None:
+    """Launch an empty kernel of the arbiter's launch shape at ``[B, S]`` with
+    int16 banks, as the simulator passes them (grid, cluster, block, shared
+    memory), on the current stream: the floor under the arbiter's device
+    time.  Not counted in ``LAUNCHES``."""
+    cluster, threads, tile = launch_shape(B, S, _num_sms(device), _cluster)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _lib()["floor"](B, num_banks, cluster, threads, tile, 2, stream)
+    if err != 0:
+        raise RuntimeError(f"bank_arbiter floor launch failed: cudaError_t {err}")

@@ -22,7 +22,12 @@ from repro.kernels.bank_arbiter.ref import bank_arbiter_ref as jref
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.bank_arbiter import ops
 from repro_torch.kernels.bank_arbiter.ops import bank_arbiter_winners
-from repro_torch.kernels.bank_arbiter.ref import KEY_FILLER, bank_arbiter_ref
+from repro_torch.kernels.bank_arbiter.ref import (
+    KEY_FILLER,
+    bank_arbiter_ref,
+    bank_arbiter_split_ref,
+    split_of_slot,
+)
 
 torch.set_num_threads(1)
 
@@ -145,3 +150,85 @@ def test_wrapper_checks_reject_bad_inputs():
     with pytest.raises(ValueError, match="CUDA device"):
         ops._check(key, bank, elig, 4)
 
+
+
+# ------------------------------------------------- the kernel's decomposition
+
+
+def _split_inputs(rng, B, S, NB, mode):
+    """Keys as the simulator packs them, or from ``[0, 4)`` (ties), or up to
+    and including ``KEY_FILLER`` (filler keys that must still win)."""
+    if mode == "packed":
+        key, bank, elig = _inputs(rng, B, S, NB, 16)
+        return key, bank, elig
+    hi = 4 if mode == "ties" else KEY_FILLER + 1
+    key = rng.integers(0, hi, (B, S)).astype(np.int32)
+    return key, rng.integers(0, NB, (B, S)).astype(np.int32), rng.random((B, S)) < 0.6
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize(
+    "B,S,NB",
+    [
+        (1, 8192, 256),  # the simulator's main path
+        (3, 8193, 256),  # ragged lanes
+        (2, 5, 16),  # fewer slots than CTAs
+        (2, 64, 16),  # shares of 16 slots: some CTAs get none
+        (2, 300, 130),  # banks not divisible by the split count
+        (2, 512, 1),  # one bank
+    ],
+)
+def test_split_ref_matches_plain_and_reference(splits, B, S, NB, rng):
+    """Per-CTA minima of packed ``(key << 32) | slot`` values merged by bank
+    equal both plain versions and the JAX reference, grant for grant."""
+    for mode in ("packed", "ties", "filler"):
+        key, bank, elig = _split_inputs(rng, B, S, NB, mode)
+        t = [torch.from_numpy(a) for a in (key, bank, elig)]
+        got = bank_arbiter_split_ref(t[0], t[1].to(torch.int16), t[2], num_banks=NB, splits=splits)
+        assert got.dtype == torch.int32 and got.shape == (B, NB)
+        np.testing.assert_array_equal(got, bank_arbiter_ref(*t, num_banks=NB), err_msg=mode)
+        want = jax.vmap(lambda k, b, e: jref(k, b, e, num_banks=NB))(
+            jnp.asarray(key), jnp.asarray(bank), jnp.asarray(elig)
+        )
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=mode)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [1, 5, 16, 64, 300, 8192, 8193])
+def test_split_of_slot_covers_each_lane_in_order(splits, S):
+    """Every slot belongs to one CTA, shares are contiguous, start at
+    multiples of 16 and hold at most ``ceil(S / splits)`` rounded up to 16."""
+    idx = split_of_slot(S, splits)
+    assert idx.shape == (S,) and int(idx.min()) == 0 and int(idx.max()) < splits
+    assert bool((idx.diff() >= 0).all()) and bool((idx.diff() <= 1).all())
+    starts = torch.nonzero(idx.diff()).flatten() + 1
+    assert bool((starts % 16 == 0).all())
+    per = -(-S // splits)
+    assert int(torch.bincount(idx).max()) <= -(-per // 16) * 16
+
+
+@pytest.mark.parametrize(
+    "B,S,want",
+    [
+        (1, 8192, (8, 512, 1024)),  # the main path: 8 CTAs of the one lane
+        (64, 8192, (4, 512, 2048)),  # a sweep: 256 CTAs cover 132 SMs
+        (132, 8192, (1, 512, 4096)),  # the lanes alone fill the card
+        (1000, 8192, (1, 512, 4096)),
+        (1, 64, (1, 32, 64)),  # too few slots to spread
+        (1, 1024, (2, 256, 512)),
+        (3, 8193, (8, 512, 1040)),
+        (1, 100_000, (8, 512, 4096)),  # several tiles per CTA
+        (2, 0, (1, 32, 16)),
+    ],
+)
+def test_launch_shape_picks_cluster_threads_and_tile(B, S, want):
+    assert ops.launch_shape(B, S, 132) == want
+
+
+def test_launch_shape_forced_cluster_and_refusal():
+    assert ops.launch_shape(1, 64, 132, cluster=8) == (8, 32, 16)
+    assert ops.launch_shape(64, 8192, 132, cluster=1) == (1, 512, 4096)
+    with pytest.raises(ValueError, match="CTAs per lane"):
+        ops.launch_shape(1, 8192, 132, cluster=3)
+    with pytest.raises(ValueError, match="CTAs per lane"):
+        ops.launch_shape(1, 8192, 132, cluster=16)

@@ -41,6 +41,8 @@ def card():
         (3, 8193, 256, torch.int32),
         (2, 300, 130, torch.int16),
         (2, 4096, 1, torch.int16),
+        (64, 8192, 256, torch.int16),  # a sweep's lanes
+        (2, 8192, 130, torch.int32),  # banks not divisible by the cluster size
     ],
 )
 def test_bank_arbiter_kernel_matches_plain(card, B, S, NB, bank_dtype):
@@ -54,6 +56,84 @@ def test_bank_arbiter_kernel_matches_plain(card, B, S, NB, bank_dtype):
         torch.cuda.synchronize()
         assert LAUNCHES["bank_arbiter"] == before + 1
         assert torch.equal(got, bank_arbiter_ref(key, bank, elig, num_banks=NB))
+
+
+def _arb_inputs(rng, B, S, NB, card, bank_dtype=torch.int16, elig_p=0.4, key_hi=2**29):
+    key = torch.tensor(rng.integers(0, key_hi, (B, S)), dtype=torch.int32, device=card)
+    bank = torch.tensor(rng.integers(0, NB, (B, S)), dtype=bank_dtype, device=card)
+    return key, bank, torch.tensor(rng.random((B, S)) < elig_p, device=card)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize(
+    "B,S,NB",
+    [(1, 8192, 256), (3, 8193, 130), (1, 64, 16), (2, 5, 4)],  # S=64, 5: CTAs with no slots
+)
+def test_bank_arbiter_every_cluster_size(card, cluster, B, S, NB):
+    rng = np.random.default_rng(cluster * S + NB)
+    for bank_dtype, key_hi in ((torch.int16, 2**29), (torch.int32, 4)):
+        key, bank, elig = _arb_inputs(rng, B, S, NB, card, bank_dtype, key_hi=key_hi)
+        got = bank_arbiter_winners(key, bank, elig, num_banks=NB, _cluster=cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bank_arbiter_ref(key, bank, elig, num_banks=NB))
+
+
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (3, 5, 7), (0, 2, 13)])
+def test_bank_arbiter_storage_offset_views(card, offsets):
+    """Views whose data start past a 16-byte boundary, each array by another
+    amount, over ragged lanes (S = 8193): the kernel's scalar head and tail
+    and its scalar loads where a vector would be misaligned."""
+    B, S, NB = 3, 8193, 256
+    rng = np.random.default_rng(sum(offsets))
+    flat = [
+        torch.tensor(rng.integers(0, 2**29, B * S + 16), dtype=torch.int32, device=card),
+        torch.tensor(rng.integers(0, NB, B * S + 16), dtype=torch.int16, device=card),
+        torch.tensor(rng.random(B * S + 16) < 0.4, device=card),
+    ]
+    key, bank, elig = (t[o : o + B * S].view(B, S) for t, o in zip(flat, offsets))
+    assert key.storage_offset() == offsets[0] and key.is_contiguous()
+    want = bank_arbiter_ref(key, bank, elig, num_banks=NB)
+    for cluster in (None, 1, 2, 4, 8):
+        got = bank_arbiter_winners(key, bank, elig, num_banks=NB, _cluster=cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cluster
+
+
+def test_bank_arbiter_cuda_graph_replay(card):
+    """One call captured in a CUDA graph, replayed on new inputs copied into
+    its static tensors, equals the plain version each time."""
+    B, S, NB = 1, 8192, 256
+    rng = np.random.default_rng(11)
+    static = _arb_inputs(rng, B, S, NB, card)
+    bank_arbiter_winners(*static, num_banks=NB)  # build and load before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bank_arbiter_winners(*static, num_banks=NB)
+    for _ in range(3):
+        fresh = _arb_inputs(rng, B, S, NB, card)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, bank_arbiter_ref(*fresh, num_banks=NB))
+
+
+def test_bank_arbiter_repeats_bit_for_bit(card):
+    rng = np.random.default_rng(12)
+    for B in (1, 64):
+        key, bank, elig = _arb_inputs(rng, B, 8192, 256, card, key_hi=8, elig_p=0.9)
+        first = bank_arbiter_winners(key, bank, elig, num_banks=256)
+        assert torch.equal(first, bank_arbiter_winners(key, bank, elig, num_banks=256))
+
+
+def test_bank_arbiter_floor_launch_counts_nothing(card):
+    from repro_torch.kernels.bank_arbiter.ops import floor_launch
+
+    before = LAUNCHES["bank_arbiter"]
+    floor_launch(1, 8192, num_banks=256, device=card)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bank_arbiter"] == before
 
 
 def test_wrapper_rejects_too_many_banks(card):
