@@ -10,9 +10,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 (one ``nvcc`` per source, all started together)
   2. kernels    each kernel against its plain PyTorch version on the card:
                 the arbiter grant for grant over a set of shapes (B = 1..64,
-                ragged lanes, views with storage offsets, 130 banks, each
-                cluster size it can pick, a CUDA-graph replay on new inputs,
-                two calls bit for bit), then
+                ragged lanes, views with storage offsets, 130 and 6144
+                banks, each cluster size it can pick, a CUDA-graph replay
+                on new inputs, two calls bit for bit), then
                 flash attention, paged attention and banked_copy at the JAX
                 tests' shapes, at the edges (S = 1, ragged T, GQA 8:1, head
                 dims 16..128, lengths 0, 1, at a split and past the table)
@@ -30,7 +30,8 @@ Phases, one JSON line each; any failure exits non-zero:
   6. timing     per-call device time of each kernel, its plain version and
                 one PyTorch call computing the same function: the arbiter at
                 the main path's shape (B = 1) and a sweep's (B = 64), each
-                beside the empty kernel of its launch shape (its floor)
+                beside the empty kernel of its launch shape (its floor) and
+                at every cluster size
   7. serving    the second main path: stablelm-1.6b at full width (random
                 weights from a seed) through ``repro_torch.launch.serve``,
                 16 requests of 128..1024 prompt tokens, 32 new tokens each,
@@ -122,6 +123,32 @@ def device_ms(fn, iters: int):
     return busy_us / iters / 1e3 if busy_us > 0 else None
 
 
+def arb_inputs(rng, B, S, NB, X, *, elig_p=0.4, bank_dtype=None, key_hi=None):
+    """Random arbitration inputs on the card: keys packed as the simulator
+    packs them for ``X`` masters (or drawn from ``[0, key_hi)`` to force
+    ties), banks in ``[0, NB)``, each slot eligible with probability
+    ``elig_p``.  The card tests draw theirs here too."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.qos import arbitration_priority_key
+    from repro_torch.core.simulator import SimParams, _age_cap
+
+    if key_hi is None:
+        age_cap = _age_cap(SimParams(), X)
+        level = rng.integers(0, 8, (B, S))
+        age = rng.integers(0, min(age_cap + 1, 4096), (B, S))
+        rr = rng.integers(0, X, (B, S))
+        key = arbitration_priority_key(level, age, rr, age_cap=age_cap, num_masters=X)
+    else:
+        key = rng.integers(0, key_hi, (B, S))
+    return (
+        torch.tensor(np.asarray(key), dtype=torch.int32, device="cuda"),
+        torch.tensor(rng.integers(0, NB, (B, S)), dtype=bank_dtype or torch.int16, device="cuda"),
+        torch.tensor(rng.random((B, S)) < elig_p, device="cuda"),
+    )
+
+
 def _offset_view(t, offset: int):
     """``t``'s values in a view whose data start ``offset`` elements into a
     larger buffer (a storage offset; not 16-byte aligned for odd offsets)."""
@@ -147,7 +174,6 @@ def phase_kernels() -> int:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.bank_arbiter.bench import arb_inputs
     from repro_torch.kernels.bank_arbiter.ops import bank_arbiter_winners
     from repro_torch.kernels.bank_arbiter.ref import bank_arbiter_ref
 
@@ -174,6 +200,9 @@ def phase_kernels() -> int:
         ("S64_cluster8", 1, 64, 16, 4, {"cluster": 8}),
         *(("paper_cluster%d" % c, 1, 8192, 256, 32, {"cluster": c}) for c in (1, 2, 4, 8)),
         *(("ragged_nb130_cluster%d" % c, 3, 8193, 130, 32, {"cluster": c}) for c in (1, 2, 4, 8)),
+        # the most banks the wrapper takes: over 48 KB of dynamic shared memory
+        *(("nb6144_cluster%d" % c, 1, 8192, 6144, 32, {"cluster": c}) for c in (1, 2, 4, 8)),
+        ("nb6144_ragged_int32", 3, 8193, 6144, 32, {"bank_dtype": torch.int32}),
     ]
     worst, rows = 0, []
     for name, B, S, NB, X, opts in cases:
@@ -373,12 +402,15 @@ def phase_timing(launches: int, max_abs_err: int) -> dict:
     events over back-to-back calls where the profiler records nothing) and
     the per-call time of back-to-back calls between CUDA events, which
     includes the host's launch overhead; beside them the device time of the
-    empty kernel of the arbiter's launch shape (``floor``)."""
+    empty kernel of the arbiter's launch shape (``floor``) and the kernel's
+    device time at every cluster size."""
+    from functools import partial
+
     import numpy as np
     import torch
 
-    from repro_torch.kernels.bank_arbiter.bench import arb_inputs
     from repro_torch.kernels.bank_arbiter.ops import (
+        CLUSTER_SIZES,
         bank_arbiter_winners,
         floor_launch,
         launch_shape,
@@ -408,6 +440,12 @@ def phase_timing(launches: int, max_abs_err: int) -> dict:
         call_ms = {k: time_ms(fn, 2000) for k, fn in fns.items()}
         dev_ms = {k: device_ms(fn, 200) for k, fn in fns.items()}
         ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
+        # the kernel at every cluster size, beside the one the wrapper picks
+        by_cluster = {}
+        for c in CLUSTER_SIZES:
+            at_c = partial(bank_arbiter_winners, key, bank, elig, num_banks=NB, _cluster=c)
+            check(torch.equal(at_c(), lib_win), f"B={B}: the kernel at cluster {c} disagrees")
+            by_cluster[c] = device_ms(at_c, 200)
         nbytes = B * S * (key.element_size() + bank.element_size() + elig.element_size())
         nbytes += B * NB * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -420,6 +458,9 @@ def phase_timing(launches: int, max_abs_err: int) -> dict:
             shape=dict(B=B, S=S, NB=NB),
             launch=dict(cluster=cluster, threads=threads, tile=tile),
             device_us={k: None if v is None else v * 1e3 for k, v in dev_ms.items()},
+            kernel_device_us_by_cluster={
+                c: None if v is None else v * 1e3 for c, v in by_cluster.items()
+            },
             call_us={k: v * 1e3 for k, v in call_ms.items()},
             bytes=nbytes,
             bound_us=max(bytes_ms, ops_ms) * 1e3,

@@ -55,7 +55,8 @@
 // cluster barrier and the remote stores before it.
 //
 // Interface: plain C, loaded with ctypes.  The wrapper (ops.py) checks dtypes,
-// shapes, contiguity, the shared-memory size and the launch shape, allocates
+// shapes, contiguity, the bank count (at most 6144: up to 132 KB of dynamic
+// shared memory per CTA, opted into above 48 KB) and the launch shape, allocates
 // `win`, and raises on a non-zero return, which is the cudaError_t of the
 // launch (a cluster size the card refuses included).
 
@@ -351,4 +352,9 @@ extern "C" int bank_arbiter_floor(int B, int NB, int cluster, int threads, int t
                                   void* stream) {
   return launch_clustered(floor_kernel, B, cluster, threads,
                           smem_bytes(NB, cluster, tile, bank_bytes), stream);
+}
+
+// Dynamic shared memory of one CTA of that launch shape, in bytes (tests).
+extern "C" int bank_arbiter_smem_bytes(int NB, int cluster, int tile, int bank_bytes) {
+  return smem_bytes(NB, cluster, tile, bank_bytes);
 }

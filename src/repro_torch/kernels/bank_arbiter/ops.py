@@ -10,14 +10,18 @@ plain PyTorch version (``ref.py``).  There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.bank_arbiter.ref import bank_arbiter_ref
 
-#: static shared memory a block may use without opting in (one u64 per bank)
-SHARED_LIMIT = 48 * 1024
+#: banks the kernel takes.  A CTA keeps 16 bytes per bank in dynamic shared
+#: memory (best[NB] and, at C > 1, its merge inbox) beside at most 36 KB of
+#: staging: up to 132 KB at 6144 banks, under the 227 KB a CTA may opt into on
+#: sm_90 (the launch opts in above 48 KB)
+MAX_BANKS = 6144
 #: CTAs per lane the kernel takes: the portable thread-block cluster sizes
 CLUSTER_SIZES = (1, 2, 4, 8)
 #: a lane is spread over more CTAs only while each keeps this many slots
@@ -39,11 +43,16 @@ def _lib():
         lib.bank_arbiter_floor.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.bank_arbiter_floor.restype = ctypes.c_int
         _fns["floor"] = lib.bank_arbiter_floor
+        lib.bank_arbiter_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.bank_arbiter_smem_bytes.restype = ctypes.c_int
+        _fns["smem_bytes"] = lib.bank_arbiter_smem_bytes
     return _fns
 
 
+@functools.cache
 def launch_shape(B: int, S: int, num_sms: int, cluster: int | None = None) -> tuple[int, int, int]:
-    """``(CTAs per lane, threads per CTA, slots per tile)`` of the launch.
+    """``(CTAs per lane, threads per CTA, slots per tile)`` of the launch,
+    memoized: the simulator calls the wrapper at one shape every cycle.
 
     The cluster size is the smallest portable one whose ``B * C`` CTAs cover
     the card's SMs, so it is 1 once ``B`` alone fills the card, and it stops
@@ -86,10 +95,10 @@ def _check(key: torch.Tensor, bank: torch.Tensor, elig: torch.Tensor, num_banks:
         raise ValueError(f"key/bank/elig must lie on one CUDA device; got {devices}")
     if not (key.is_contiguous() and bank.is_contiguous() and elig.is_contiguous()):
         raise ValueError("key/bank/elig must be contiguous")
-    if num_banks < 1 or num_banks * 8 > SHARED_LIMIT:
+    if not 1 <= num_banks <= MAX_BANKS:
         raise ValueError(
-            f"num_banks={num_banks} needs {num_banks * 8} bytes of shared memory; "
-            f"the kernel takes 1..{SHARED_LIMIT // 8} banks"
+            f"num_banks={num_banks}: the kernel keeps up to 16 bytes per bank in shared memory "
+            f"and takes 1..{MAX_BANKS} banks"
         )
     if key.shape[1] >= 2**31 - MAX_TILE:
         raise ValueError(f"S={key.shape[1]} slots do not fit the kernel's int slot ids")
@@ -137,14 +146,12 @@ def bank_arbiter_winners(
     return win
 
 
-def floor_launch(
-    B: int, S: int, *, num_banks: int, device: torch.device, _cluster: int | None = None
-) -> None:
+def floor_launch(B: int, S: int, *, num_banks: int, device: torch.device) -> None:
     """Launch an empty kernel of the arbiter's launch shape at ``[B, S]`` with
     int16 banks, as the simulator passes them (grid, cluster, block, shared
     memory), on the current stream: the floor under the arbiter's device
     time.  Not counted in ``LAUNCHES``."""
-    cluster, threads, tile = launch_shape(B, S, _num_sms(device), _cluster)
+    cluster, threads, tile = launch_shape(B, S, _num_sms(device))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _lib()["floor"](B, num_banks, cluster, threads, tile, 2, stream)
     if err != 0:

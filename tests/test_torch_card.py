@@ -58,10 +58,13 @@ def test_bank_arbiter_kernel_matches_plain(card, B, S, NB, bank_dtype):
         assert torch.equal(got, bank_arbiter_ref(key, bank, elig, num_banks=NB))
 
 
-def _arb_inputs(rng, B, S, NB, card, bank_dtype=torch.int16, elig_p=0.4, key_hi=2**29):
-    key = torch.tensor(rng.integers(0, key_hi, (B, S)), dtype=torch.int32, device=card)
-    bank = torch.tensor(rng.integers(0, NB, (B, S)), dtype=bank_dtype, device=card)
-    return key, bank, torch.tensor(rng.random((B, S)) < elig_p, device=card)
+@pytest.fixture
+def arb_inputs(card):
+    """``chip_smoke.arb_inputs``: arbitration inputs on the card, keys packed
+    as the simulator packs them (the tests run from the repository root)."""
+    from chip_smoke import arb_inputs
+
+    return arb_inputs
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8])
@@ -69,10 +72,10 @@ def _arb_inputs(rng, B, S, NB, card, bank_dtype=torch.int16, elig_p=0.4, key_hi=
     "B,S,NB",
     [(1, 8192, 256), (3, 8193, 130), (1, 64, 16), (2, 5, 4)],  # S=64, 5: CTAs with no slots
 )
-def test_bank_arbiter_every_cluster_size(card, cluster, B, S, NB):
+def test_bank_arbiter_every_cluster_size(arb_inputs, cluster, B, S, NB):
     rng = np.random.default_rng(cluster * S + NB)
-    for bank_dtype, key_hi in ((torch.int16, 2**29), (torch.int32, 4)):
-        key, bank, elig = _arb_inputs(rng, B, S, NB, card, bank_dtype, key_hi=key_hi)
+    for bank_dtype, key_hi in ((torch.int16, None), (torch.int32, 4)):
+        key, bank, elig = arb_inputs(rng, B, S, NB, 32, bank_dtype=bank_dtype, key_hi=key_hi)
         got = bank_arbiter_winners(key, bank, elig, num_banks=NB, _cluster=cluster)
         torch.cuda.synchronize()
         assert torch.equal(got, bank_arbiter_ref(key, bank, elig, num_banks=NB))
@@ -99,19 +102,19 @@ def test_bank_arbiter_storage_offset_views(card, offsets):
         assert torch.equal(got, want), cluster
 
 
-def test_bank_arbiter_cuda_graph_replay(card):
+def test_bank_arbiter_cuda_graph_replay(arb_inputs):
     """One call captured in a CUDA graph, replayed on new inputs copied into
     its static tensors, equals the plain version each time."""
     B, S, NB = 1, 8192, 256
     rng = np.random.default_rng(11)
-    static = _arb_inputs(rng, B, S, NB, card)
+    static = arb_inputs(rng, B, S, NB, 32)
     bank_arbiter_winners(*static, num_banks=NB)  # build and load before capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = bank_arbiter_winners(*static, num_banks=NB)
     for _ in range(3):
-        fresh = _arb_inputs(rng, B, S, NB, card)
+        fresh = arb_inputs(rng, B, S, NB, 32)
         for dst, src in zip(static, fresh):
             dst.copy_(src)
         graph.replay()
@@ -119,12 +122,33 @@ def test_bank_arbiter_cuda_graph_replay(card):
         assert torch.equal(out, bank_arbiter_ref(*fresh, num_banks=NB))
 
 
-def test_bank_arbiter_repeats_bit_for_bit(card):
+def test_bank_arbiter_repeats_bit_for_bit(arb_inputs):
     rng = np.random.default_rng(12)
     for B in (1, 64):
-        key, bank, elig = _arb_inputs(rng, B, 8192, 256, card, key_hi=8, elig_p=0.9)
+        key, bank, elig = arb_inputs(rng, B, 8192, 256, 32, key_hi=8, elig_p=0.9)
         first = bank_arbiter_winners(key, bank, elig, num_banks=256)
         assert torch.equal(first, bank_arbiter_winners(key, bank, elig, num_banks=256))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_bank_arbiter_large_shared_memory(arb_inputs, cluster):
+    """Launches that opt into more than 48 KB of dynamic shared memory: the
+    fewest banks that cross 48 KB at this cluster size and bank width, and
+    the most banks the wrapper takes, over ragged lanes."""
+    from repro_torch.kernels.bank_arbiter import ops
+
+    B, S = 3, 8193
+    rng = np.random.default_rng(cluster)
+    _, _, tile = ops.launch_shape(B, S, ops._num_sms(torch.device("cuda")), cluster)
+    smem = ops._lib()["smem_bytes"]
+    for bank_dtype, width in ((torch.int16, 2), (torch.int32, 4)):
+        banks = range(1, ops.MAX_BANKS + 1)
+        above = next(nb for nb in banks if smem(nb, cluster, tile, width) > 48 * 1024)
+        for NB in (above, ops.MAX_BANKS):
+            key, bank, elig = arb_inputs(rng, B, S, NB, 32, bank_dtype=bank_dtype)
+            got = bank_arbiter_winners(key, bank, elig, num_banks=NB, _cluster=cluster)
+            torch.cuda.synchronize()
+            assert torch.equal(got, bank_arbiter_ref(key, bank, elig, num_banks=NB)), NB
 
 
 def test_bank_arbiter_floor_launch_counts_nothing(card):
