@@ -44,6 +44,19 @@ Phases, one JSON line each; any failure exits non-zero:
   8. serving_profile  device kernels, busy time and idle share per decode step
   9. llm_timing the three serving kernels' timing rows at the path's shapes
                 (and flash at the short prompts, S = 128 and 517)
+  10. sweep     the scale path's main path, through the public entry points
+                 with B lanes per arbiter launch: the golden ``"batch"`` entry
+                 through ``simulate_batch`` and the three golden cases through
+                 ``SCHEDULE_PIPELINE``, bit for bit; the full-width sweep
+                 (every preset at 256 transactions per master x outstanding
+                 1 and 8, 10 lanes) against ``sweep_reference.json`` and
+                 against ``arbiter="ref"``; the scale grid (one shared
+                 ``urban_perception`` schedule, 48 points, streaming
+                 percentiles, chunks of 32), lanes 0 and 47 against their own
+                 ``simulate``; the time skip (8 gapped lanes) against no skip.
+                 Launches must equal the cycle bodies stepped in every run; a
+                 profiled window of each run's shape gives the arbiter's device
+                 time per launch at its B, device busy time and idle share
 then the kernels line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -114,13 +127,17 @@ def device_kernels(fn):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall
 
 
-def device_ms(fn, iters: int):
+def device_ms(fn, iters: int, attempts: int = 3):
     """Mean device time of ``fn()`` in ms from the profiler's kernel events,
-    or None where the profiler records no device time."""
+    or None where the profiler records no device time in ``attempts``
+    sessions (on that machine a session now and then records no kernel)."""
     fn()
-    kernels, _ = device_kernels(lambda: [fn() for _ in range(iters)])
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    return busy_us / iters / 1e3 if busy_us > 0 else None
+    for _ in range(attempts):
+        kernels, _ = device_kernels(lambda: [fn() for _ in range(iters)])
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        if busy_us > 0:
+            return busy_us / iters / 1e3
+    return None
 
 
 def arb_inputs(rng, B, S, NB, X, *, elig_p=0.4, bank_dtype=None, key_hi=None):
@@ -252,21 +269,37 @@ def phase_kernels() -> int:
     return worst
 
 
+def counted(fn):
+    """Run ``fn()`` with the launch and driver counts set to 0 just before it;
+    returns ``(result, host seconds, arbiter launches, cycle bodies
+    stepped)``."""
+    import torch
+
+    from repro_torch.core.simulator import DRIVER_COUNTS, reset_driver_counts
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    reset_driver_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, LAUNCHES["bank_arbiter"], DRIVER_COUNTS["cycles"]
+
+
 def phase_golden() -> None:
     import numpy as np
 
-    from repro_torch.core.simulator import simulate, stepped_cycles
+    from repro_torch.core.simulator import simulate
     from repro_torch.data import GOLDEN_KEYS, golden_cases
 
     golden = json.loads((ROOT / "tests" / "data" / "golden_single_slice.json").read_text())
     rows = []
     for name, trace, prm in golden_cases():
-        t0 = time.perf_counter()
-        out = simulate(trace, prm)
-        wall = time.perf_counter() - t0
+        out, wall, _, stepped = counted(lambda: simulate(trace, prm))
         bad = [k for k in GOLDEN_KEYS if np.asarray(out[k]).tolist() != golden["cases"][name][k]]
         check(not bad, f"golden {name}: keys differ {bad}")
-        stepped = stepped_cycles(out["drained_cycle"], prm)
         rows.append(
             dict(
                 case=name,
@@ -284,22 +317,15 @@ def phase_full_width() -> dict:
     (fig4 X=16) launch count and cycle numbers."""
     import numpy as np
 
-    from repro_torch.core.simulator import SimParams, Trace, simulate, stepped_cycles
+    from repro_torch.core.simulator import SimParams, Trace, simulate
     from repro_torch.core.traffic import random_uniform
-    from repro_torch.kernels import LAUNCHES, reset_launches
 
     num_txns, counts = 300, (1, 2, 4, 8, 16)
     rows, runs = {}, {}
     for X in counts:
         trace = random_uniform(X, num_txns, burst=16, full_duplex=True)
         prm = SimParams(max_cycles=int(num_txns * 16 * 1.3) + 2000)
-        if X == counts[-1]:
-            reset_launches()
-        t0 = time.perf_counter()
-        m = simulate(trace, prm)
-        wall = time.perf_counter() - t0
-        launches = LAUNCHES["bank_arbiter"]
-        stepped = stepped_cycles(m["drained_cycle"], prm)
+        m, wall, launches, stepped = counted(lambda: simulate(trace, prm))
         runs[X] = dict(
             trace=trace, prm=prm, out=m, wall_s=wall, stepped=stepped, launches=launches
         )
@@ -334,10 +360,7 @@ def phase_full_width() -> dict:
             rng.integers(0, 2**20 - 16, (16, 256)).astype(np.int32),
         )
         prm = SimParams(outstanding=o, max_cycles=256 * 20 + 4000)
-        t0 = time.perf_counter()
-        m = simulate(tr, prm)
-        wall = time.perf_counter() - t0
-        stepped = stepped_cycles(m["drained_cycle"], prm)
+        m, wall, _, stepped = counted(lambda: simulate(tr, prm))
         t_rows[o] = {
             "read_lat": float(m["read_lat_avg"].mean()),
             "read_throughput": float(m["read_throughput"].mean()),
@@ -394,6 +417,261 @@ def phase_profile(main: dict) -> None:
         arbiter_share_of_device_time=sum(arb_us) / busy_us if busy_us else None,
         profiled_wall_s=wall,
     )
+
+
+#: the scale grid's horizon: the smallest multiple of 1000 above 1.3 x its
+#: slowest lane's drain (7951 cycles in the reference, every lane alike)
+SCALE_MAX_CYCLES = 11_000
+#: cycles of each sweep run's profiled window
+PROFILE_CYCLES = 32
+
+
+def _window(fn, host_us_per_cycle: float) -> dict:
+    """Device kernels, busy time and the arbiter's device time per launch
+    over ``PROFILE_CYCLES`` fixed-horizon cycles of one run's shape
+    (``fn()`` runs them), against the unprofiled host time per cycle of the
+    run itself."""
+    fn()  # warm: the first call of a shape allocates
+    kernels, wall = device_kernels(fn)
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    arb_us = [e.time_range.elapsed_us() for e in kernels if "bank_arbiter" in e.name]
+    busy = busy_us / PROFILE_CYCLES
+    return {
+        "device_kernels_per_cycle": len(kernels) / PROFILE_CYCLES,
+        "device_busy_us_per_cycle": busy,
+        "host_us_per_cycle_unprofiled": host_us_per_cycle,
+        "device_idle_share": 1 - busy / host_us_per_cycle if busy_us else None,
+        "window_arbiter_launches": len(arb_us),
+        "arbiter_device_us_mean": sum(arb_us) / len(arb_us) if arb_us else None,
+        "profiled_wall_s": wall,
+    }
+
+
+def _sweep_run(name: str, lanes: int, fn, window) -> tuple:
+    """One run of the scale path: counted, checked (arbiter launches equal
+    the cycle bodies stepped), then a profiled window of its shape
+    (``window()`` runs ``PROFILE_CYCLES`` cycles of it); emits its line."""
+    out, wall, launches, stepped = counted(fn)
+    check(stepped > 0, f"sweep {name}: no cycle stepped")
+    check(launches == stepped, f"sweep {name}: {launches} arbiter launches for {stepped} cycles")
+    row = {
+        "lanes": lanes,
+        "host_s": wall,
+        "stepped_cycles": stepped,
+        "arbiter_launches": launches,
+        "cycles_per_s": stepped / wall,
+        "lane_cycles_per_s": stepped * lanes / wall,
+        **_window(window, wall / stepped * 1e6),
+    }
+    emit("sweep_run", run=name, **row)
+    return out, row
+
+
+def _equal_keys(a: dict, b: dict, skip=()) -> list:
+    import numpy as np
+
+    return [
+        k
+        for k in b
+        if k not in skip and not (np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype)
+    ]
+
+
+def _diff_records(got, want, path: str = "") -> tuple:
+    """(integer and boolean mismatches, largest float difference) between
+    two ``sweep_record`` trees; NaN equals NaN."""
+    import math
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{path}: keys {sorted(set(got) ^ set(want))}"], 0.0
+        parts = [_diff_records(got[k], want[k], f"{path}/{k}") for k in want]
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            return [f"{path}: length"], 0.0
+        parts = [_diff_records(g, w, f"{path}[{i}]") for i, (g, w) in enumerate(zip(got, want))]
+    elif isinstance(want, float):
+        if math.isnan(want) or math.isnan(got):
+            return ([] if math.isnan(want) and math.isnan(got) else [path]), 0.0
+        return [], abs(got - want)
+    else:
+        return ([] if got == want else [f"{path}: {got} != {want}"]), 0.0
+    return [m for p in parts for m in p[0]], max([0.0, *(p[1] for p in parts)])
+
+
+def phase_sweep() -> dict:
+    """The scale path on the card (see the module docstring, 10); returns
+    each run's row for the kernels line."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.percentile import STREAM_PCTS, p2_merge_quantile
+    from repro_torch.core.simulator import (
+        SCHEDULE_PIPELINE,
+        SimParams,
+        batch_envelope,
+        carry_nbytes,
+        simulate,
+        simulate_batch,
+    )
+    from repro_torch.core.traffic import random_bursty
+    from repro_torch.data import (
+        GOLDEN_KEYS,
+        SWEEP_OUTSTANDING,
+        SWEEP_TXNS,
+        golden_batch,
+        golden_cases,
+        sweep_record,
+        sweep_reference,
+    )
+    from repro_torch.scenarios import (
+        QOS_CLASSES,
+        SweepPoint,
+        preset_scenarios,
+        run_sweep,
+        urban_perception,
+    )
+
+    golden = json.loads((ROOT / "tests" / "data" / "golden_single_slice.json").read_text())
+    runs = {}
+
+    # 1. goldens: the batch entry (B = 2) and the cases on the schedule pipeline
+    traces, prms = golden_batch()
+    short = [replace(p, max_cycles=PROFILE_CYCLES, early_exit=False) for p in prms]
+    out, runs["golden_batch"] = _sweep_run(
+        "golden_batch",
+        2,
+        lambda: simulate_batch(traces, prms),
+        lambda: simulate_batch(traces, short),
+    )
+    bad = [k for k in GOLDEN_KEYS if np.asarray(out[k]).tolist() != golden["batch"][k]]
+    check(not bad, f"golden batch: keys differ {bad}")
+    for name, trace, prm in golden_cases():
+        sprm = replace(prm, stages=SCHEDULE_PIPELINE)
+        out, wall, launches, stepped = counted(lambda: simulate(trace, sprm))
+        bad = [k for k in GOLDEN_KEYS if np.asarray(out[k]).tolist() != golden["cases"][name][k]]
+        check(not bad, f"golden {name} on the schedule pipeline: keys differ {bad}")
+        check(launches == stepped, f"golden {name} schedule: {launches} launches, {stepped} cycles")
+        emit("sweep_golden_schedule", case=name, host_s=wall, stepped_cycles=stepped)
+
+    # 2. the full-width sweep, B = 10, against the reference's capture
+    ref = sweep_reference()
+    presets = preset_scenarios(SWEEP_TXNS)
+    points = [
+        SweepPoint(sc, SimParams(outstanding=o, max_cycles=ref["max_cycles"]))
+        for sc in presets
+        for o in SWEEP_OUTSTANDING
+    ]
+    short = [replace(p, params=replace(p.params, max_cycles=PROFILE_CYCLES)) for p in points]
+    res, runs["full_width_sweep"] = _sweep_run(
+        "full_width_sweep", len(points), lambda: run_sweep(points), lambda: run_sweep(short)
+    )
+    mismatches, float_diff = _diff_records([sweep_record(r) for r in res], ref["points"])
+    check(not mismatches, f"full-width sweep vs sweep_reference.json: {mismatches[:5]}")
+    check(float_diff == 0.0, f"full-width sweep: float keys differ by up to {float_diff}")
+    check(all(bool(r.metrics["all_done"]) for r in res), "full-width sweep: a lane not all_done")
+    plain = [replace(p, params=replace(p.params, arbiter="ref")) for p in points]
+    ref_res, ref_wall, _, _ = counted(lambda: run_sweep(plain))
+    bad = [k for r, q in zip(res, ref_res) for k in _equal_keys(r.metrics, q.metrics)]
+    check(not bad, f"full-width sweep: kernel and ref arbiters differ on {sorted(set(bad))}")
+    emit(
+        "sweep_full_width",
+        points=len(points),
+        max_cycles=ref["max_cycles"],
+        drained_cycles=[int(r.metrics["drained_cycle"]) for r in res],
+        float_max_abs_diff=float_diff,
+        ref_arbiter_host_s=ref_wall,
+    )
+
+    # 3. the scale grid: one shared schedule, 48 points, chunks of 32, B = 32
+    sched = urban_perception().compile().schedule()
+    grid = [
+        SimParams(
+            outstanding=o,
+            qos_aging=a,
+            reg_rate=r,
+            bank_occupancy=b,
+            max_cycles=SCALE_MAX_CYCLES,
+            stages=SCHEDULE_PIPELINE,
+            collect="stream",
+        )
+        for o, a, r, b in itertools.product((2, 4, 8, 16), (0, 128), (0, 128), (1, 2, 3))
+    ]
+    chunk = 32
+    env = batch_envelope(grid)
+    pin = dict(slots_override=env.slots_per_master, inflight_override=env.inflight_slots)
+    short = [replace(p, max_cycles=PROFILE_CYCLES, early_exit=False, **pin) for p in grid[:chunk]]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, runs["scale_grid"] = _sweep_run(
+        "scale_grid",
+        chunk,
+        lambda: simulate_batch([sched], grid, chunk=chunk),
+        lambda: simulate_batch([sched], short),
+    )
+    peak = torch.cuda.max_memory_allocated() - base
+    check(bool(out["all_done"].all()), "scale grid: a lane not all_done")
+    for i in (0, len(grid) - 1):
+        one = replace(grid[i], **pin)
+        short1 = replace(one, max_cycles=PROFILE_CYCLES, early_exit=False)
+        alone, runs[f"scale_lane{i}"] = _sweep_run(
+            f"scale_lane{i}", 1, lambda: simulate(sched, one), lambda: simulate(sched, short1)
+        )
+        bad = _equal_keys(alone, {k: v[i] for k, v in out.items()})
+        check(not bad, f"scale grid lane {i} differs from its own simulate() on {bad}")
+    merged = {}
+    for c, cls in enumerate(QOS_CLASSES):
+        for d, dname in enumerate(("read", "write")):
+            g = c * 2 + d
+            if out["p2_count"][:, g].sum() == 0:
+                continue
+            heights, marks = out["p2_height"][:, g], out["p2_npos"][:, g]
+            merged[f"{cls}_{dname}"] = {
+                f"p{int(q)}": p2_merge_quantile(
+                    heights[:, qi], marks[:, qi], out["p2_count"][:, g], q / 100
+                )
+                for qi, q in enumerate(STREAM_PCTS)
+            }
+    X, N = sched.num_masters, sched.num_txns
+    emit(
+        "sweep_scale_grid",
+        points=len(grid),
+        chunk=chunk,
+        max_cycles=SCALE_MAX_CYCLES,
+        drained_cycles=sorted(set(out["drained_cycle"].tolist())),
+        skipped_cycles=sorted(set(out["skipped_cycles"].tolist())),
+        merged_latency_percentiles=merged,
+        peak_memory_bytes_above_start=peak,
+        carry_nbytes_x_chunk=carry_nbytes(env, X, N) * chunk,
+    )
+
+    # 4. the time skip: 8 gapped lanes, B = 8
+    bursty = [random_bursty(16, 32, burst=8, gap=150, seed=i) for i in range(8)]
+    prm = SimParams(max_cycles=6000, stages=SCHEDULE_PIPELINE, collect="stream")
+    short = [replace(prm, max_cycles=PROFILE_CYCLES, early_exit=False)] * 8
+    on, runs["time_skip"] = _sweep_run(
+        "time_skip",
+        8,
+        lambda: simulate_batch(bursty, [prm] * 8),
+        lambda: simulate_batch(bursty, short),
+    )
+    off, _, off_launches, off_stepped = counted(
+        lambda: simulate_batch(bursty, [replace(prm, time_skip=False)] * 8)
+    )
+    check(off_launches == off_stepped, "time skip off: launches differ from cycles stepped")
+    bad = _equal_keys(on, off, skip=("skipped_cycles",))
+    check(not bad, f"time skip on and off differ on {bad}")
+    check(bool((on["skipped_cycles"] > 0).all()), "time skip: a lane skipped nothing")
+    emit(
+        "sweep_time_skip",
+        skipped_cycles=on["skipped_cycles"].tolist(),
+        drained_cycles=on["drained_cycle"].tolist(),
+        stepped_with_skip=runs["time_skip"]["stepped_cycles"],
+        stepped_without=off_stepped,
+    )
+    return runs
 
 
 def phase_timing(launches: int, max_abs_err: int) -> dict:
@@ -1039,6 +1317,16 @@ def main() -> int:
     serving = phase_serving()
     phase_serving_profile(serving)
     rows = phase_llm_timing(serving, llm_errs)
+    del serving
+    # the scale path last: its profiled windows hold ~10^5 kernel records each
+    sweep = phase_sweep()
+    kernel["launches_by_path"] = {
+        "fig4_x16": main_path["launches"],
+        **{f"sweep_{k}": v["arbiter_launches"] for k, v in sweep.items()},
+    }
+    kernel["sweep_device_us_by_lanes"] = {
+        f"{k} (B={v['lanes']})": v["arbiter_device_us_mean"] for k, v in sweep.items()
+    }
     print(json.dumps({"kernels": [kernel, *rows]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,10 +6,11 @@ then the slice-local address is spread round-robin across clusters and arrays
 (structural rule) and whitened by a multiplicative hash (fractal rule).
 
 The dense simulator maps every beat to its bank on the host before the cycle
-loop starts, so only the numpy functions live here.  The in-loop tensor twins
-belong to the event-schedule pipeline and arrive with it.
+loop starts (the numpy functions).  The event-schedule pipeline maps the
+candidate burst's beats inside the cycle loop, with the ``*_dev`` tensor
+twins, which give the numpy functions' values on int32 tensors of any shape.
 
-Every function is pure and works on numpy integer arrays.
+Every function is pure.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 # Knuth multiplicative constants (odd -> bijective mod 2^32)
 _MULT1 = np.uint32(0x9E3779B1)
@@ -98,6 +100,67 @@ def _hash32(x):
         x = x * _MULT2
         x = x ^ (x >> 16)
     return x
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``x * m mod 2**32`` for int64 ``x`` in ``[0, 2**32)``: the multiplier
+    split into 16-bit halves keeps every intermediate below ``2**49`` (one
+    int64 product of two 32-bit values would overflow)."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _hash32_dev(x: torch.Tensor) -> torch.Tensor:
+    """Tensor twin of :func:`_hash32`: the same uint32 avalanche in int64
+    arithmetic.  ``x`` is read as uint32 (a negative int32 wraps, as a cast
+    to uint32 would); the result is int64 in ``[0, 2**32)``."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x ^ (x >> 16)
+    x = _mul32(x, int(_MULT1))
+    x = x ^ (x >> 13)
+    x = _mul32(x, int(_MULT2))
+    return x ^ (x >> 16)
+
+
+def _hash_mod(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``_hash32(x) % n`` as int32: reduced before it enters the signed domain."""
+    return (_hash32_dev(x) % n).to(torch.int32)
+
+
+def slice_of_beat_dev(beat_addr: torch.Tensor, geom: MemoryGeometry = MemoryGeometry()):
+    """Tensor twin of :func:`slice_of_beat` in int32 arithmetic."""
+    a = beat_addr.to(torch.int32)
+    nsl = geom.num_slices
+    if nsl == 1:
+        return torch.zeros_like(a), a
+    if geom.slice_policy == "region":
+        bps = geom.beats_per_slice
+        return a // bps, a % bps
+    g = geom.slice_granule
+    chunk = a // g
+    rnd = chunk // nsl
+    sl = (chunk % nsl + _hash_mod(rnd, nsl)) % nsl
+    return sl, rnd * g + a % g
+
+
+def _map_beat_local_dev(local_addr: torch.Tensor, geom: MemoryGeometry):
+    """Tensor twin of :func:`_map_beat_local` in int32 arithmetic."""
+    a = local_addr.to(torch.int32)
+    mc, na, kb = geom.num_clusters, geom.arrays_per_cluster, geom.banks_per_array
+    cluster = a % mc
+    hi1 = a // (mc * na)
+    arr = ((a // mc) % na + _hash_mod(hi1, na)) % na
+    bank = (hi1 % kb + _hash_mod(hi1 // kb + 0x5BD1, kb)) % kb
+    return cluster, arr, bank
+
+
+def flat_bank_id_dev(beat_addr: torch.Tensor, geom: MemoryGeometry = MemoryGeometry()):
+    """Tensor twin of :func:`flat_bank_id` (int32): the schedule pipeline's
+    in-loop bank map.  Addresses must lie in ``[0, beats_total)``."""
+    sl, local = slice_of_beat_dev(beat_addr, geom)
+    c, a, b = _map_beat_local_dev(local, geom)
+    flat = (c * geom.arrays_per_cluster + a) * geom.banks_per_array + b
+    return sl * geom.banks_per_slice + flat
 
 
 def slice_of_beat(beat_addr, geom: MemoryGeometry = MemoryGeometry()):

@@ -1,7 +1,9 @@
 """Cycle-level simulator of the many-ported banked shared memory (§II-C/§III).
 
-The PyTorch port of the reference package's dense pipeline.  A
-:class:`Trace` goes into :func:`simulate`, which runs the cycle stages
+The PyTorch port of the reference package's simulator.  A :class:`Trace` (or
+a packed :class:`~repro_torch.core.traffic.EventSchedule`) goes into
+:func:`simulate`, or a batch of them into :func:`simulate_batch`, which run
+the cycle stages
 
   ``accept_dispatch``  acceptance (credits, regulator, router admission) and
                        split-by-4 dispatch into the per-port beat-slot ring
@@ -11,12 +13,18 @@ The PyTorch port of the reference package's dense pipeline.  A
   ``return_bus``       read-return bus, one beat per port per cycle
   ``retire``           transaction completion + busy-cycle accounting
 
-once per simulated cycle and returns the reference package's metrics, with
-its dtypes, as numpy arrays.  The model is the reference's, decision for
-decision: X master ports with 256-bit buses, two-level split-by-4 dispatch,
-priority-first / FCFS / round-robin bank arbitration with anti-starvation
-aging, an optional best-effort token-bucket regulator, SRAMs at half the
-fabric clock, per-port credits, and a multi-slice ring router with per-hop
+once per simulated cycle and return the reference package's metrics, with
+its dtypes, as numpy arrays.  ``SCHEDULE_PIPELINE`` swaps the first and last
+stages for ``accept_dispatch_sched`` and ``retire_sched``, which advance a
+packed event schedule inside the loop (beat-to-bank routing per cycle, live
+commands in a fixed-width in-flight table) and, with ``collect="stream"``,
+fold completions into fixed-size streaming accumulators (P² percentiles).
+
+The model is the reference's, decision for decision: X master ports with
+256-bit buses, two-level split-by-4 dispatch, priority-first / FCFS /
+round-robin bank arbitration with anti-starvation aging, an optional
+best-effort token-bucket regulator, SRAMs at half the fabric clock, per-port
+credits, and a multi-slice ring router with per-hop
 latency and per-slice ingress credits.
 
 Every :class:`SimState` field carries a leading batch axis ``B`` (one lane per
@@ -26,13 +34,16 @@ name (:func:`register_stage`) with the signature
 stages hand each other within a cycle, ``ctx`` the run's constant tensors and
 the ``[B]`` dyn-parameter tensors.  Inside a stage nothing reads a tensor back
 to the host.  The cycle driver (:func:`_run_cycles`) is a Python loop; with
-``early_exit`` it reads one flag back per ``block_cycles`` cycles and stops once
-every lane has drained.
+``early_exit`` it steps ``block_cycles``-cycle blocks and reads one flag back
+per block, holding each lane still once it has drained (or skipping its idle
+stretches, on the schedule pipeline), and stops once no lane is left to step.
 
-The entry point runs on the CUDA device unless the caller names another
+The entry points run on the CUDA device unless the caller names another
 (the tests pass ``device="cpu"``).  On CUDA the arbitration stage launches the
 hand-written Hopper kernel; ``SimParams(arbiter="ref")`` selects the plain
-PyTorch version instead, which is what a run compares the kernel with.
+PyTorch version instead, which is what a run compares the kernel with.  On
+CUDA the cycle body replays as two CUDA graphs, one on each side of the
+arbiter's call (:class:`_GraphedCycle`); on the CPU it runs op by op.
 
 Comparator topologies (§II-A): ``banking='paper'`` (the proposed structure),
 ``'linear'`` (monolithic region-per-bank banking) and ``'no_fractal'``
@@ -41,8 +52,9 @@ Comparator topologies (§II-A): ``banking='paper'`` (the proposed structure),
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from dataclasses import dataclass, fields
+from dataclasses import replace as dataclasses_replace
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,10 +62,13 @@ import torch
 from repro_torch.core.address import (
     MemoryGeometry,
     flat_bank_id,
+    flat_bank_id_dev,
     master_home_slices,
     slice_of_bank,
     slice_of_beat,
+    slice_of_beat_dev,
 )
+from repro_torch.core.percentile import STREAM_PCTS, desired_fracs, p2_update
 from repro_torch.core.qos import aging_boost, arbitration_priority_key
 from repro_torch.core.state import (
     INF32,
@@ -96,12 +111,20 @@ MAX_BURST_LIMIT = 127
 #: ``outstanding``/``split_buffer`` ceiling: credit counters are int16
 CREDIT_LIMIT = 2**14
 
+#: streaming-collection QoS class slots: the three QoS classes in their
+#: canonical order plus one trailing "unclassified" slot (padding rows,
+#: schedules compiled without class info)
+STREAM_CLASSES = 4
+#: class index of the trailing unclassified slot
+UNCLASSIFIED = STREAM_CLASSES - 1
+
 #: per-bank comparator backends: the Hopper kernel (CPU tensors take its plain
 #: version) or, explicitly, the plain PyTorch version on any device
 ARBITERS = ("kernel", "ref")
 
 DEFAULT_PIPELINE = ("accept_dispatch", "bank_arbitrate", "router_release", "return_bus", "retire")
-#: the reference's event-schedule pipeline; its stages are not ported yet
+#: the event-schedule pipeline: packed per-master schedules advanced inside
+#: the loop; select it with ``SimParams(stages=SCHEDULE_PIPELINE)``
 SCHEDULE_PIPELINE = (
     "accept_dispatch_sched",
     "bank_arbitrate",
@@ -109,7 +132,16 @@ SCHEDULE_PIPELINE = (
     "return_bus",
     "retire_sched",
 )
-_SCHEDULE_STAGES = ("accept_sched", "dispatch_sched", "accept_dispatch_sched", "retire_sched")
+
+#: what the cycle driver did since :func:`reset_driver_counts`: cycle bodies
+#: stepped (each steps every lane of its batch once and, on CUDA, launches the
+#: arbiter kernel once) and host reads of a device flag (one per block)
+DRIVER_COUNTS = {"cycles": 0, "host_reads": 0}
+
+
+def reset_driver_counts() -> None:
+    for name in DRIVER_COUNTS:
+        DRIVER_COUNTS[name] = 0
 
 
 @dataclass(frozen=True)
@@ -133,11 +165,11 @@ class SimParams:
     slots_override: Optional[int] = None  # force a common ring size (batching)
     stages: Optional[Tuple[str, ...]] = None  # None = DEFAULT_PIPELINE
     arbiter: str = "kernel"  # per-bank comparator backend: kernel | ref
-    collect: str = "exact"  # exact | stream (stream is not ported yet)
-    inflight_override: Optional[int] = None  # schedule pipeline only
+    collect: str = "exact"  # exact | stream: per-txn timestamps or P² accumulators
+    inflight_override: Optional[int] = None  # force a common in-flight table (batching)
     early_exit: bool = True  # stop stepping once every lane has drained
     block_cycles: int = 32  # K: cycles between two drain checks
-    time_skip: bool = True  # schedule pipeline only
+    time_skip: bool = True  # schedule pipeline + early_exit: jump idle stretches
 
     @property
     def slots_per_master(self) -> int:
@@ -146,6 +178,30 @@ class SimParams:
             return int(self.slots_override)
         return int(
             2 ** np.ceil(np.log2(max(self.outstanding * self.max_burst, self.split_buffer) * 2))
+        )
+
+    @property
+    def inflight_slots(self) -> int:
+        """Schedule-pipeline in-flight table width: a port's two AXI channels
+        can each hold ``outstanding`` live commands, so 2x covers them."""
+        if self.inflight_override is not None:
+            return int(self.inflight_override)
+        return int(2 ** np.ceil(np.log2(max(2 * self.outstanding, 2))))
+
+    def static_key(self) -> tuple:
+        """Fields that must agree across every point of one batch."""
+        return (
+            self.geom,
+            self.expand_rate,
+            self.max_burst,
+            self.banking,
+            self.max_cycles,
+            self.stages,
+            self.arbiter,
+            self.collect,
+            self.early_exit,
+            self.block_cycles,
+            self.time_skip,
         )
 
     def dyn_vector(self) -> np.ndarray:
@@ -162,29 +218,29 @@ class SimParams:
     def pipeline(self) -> Tuple[str, ...]:
         """The stage names one cycle runs, validated loudly."""
         names = tuple(self.stages) if self.stages else DEFAULT_PIPELINE
-        sched = [n for n in names if n in _SCHEDULE_STAGES]
-        if sched:
-            raise NotImplementedError(
-                f"the event-schedule pipeline (stages {sched}) is not ported yet: "
-                "ROADMAP.md Queue 1 item 7"
-            )
-        if self.collect == "stream":
-            raise NotImplementedError(
-                "collect='stream' (streaming percentiles) is not ported yet: "
-                "ROADMAP.md Queue 1 item 8"
-            )
-        if self.collect != "exact":
-            raise ValueError(f"collect must be 'exact' or 'stream'; got {self.collect!r}")
         unknown = [n for n in names if n not in STAGE_REGISTRY]
         if unknown:
             raise ValueError(
                 f"unknown stage(s) {unknown}; registered stages: {sorted(STAGE_REGISTRY)}"
+            )
+        if self.collect not in ("exact", "stream"):
+            raise ValueError(f"collect must be 'exact' or 'stream'; got {self.collect!r}")
+        if self.collect == "stream" and "retire_sched" not in names:
+            raise ValueError(
+                "collect='stream' needs the schedule pipeline (streaming accumulators live "
+                "in the in-flight table the dense stages do not maintain); "
+                "set stages=SCHEDULE_PIPELINE"
             )
         if self.arbiter not in ARBITERS:
             raise ValueError(f"unknown arbiter {self.arbiter!r}; pick from {ARBITERS}")
         if self.block_cycles < 1:
             raise ValueError(f"block_cycles must be >= 1; got {self.block_cycles}")
         return names
+
+    def uses_schedule(self) -> bool:
+        """True when this point runs the event-schedule pipeline."""
+        names = self.pipeline()
+        return "accept_sched" in names or "accept_dispatch_sched" in names
 
 
 def bank_of(addr, prm: SimParams):
@@ -204,6 +260,25 @@ def bank_of(addr, prm: SimParams):
         bank = (a // (g.num_clusters * g.arrays_per_cluster)) % g.banks_per_array
         flat = (c * g.arrays_per_cluster + arr) * g.banks_per_array + bank
         return (np.asarray(sl).astype(np.int64) * g.banks_per_slice + flat).astype(np.int32)
+    raise ValueError(prm.banking)
+
+
+def bank_of_dev(addr: torch.Tensor, prm: SimParams) -> torch.Tensor:
+    """Tensor (int32) twin of :func:`bank_of`: the schedule pipeline maps the
+    candidate burst's beats to banks inside the cycle loop.  Addresses must
+    already lie in ``[0, beats_total)``."""
+    g = prm.geom
+    if prm.banking == "paper":
+        return flat_bank_id_dev(addr, g)
+    if prm.banking == "linear":
+        return torch.clamp(addr // (g.beats_total // g.num_banks), 0, g.num_banks - 1)
+    if prm.banking == "no_fractal":
+        sl, local = slice_of_beat_dev(addr, g)
+        c = local % g.num_clusters
+        arr = (local // g.num_clusters) % g.arrays_per_cluster
+        bank = (local // (g.num_clusters * g.arrays_per_cluster)) % g.banks_per_array
+        flat = (c * g.arrays_per_cluster + arr) * g.banks_per_array + bank
+        return sl * g.banks_per_slice + flat
     raise ValueError(prm.banking)
 
 
@@ -281,9 +356,55 @@ def _precompute_beats(trace: Trace, prm: SimParams):
     return banks.astype(np.int32), valid, hops, ingress.astype(np.int32)
 
 
-def _host_args(trace: Trace, prm: SimParams) -> tuple:
-    """One point's host-side inputs: (is_write, burst, banks, hops, ingress,
-    start, prio), all int32 numpy arrays."""
+def _as_input(trace, use_sched: bool):
+    """A Trace or EventSchedule as the pipeline runs it: a schedule compiled
+    from a trace (unclassified, no deadline) for the schedule pipeline, a
+    schedule's trace view for the dense one."""
+    from repro_torch.core.traffic import EventSchedule, compile_schedule
+
+    if use_sched:
+        return trace if isinstance(trace, EventSchedule) else compile_schedule(trace)
+    return trace.to_trace() if isinstance(trace, EventSchedule) else trace
+
+
+def _validate_schedule(sched, prm: SimParams) -> None:
+    """The schedule path's domain checks (it skips ``_precompute_beats``): an
+    out-of-range beat would route to a phantom bank and spin to max_cycles;
+    a burst past ``max_burst`` would never drain its tail beats."""
+    g = prm.geom
+    b = np.asarray(sched.burst)
+    a = np.asarray(sched.addr)
+    if b.max(initial=0) > prm.max_burst:
+        bad = np.argwhere(b > prm.max_burst)[0]
+        raise ValueError(
+            f"schedule burst {int(b[tuple(bad)])} at master {bad[0]} event {bad[1]} exceeds "
+            f"max_burst={prm.max_burst}: beats past the dispatch window would never issue"
+        )
+    oob = (b > 0) & ((a < 0) | (a + b > g.beats_total))
+    if oob.any():
+        bad = np.argwhere(oob)[0]
+        raise ValueError(
+            f"schedule addresses out of range: master {bad[0]} event {bad[1]} touches beat "
+            f"{int(a[tuple(bad)] + b[tuple(bad)]) - 1} but the fabric has {g.beats_total} "
+            f"beats ({g.num_slices} slice(s))"
+        )
+
+
+def _host_args(trace, prm: SimParams, use_sched: bool = False) -> tuple:
+    """One point's host-side inputs.  Dense: (is_write, burst, banks, hops,
+    ingress, start, prio), all int32.  Schedule: (is_write int8, burst int8,
+    addr int32, start int32, prio int8, class int8, deadline int32)."""
+    if use_sched:
+        _validate_schedule(trace, prm)
+        return (
+            np.asarray(trace.is_write, np.int8),
+            np.asarray(trace.burst, np.int8),
+            np.asarray(trace.addr, np.int32),
+            np.asarray(trace.start, np.int32),
+            np.asarray(trace.prio, np.int8),
+            np.asarray(trace.cls, np.int8),
+            np.asarray(trace.deadline, np.int32),
+        )
     banks, _, hops, ing = _precompute_beats(trace, prm)
     return (
         np.asarray(trace.is_write, np.int32),
@@ -296,12 +417,16 @@ def _host_args(trace: Trace, prm: SimParams) -> tuple:
     )
 
 
-def _device_args(prm: SimParams, host: tuple, dyn: np.ndarray, device) -> tuple:
-    """Batched host arrays (leading axis B) -> narrow device tensors:
+def _device_args(prm: SimParams, host, dyn: np.ndarray, device, use_sched: bool = False) -> tuple:
+    """Batched host arrays (leading axis B) -> narrow device tensors.  Dense:
     write/burst/hops/prio int8, ingress int16, banks the narrowest dtype that
-    indexes the fabric's banks, start and dyn int32."""
-    i8, banks = torch.int8, bank_dtype(prm.geom.num_banks)
-    dtypes = (i8, i8, banks, i8, torch.int16, torch.int32, i8, torch.int32)
+    indexes the fabric's banks, start int32.  Schedule: write/burst/prio/class
+    int8, addr/start/deadline int32.  ``dyn`` int32."""
+    i8, i32 = torch.int8, torch.int32
+    if use_sched:
+        dtypes = (i8, i8, i32, i32, i8, i8, i32, i32)
+    else:
+        dtypes = (i8, i8, bank_dtype(prm.geom.num_banks), i8, torch.int16, i32, i8, i32)
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device=device, dtype=t)
         for a, t in zip((*host, dyn), dtypes)
@@ -348,32 +473,25 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, 2, index).squeeze(2)
 
 
-@register_stage("accept")
-def _stage_accept(st: SimState, wires, c):
-    """Command acceptance, one per port per cycle: outstanding credits,
-    split-buffer credits, W-data-bus pacing, the best-effort token-bucket
-    regulator and the inter-slice router's admission gate.  A burst larger
-    than the bucket or the ingress cap is admitted alone and drives the
-    counter into debt (delayed, never deadlocked); ports are admitted in
-    index order within the cycle, each counting the needs of the
-    lower-indexed candidates."""
-    N = c["N"]
+def _admit(st: SimState, c, burst, is_w, ready, need):
+    """The acceptance gates of both pipelines, one candidate burst per port
+    (``burst``, ``is_w``, ``ready`` [B, X]; ``need`` [B, X, NSL], its remote
+    beats per destination slice): outstanding credits, split-buffer credits,
+    W-data-bus pacing, the best-effort token-bucket regulator and the
+    inter-slice router's admission gate.  A burst larger than the bucket or
+    the ingress cap is admitted alone and drives the counter into debt
+    (delayed, never deadlocked); ports are admitted in index order within the
+    cycle, each counting the needs of the lower-indexed candidates.  Returns
+    ``can`` [B, X] and the updated port and router fields."""
     d = c["d"]
     now = st.now[:, None]  # [B, 1]
-    nt = st.next_txn
-    has_txn = nt < N
-    nt_c = torch.clamp(nt, max=N - 1)
-    burst = widen(_take(c["tx_burst"], nt_c))
-    is_w = widen(_take(c["tx_write"], nt_c))
-    ready = _take(c["tx_start"], nt_c) <= now
     dirn = is_w.long()[..., None]  # 0 = read, 1 = write
     reg_gate = c["regulated"] & (d["reg_rate"] > 0)[:, None]
     reg_cap = (d["reg_burst"] * REG_SCALE)[:, None]
     reg_tokens = torch.minimum(st.reg_tokens + d["reg_rate"][:, None], reg_cap)
     reg_need = torch.minimum(burst, d["reg_burst"][:, None]) * REG_SCALE
-    need = widen(_take(c["tx_ing"], nt_c))  # [B, X, NSL]
     pre_can = (
-        has_txn
+        (st.next_txn < c["N"])
         & (burst > 0)
         & ready
         & (torch.gather(st.outstanding, 2, dirn)[..., 0] < d["outstanding"][:, None])
@@ -392,22 +510,32 @@ def _stage_accept(st: SimState, wires, c):
     )
     can = pre_can & ing_ok
     can_i = can.to(torch.int32)
-    reg_tokens = reg_tokens - torch.where(can & reg_gate, burst * REG_SCALE, 0)
-    ing_used = st.ing_used + torch.where(can[..., None], need, 0).sum(1, dtype=torch.int32)
-    accept = torch.where(
-        can[..., None] & (c["txn_ids"] == nt_c[..., None]), now[..., None], st.accept_cycle
-    )
     outstanding = widen(st.outstanding).scatter_add(2, dirn, can_i[..., None])
     credits = widen(st.credits).scatter_add(2, dirn, -torch.where(can, burst, 0)[..., None])
-    st = st.replace(
-        next_txn=nt + can_i,
+    return can, dict(
+        next_txn=st.next_txn + can_i,
         outstanding=outstanding.to(st.outstanding.dtype),
         credits=credits.to(st.credits.dtype),
         fwd_free=torch.where(can & (is_w > 0), now + burst, st.fwd_free),
-        reg_tokens=reg_tokens,
-        ing_used=ing_used,
-        accept_cycle=accept,
+        reg_tokens=reg_tokens - torch.where(can & reg_gate, burst * REG_SCALE, 0),
+        ing_used=st.ing_used + torch.where(can[..., None], need, 0).sum(1, dtype=torch.int32),
     )
+
+
+@register_stage("accept")
+def _stage_accept(st: SimState, wires, c):
+    """Command acceptance, one per port per cycle (the gates of ``_admit``),
+    from the dense pipeline's per-transaction tables."""
+    now = st.now[:, None]  # [B, 1]
+    nt_c = torch.clamp(st.next_txn, max=c["N"] - 1)
+    burst = widen(_take(c["tx_burst"], nt_c))
+    is_w = widen(_take(c["tx_write"], nt_c))
+    ready = _take(c["tx_start"], nt_c) <= now
+    can, upd = _admit(st, c, burst, is_w, ready, widen(_take(c["tx_ing"], nt_c)))
+    accept = torch.where(
+        can[..., None] & (c["txn_ids"] == nt_c[..., None]), now[..., None], st.accept_cycle
+    )
+    st = st.replace(accept_cycle=accept, **upd)
     return st, dict(wires, accept=dict(can=can, burst=burst, is_w=is_w, nt_c=nt_c))
 
 
@@ -481,8 +609,9 @@ def _stage_bank_arbitrate(st: SimState, wires, c):
     level = torch.clamp(c["slot_prio"] - boost, 0, PRIO_LEVELS - 1)
     rr = (c["master_col"] - torch.gather(st.bank_rr, 1, bank).reshape(B, X, P)) % X
     key = arbitration_priority_key(level, age, rr, age_cap=c["AGE_CAP"], num_masters=X)
-    arbiter = bank_arbiter_winners if prm.arbiter == "kernel" else bank_arbiter_ref
-    win = arbiter(key.reshape(B, S), st.sl_bank.reshape(B, S), elig.reshape(B, S), num_banks=NB)
+    win = c["arbitrate"](
+        key.reshape(B, S), st.sl_bank.reshape(B, S), elig.reshape(B, S), num_banks=NB
+    )
     has_win = win < S
     winc32 = torch.clamp(win, max=S - 1)
     winc = winc32.long()
@@ -570,9 +699,10 @@ def _stage_return_bus(st: SimState, wires, c):
 def _latch_drained(st: SimState, c) -> SimState:
     """Latch ``drained_at`` the first cycle a lane goes quiescent: every
     reachable transaction accepted, no outstanding commands, every beat slot
-    idle, all ingress credits returned and no undelivered beat.  Called on
-    the post-retire state, so the latched value counts the cycles after which
-    nothing but ``now`` and the capped regulator refill can change."""
+    idle, all ingress credits returned and no undelivered beat (in the dense
+    counters or the in-flight table).  Called on the post-retire state, so the
+    latched value counts the cycles after which nothing but ``now`` and the
+    capped regulator refill can change."""
     phase, _ = unpack_slot_flags(st.sl_flags)
     drained = (
         (st.next_txn >= c["n_events"]).all(1)
@@ -580,6 +710,7 @@ def _latch_drained(st: SimState, c) -> SimState:
         & (phase == SLOT_IDLE).flatten(1).all(1)
         & (st.ing_used == 0).all(1)
         & (st.remaining <= 0).flatten(1).all(1)
+        & (st.ift_remaining == 0).flatten(1).all(1)
     )
     return st.replace(drained_at=torch.where((st.drained_at < 0) & drained, st.now, st.drained_at))
 
@@ -630,22 +761,208 @@ def _stage_retire(st: SimState, wires, c):
     return _latch_drained(st, c), wires
 
 
+@register_stage("accept_sched")
+def _stage_accept_sched(st: SimState, wires, c):
+    """Schedule-pipeline acceptance: the gates of ``_admit``, but the
+    candidate burst's beat -> (bank, hops, ingress need) routing is computed
+    in the loop from its address (``bank_of_dev``), and the accepted command
+    takes the first free slot of its port's in-flight table."""
+    NSL = c["NSL"]
+    now = st.now[:, None]  # [B, 1]
+    nt_c = torch.clamp(st.next_txn, max=c["N"] - 1)
+    burst = widen(_take(c["tx_burst"], nt_c))
+    is_w = widen(_take(c["tx_write"], nt_c))
+    start = _take(c["tx_start"], nt_c)
+    # in-loop routing of the candidate bursts only ([B, X, max_burst])
+    off = c["beat_off"]
+    bvalid = off < burst[..., None]
+    beat = torch.where(bvalid, _take(c["tx_addr"], nt_c)[..., None] + off, 0)
+    banks_txn = bank_of_dev(beat, c["prm"])
+    tgt = banks_txn // c["banks_per_slice"]
+    dist = (tgt - c["home"][:, None]).abs()
+    hops_txn = torch.where(bvalid, torch.minimum(dist, NSL - dist), 0)
+    remote = bvalid & (hops_txn > 0)
+    slices = torch.arange(NSL, dtype=torch.int32, device=tgt.device)
+    need = (remote[..., None] & (tgt[..., None] == slices)).sum(2, dtype=torch.int32)
+    can, upd = _admit(st, c, burst, is_w, start <= now, need)
+    # in-flight table allocation: the credit gate caps live commands at
+    # 2 x outstanding - 1 < F, so a free slot (remaining == 0) always exists;
+    # the first free one is taken
+    F = st.ift_remaining.shape[2]
+    slots = torch.arange(F, dtype=torch.int32, device=now.device)
+    first = torch.where(st.ift_remaining == 0, slots, F).amin(2)
+    idx = torch.where(first < F, first, 0)[..., None].long()  # [B, X, 1]
+
+    def put(tbl, val):
+        keep = widen(torch.gather(tbl, 2, idx))[..., 0]
+        return tbl.scatter(2, idx, torch.where(can, val, keep)[..., None].to(tbl.dtype))
+
+    upd.update(
+        ift_write=put(st.ift_write, is_w),
+        ift_burst=put(st.ift_burst, burst),
+        ift_remaining=put(st.ift_remaining, burst),
+        ift_accept=put(st.ift_accept, now.expand_as(burst)),
+        ift_start=put(st.ift_start, start),
+        ift_txn=put(st.ift_txn, nt_c),
+    )
+    if c["exact"]:
+        upd["accept_cycle"] = st.accept_cycle.scatter_reduce(
+            2, nt_c[..., None].long(), torch.where(can, now, -1)[..., None], "amax"
+        )
+    st = st.replace(**upd)
+    accept = dict(
+        can=can,
+        burst=burst,
+        is_w=is_w,
+        nt_c=nt_c,
+        banks_txn=banks_txn,
+        hops_txn=hops_txn,
+        ift_idx=idx[..., 0],
+    )
+    return st, dict(wires, accept=accept)
+
+
+@register_stage("dispatch_sched")
+def _stage_dispatch_sched(st: SimState, wires, c):
+    """Schedule-pipeline dispatch: the ring math of ``dispatch``, with the
+    burst's per-beat banks and hops from the accept wires (computed in the
+    loop) and each slot recording its command's in-flight-table index."""
+    prm, d = c["prm"], c["d"]
+    acc = wires["accept"]
+    now = st.now[:, None, None]
+    can, burst, is_w = acc["can"], acc["burst"], acc["is_w"]
+    off = (c["pos"] - st.beats_issued[..., None]) % c["P"]  # [B, X, P]
+    wr = can[..., None] & (off < burst[..., None])
+    offc = torch.clamp(off, max=prm.max_burst - 1).long()
+    bank_new = torch.gather(acc["banks_txn"], 2, offc)
+    hops_new = torch.gather(acc["hops_txn"], 2, offc)
+    pace = torch.where(is_w[..., None] > 0, off, off // prm.expand_rate)
+    arrive = (
+        now + d["cmd_latency"][:, None, None] + pace + d["hop_latency"][:, None, None] * hops_new
+    )
+    phase, write = unpack_slot_flags(st.sl_flags)
+    st = st.replace(
+        sl_flags=pack_slot_flags(
+            torch.where(wr, SLOT_WAITING, phase), torch.where(wr, is_w[..., None], write)
+        ),
+        sl_bank=torch.where(wr, bank_new.to(st.sl_bank.dtype), st.sl_bank),
+        sl_arrive=torch.where(wr, arrive, st.sl_arrive),
+        sl_ready=torch.where(wr, INF32, st.sl_ready),
+        sl_txn=torch.where(wr, acc["ift_idx"][..., None].to(st.sl_txn.dtype), st.sl_txn),
+        sl_hops=torch.where(wr, hops_new.to(torch.int8), st.sl_hops),
+        beats_issued=st.beats_issued + torch.where(can, burst, 0),
+    )
+    return st, wires
+
+
+@register_stage("accept_dispatch_sched")
+def _stage_accept_dispatch_sched(st: SimState, wires, c):
+    """Fused schedule-pipeline acceptance + dispatch."""
+    st, wires = _stage_accept_sched(st, wires, c)
+    return _stage_dispatch_sched(st, wires, c)
+
+
+@register_stage("retire_sched")
+def _stage_retire_sched(st: SimState, wires, c):
+    """Schedule-pipeline retire: the completion logic of ``retire`` on the
+    ``[B, X, F]`` in-flight table.  ``collect="exact"`` scatters timestamps
+    back to the ``[B, X, N]`` arrays; ``collect="stream"`` folds each
+    completion into the fixed-size accumulators: per-port windows for
+    throughput, P² marker groups per (view, class, direction) for latency
+    percentiles, per-class deadline counters.
+
+    Several banks can grant write beats of one command in one cycle, so the
+    beat decrements accumulate (scatter-adds, as in ``retire``)."""
+    d = c["d"]
+    B, X, F = st.ift_remaining.shape
+    arb, ret = wires["arb"], wires["ret"]
+    rem_before = widen(st.ift_remaining)
+    wdec = (arb["has_win"] & (arb["wwrite"] == 1)).to(torch.int32)
+    flat = rem_before.reshape(B, X * F)
+    flat = flat.scatter_add(1, (arb["wmaster"] * F + arb["wtxn"]).long(), -wdec)
+    rdec = ret["ret_any"].to(torch.int32)
+    flat = flat.scatter_add(1, (c["ar"] * F + ret["ret_txn"]).long(), -rdec)
+    remaining = flat.reshape(B, X, F)
+    just_done = (remaining == 0) & (rem_before > 0)
+    iw = widen(st.ift_write)
+    jr = just_done & (iw == 0)
+    jw = just_done & (iw == 1)
+    outstanding = widen(st.outstanding) - torch.stack(
+        [jr.sum(2, dtype=torch.int32), jw.sum(2, dtype=torch.int32)], dim=2
+    )
+    in_r = (outstanding[..., 0] > 0).to(torch.int32)
+    in_w = (outstanding[..., 1] > 0).to(torch.int32)
+    complete_t = (st.now + d["ret_latency"])[:, None, None]  # [B, 1, 1]
+    upd = dict(
+        now=st.now + 1,
+        outstanding=outstanding.to(st.outstanding.dtype),
+        ift_remaining=remaining.to(st.ift_remaining.dtype),
+        busy_r=st.busy_r + in_r,
+        busy_w=st.busy_w + in_w,
+        busy_any=st.busy_any + torch.maximum(in_r, in_w),
+    )
+    if c["exact"]:
+        upd["complete_cycle"] = st.complete_cycle.scatter_reduce(
+            2, st.ift_txn.long(), torch.where(just_done, complete_t, -1), "amax"
+        )
+        return _latch_drained(st.replace(**upd), c), wires
+
+    # --- streaming accumulators (collect="stream") ---
+    acc = st.ift_accept
+    bts = widen(st.ift_burst)
+    lat = (complete_t - acc).to(torch.float32)
+    e2e = (complete_t - st.ift_start).to(torch.float32)
+
+    def per_dir(fn):
+        return torch.stack([fn(jr), fn(jw)], dim=2)  # [B, X, 2]
+
+    upd.update(
+        pt_first=torch.minimum(st.pt_first, per_dir(lambda s: torch.where(s, acc, INF32).amin(2))),
+        pt_last=torch.where(per_dir(lambda s: s.any(2)), complete_t, st.pt_last),
+        pt_beats=st.pt_beats + per_dir(lambda s: torch.where(s, bts, 0).sum(2, dtype=torch.int32)),
+        pt_count=st.pt_count + per_dir(lambda s: s.sum(2, dtype=torch.int32)),
+        pt_lat_sum=st.pt_lat_sum + per_dir(lambda s: torch.where(s, lat, 0.0).sum(2)),
+        pt_lat_max=torch.maximum(
+            st.pt_lat_max, per_dir(lambda s: torch.where(s, lat, 0.0).amax(2))
+        ),
+    )
+    NC = c["NC"]
+    cls = widen(c["tx_class"])[..., None].expand(B, X, F)
+    gcd = (cls * 2 + iw).reshape(B, -1)  # class x direction
+    jd_f = just_done.reshape(B, -1)
+    cls_done = st.cls_done.reshape(B, -1).scatter_add(1, gcd.long(), jd_f.to(torch.int32))
+    upd["cls_done"] = cls_done.reshape(B, NC, 2)
+    has_dl = c["tx_deadline"][..., None] >= 0
+    late = (complete_t - st.ift_start) > c["tx_deadline"][..., None]
+    dd = (just_done & has_dl).reshape(B, -1)
+    cls_f = cls.reshape(B, -1).long()
+    upd["dl_done"] = st.dl_done.scatter_add(1, cls_f, dd.to(torch.int32))
+    upd["dl_miss"] = st.dl_miss.scatter_add(1, cls_f, (dd & late.reshape(B, -1)).to(torch.int32))
+    # P² groups: view-major (0 = accept -> complete, 1 = earliest issue -> complete)
+    vals = torch.cat([lat.reshape(B, -1), e2e.reshape(B, -1)], 1)
+    gid = torch.cat([gcd, gcd + 2 * NC], 1)
+    mask = torch.cat([jd_f, jd_f], 1)
+    h, n, pc = p2_update(st.p2_height, st.p2_npos, st.p2_count, vals, gid, mask)
+    p2_max = st.p2_max.scatter_reduce(1, gid.long(), torch.where(mask, vals, 0.0), "amax")
+    upd.update(p2_height=h, p2_npos=n, p2_count=pc, p2_max=p2_max)
+    return _latch_drained(st.replace(**upd), c), wires
+
+
 # ---------------------------------------------------------------------------
 # Set-up, the cycle driver, metrics
 # ---------------------------------------------------------------------------
 
 
-def _dense_setup(tx_write, tx_burst, tx_banks, tx_hops, tx_ing, tx_start, tx_prio, dyn, prm):
-    """Cycle-0 state + stage context for ``B`` lanes; every input carries the
-    leading batch axis and lies on the run's device (see ``_device_args``)."""
+def _base_ctx(tx_write, tx_burst, tx_prio, dyn, prm: SimParams) -> dict:
+    """The stage context both pipelines share, for ``B`` lanes; every input
+    carries the leading batch axis and lies on the run's device."""
     B, X, N = tx_write.shape
     P = prm.slots_per_master
     dev = tx_write.device
-    d = {name: dyn[:, i].contiguous() for i, name in enumerate(DYN_FIELDS)}
     prio = torch.clamp(widen(tx_prio), 0, PRIO_LEVELS - 1)  # [B, X]
     ar = torch.arange(X, dtype=torch.int32, device=dev)
     pos = torch.arange(P, dtype=torch.int32, device=dev)
-    ctx = dict(
+    return dict(
         X=X,
         N=N,
         P=P,
@@ -654,10 +971,10 @@ def _dense_setup(tx_write, tx_burst, tx_banks, tx_hops, tx_ing, tx_start, tx_pri
         NSL=prm.geom.num_slices,
         AGE_CAP=_age_cap(prm, X),
         prm=prm,
-        d=d,
+        arbitrate=bank_arbiter_winners if prm.arbiter == "kernel" else bank_arbiter_ref,
+        d={name: dyn[:, i].contiguous() for i, name in enumerate(DYN_FIELDS)},
         ar=ar,
         pos=pos,
-        txn_ids=torch.arange(N, dtype=torch.int32, device=dev),
         master_col=ar[:, None],
         flat_ids=ar[:, None] * P + pos,  # [X, P]
         slot_prio=prio[..., None],  # [B, X, 1]
@@ -665,12 +982,61 @@ def _dense_setup(tx_write, tx_burst, tx_banks, tx_hops, tx_ing, tx_start, tx_pri
         n_events=_port_event_counts(tx_burst, N),
         tx_write=tx_write,
         tx_burst=tx_burst,
+    )
+
+
+def _dense_setup(tx_write, tx_burst, tx_banks, tx_hops, tx_ing, tx_start, tx_prio, dyn, prm):
+    """Cycle-0 state + stage context of the dense pipeline (see ``_device_args``)."""
+    ctx = _base_ctx(tx_write, tx_burst, tx_prio, dyn, prm)
+    ctx.update(
+        txn_ids=torch.arange(ctx["N"], dtype=torch.int32, device=tx_write.device),
         tx_banks=tx_banks,
         tx_hops=tx_hops,
         tx_ing=tx_ing,
         tx_start=tx_start,
     )
-    state = init_state(X=X, N=N, P=P, NB=ctx["NB"], NSL=ctx["NSL"], tx_burst=tx_burst, d=d)
+    state = init_state(
+        X=ctx["X"],
+        N=ctx["N"],
+        P=ctx["P"],
+        NB=ctx["NB"],
+        NSL=ctx["NSL"],
+        tx_burst=tx_burst,
+        d=ctx["d"],
+    )
+    return state, ctx
+
+
+def _sched_setup(tx_write, tx_burst, tx_addr, tx_start, tx_prio, tx_class, tx_deadline, dyn, prm):
+    """Cycle-0 state + stage context of the schedule pipeline."""
+    ctx = _base_ctx(tx_write, tx_burst, tx_prio, dyn, prm)
+    dev = tx_write.device
+    exact = prm.collect == "exact"
+    desired_fracs(STREAM_PCTS, dev)  # made here, before any CUDA graph capture
+    ctx.update(
+        beat_off=torch.arange(prm.max_burst, dtype=torch.int32, device=dev),
+        home=torch.from_numpy(master_home_slices(ctx["X"], prm.geom)).to(dev),
+        banks_per_slice=prm.geom.banks_per_slice,
+        exact=exact,
+        NC=STREAM_CLASSES,
+        tx_addr=tx_addr,
+        tx_start=tx_start,
+        tx_class=tx_class,
+        tx_deadline=tx_deadline,
+    )
+    state = init_state(
+        X=ctx["X"],
+        N=ctx["N"],
+        P=ctx["P"],
+        NB=ctx["NB"],
+        NSL=ctx["NSL"],
+        tx_burst=tx_burst,
+        d=ctx["d"],
+        F=prm.inflight_slots,
+        NC=0 if exact else STREAM_CLASSES,
+        NQ=len(STREAM_PCTS),
+        exact=exact,
+    )
     return state, ctx
 
 
@@ -687,41 +1053,168 @@ def _pipeline_cycle(prm: SimParams, ctx):
     return cycle
 
 
-def _run_cycles(state: SimState, cycle, prm: SimParams) -> SimState:
+def _snapshot(st: SimState) -> SimState:
+    return SimState(**{f.name: getattr(st, f.name).clone() for f in fields(SimState)})
+
+
+def _assign(dst: SimState, src: SimState) -> None:
+    """Copy ``src``'s fields into ``dst``'s tensors (in place)."""
+    for f in fields(SimState):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if a is not b:
+            a.copy_(b)
+
+
+class _GraphedCycle:
+    """The cycle body on CUDA: two CUDA graphs around the arbiter's launch.
+
+    A cycle issues 300 (dense) to 1150 (streaming) small ops, so replaying
+    them one by one from Python bounds the loop by the host.  Here the stages
+    up to the arbitration keys are captured once as one graph and the rest of
+    the cycle as a second; between the two replays the arbiter is called as
+    the stage calls it, so its kernel still launches (and is counted) once
+    per cycle.  The graphs read and write one fixed set of state tensors,
+    ``self.state``; :meth:`__call__` copies another state into them first.
+    The replays run the captured kernels on the same inputs, so results equal
+    the op-by-op cycle's bit for bit."""
+
+    def __init__(self, prm: SimParams, ctx: dict, state: SimState):
+        self.arbitrate = ctx["arbitrate"]
+        cycle = _pipeline_cycle(prm, ctx)
+        # one op-by-op cycle on a copy first (lazy initialisation outside the
+        # capture), with the plain arbiter: no kernel launch to count
+        ctx["arbitrate"] = bank_arbiter_ref
+        cycle(_snapshot(state))
+        self.state = _snapshot(state)
+        self.pre, self.post = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(device=state.now.device)
+        stream.wait_stream(torch.cuda.current_stream(state.now.device))
+        torch.cuda.synchronize(state.now.device)
+        ctx["arbitrate"] = self._split
+        try:
+            with torch.cuda.stream(stream):
+                self.pre.capture_begin()
+                _assign(self.state, cycle(self.state))
+                self.post.capture_end()
+        finally:
+            ctx["arbitrate"] = self.arbitrate
+        torch.cuda.current_stream(state.now.device).wait_stream(stream)
+
+    def _split(self, key, bank, elig, *, num_banks):
+        """Ends the first capture at the arbiter's call and starts the second,
+        which reads the winners from ``self.win``."""
+        self.args = (key, bank, elig, num_banks)
+        self.pre.capture_end()
+        self.win = torch.empty((key.shape[0], num_banks), dtype=torch.int32, device=key.device)
+        self.post.capture_begin(pool=self.pre.pool())
+        return self.win
+
+    def __call__(self, st: SimState) -> SimState:
+        if st is not self.state:
+            _assign(self.state, st)
+        key, bank, elig, num_banks = self.args
+        self.pre.replay()
+        self.win.copy_(self.arbitrate(key, bank, elig, num_banks=num_banks))
+        self.post.replay()
+        return self.state
+
+
+def _time_skip(st: SimState, c, K: int) -> SimState:
+    """Block-boundary idle-cycle skip (schedule pipeline), per lane: where a
+    lane has nothing in flight and every reachable pending event's issue time
+    lies strictly in the future, jump its ``now`` to the earliest of them.
+
+    On such a lane each skipped cycle body would change only ``now`` (+1) and
+    the regulator buckets (one capped refill per cycle), so both advance
+    analytically; no acceptance can fire and no slot, bank or return work
+    exists.  The target is clamped to ``max_cycles - K`` so the following
+    block cannot overrun the horizon."""
+    d = c["d"]
+    MC = c["prm"].max_cycles
+    phase, _ = unpack_slot_flags(st.sl_flags)
+    idle = (
+        (st.outstanding == 0).flatten(1).all(1)
+        & (phase == SLOT_IDLE).flatten(1).all(1)
+        & (st.ing_used == 0).all(1)
+        & (st.ift_remaining == 0).flatten(1).all(1)
+    )
+    pending = st.next_txn < c["n_events"]  # [B, X]
+    nt_c = torch.clamp(st.next_txn, max=c["N"] - 1)
+    ns = torch.where(pending, _take(c["tx_start"], nt_c), INF32).amin(1)
+    target = torch.clamp(ns, max=MC - K)
+    delta = torch.where(idle & pending.any(1) & (target > st.now), target - st.now, 0)
+    # analytic refill, overflow-safe: past ``need`` cycles the bucket is full
+    # anyway, so clamp the multiplier before it can wrap int32
+    rate = d["reg_rate"][:, None]
+    cap = (d["reg_burst"] * REG_SCALE)[:, None]
+    need = torch.where(rate > 0, (cap - st.reg_tokens + rate - 1) // torch.clamp(rate, min=1), 0)
+    d_eff = torch.minimum(delta[:, None], torch.clamp(need, min=0))
+    refill = torch.minimum(st.reg_tokens + d_eff * rate, cap)
+    return st.replace(
+        now=st.now + delta,
+        skipped=st.skipped + delta,
+        reg_tokens=torch.where(delta[:, None] > 0, refill, st.reg_tokens),
+    )
+
+
+def _hold(active: torch.Tensor, new: SimState, old: SimState) -> SimState:
+    """Per lane: ``new`` where ``active`` ([B]), else ``old``."""
+    out = {}
+    for f in fields(SimState):
+        a, b = getattr(new, f.name), getattr(old, f.name)
+        out[f.name] = torch.where(active.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+    return SimState(**out)
+
+
+def _run_cycles(state: SimState, cycle, ctx, prm: SimParams, *, skip: bool) -> SimState:
     """Step the cycle body for ``max_cycles`` simulated cycles.
 
     ``early_exit=False`` steps exactly ``max_cycles`` cycles.  With
-    ``early_exit=True`` the loop reads ``drained_at >= 0`` back to the host
-    once per ``block_cycles`` cycles (the only host sync in the loop) and
-    stops once every lane has drained; a drained lane's clock is then
-    fast-forwarded to ``max_cycles``.  After its drain a lane's stages change
-    only ``now`` and the capped, metric-free regulator refill, so the metrics
-    equal the fixed horizon's."""
+    ``early_exit=True`` the loop steps K-cycle blocks (``block_cycles``) for
+    every lane and keeps a block's result only on the lanes that were
+    *active* when it began: not drained, fewer than ``max_cycles // K`` blocks
+    done, and a whole block left before the horizon; the other lanes are held
+    as they were.  Before its block an active lane may take the time skip
+    (``skip``), which moves each lane's ``now`` by its own amount.  Reading
+    the active flags is the loop's one host read per block; the loop ends when
+    no lane is active.  Then a gated tail of at most K cycles steps each lane
+    not yet drained up to the horizon, and a drained lane's clock is
+    fast-forwarded to ``max_cycles``.  After its drain a lane's stages would
+    change only ``now`` and the capped, metric-free regulator refill, so the
+    metrics equal the fixed horizon's.  Every cycle body is counted in
+    ``DRIVER_COUNTS``."""
     MC = prm.max_cycles
     if not prm.early_exit:
         for _ in range(MC):
             state = cycle(state)
+        DRIVER_COUNTS["cycles"] += MC
         return state
     K = max(1, min(prm.block_cycles, MC))
-    stepped = 0
-    while stepped < MC:
-        for _ in range(min(K, MC - stepped)):
-            state = cycle(state)
-        stepped += min(K, MC - stepped)
-        if bool((state.drained_at >= 0).all()):
+    nblocks = MC // K
+    blocks = torch.zeros_like(state.now)
+    while True:
+        active = (state.drained_at < 0) & (blocks < nblocks) & (state.now + K <= MC)
+        flags = active.cpu()
+        DRIVER_COUNTS["host_reads"] += 1
+        if not bool(flags.any()):
             break
+        held = None if bool(flags.all()) else _snapshot(state)
+        st = _time_skip(state, ctx, K) if skip else state
+        for _ in range(K):
+            st = cycle(st)
+        DRIVER_COUNTS["cycles"] += K
+        state = st if held is None else _hold(active, st, held)
+        blocks = blocks + active.to(blocks.dtype)
+    # the sub-block remainder: each lane not drained steps up to the horizon
+    todo = torch.where((state.drained_at < 0) & (state.now < MC), MC - state.now, 0)
+    tail = min(K, int(todo.amax())) if todo.numel() else 0
+    DRIVER_COUNTS["host_reads"] += 1
+    for _ in range(tail):
+        active = (state.drained_at < 0) & (state.now < MC)
+        held = _snapshot(state)
+        state = _hold(active, cycle(state), held)
+    DRIVER_COUNTS["cycles"] += tail
     return state.replace(now=torch.where(state.drained_at >= 0, MC, state.now))
-
-
-def stepped_cycles(drained_cycle, prm: SimParams) -> int:
-    """Cycles :func:`_run_cycles` steps for a run whose lanes drained at
-    ``drained_cycle`` (the metric; -1 where a lane never drained)."""
-    MC = prm.max_cycles
-    drained = np.asarray(drained_cycle).reshape(-1)
-    if not prm.early_exit or MC == 0 or (drained < 0).any():
-        return MC
-    K = max(1, min(prm.block_cycles, MC))
-    return int(min(MC, -(-int(drained.max()) // K) * K))
 
 
 def _metrics(st: SimState, burst, is_w) -> Dict[str, torch.Tensor]:
@@ -786,26 +1279,264 @@ def _metrics(st: SimState, burst, is_w) -> Dict[str, torch.Tensor]:
     }
 
 
+def _stream_metrics(st: SimState, burst) -> Dict[str, torch.Tensor]:
+    """Metrics of a ``collect="stream"`` run, per lane: the port-level surface
+    of :func:`_metrics` without the per-transaction timestamp arrays, plus the
+    raw P²/class/deadline accumulator state (summarized on the host by
+    ``scenarios.sweep``, merged across lanes by ``p2_merge_quantile``)."""
+    n_real = (widen(burst) > 0).flatten(1).sum(1, dtype=torch.int32)
+    first = torch.cat([st.pt_first, st.pt_first.amin(2, keepdim=True)], 2)
+    last = torch.cat([st.pt_last, st.pt_last.amax(2, keepdim=True)], 2)
+    beats = torch.cat([st.pt_beats, st.pt_beats.sum(2, keepdim=True, dtype=torch.int32)], 2)
+    count = torch.cat([st.pt_count, st.pt_count.sum(2, keepdim=True, dtype=torch.int32)], 2)
+    span = torch.clamp(last - first, min=1).to(torch.float32)
+    tput = torch.where(count > 0, beats / span, 0.0)  # [B, X, (r, w, any)]
+    busy = torch.stack([st.busy_r, st.busy_w, st.busy_any], dim=2)
+    tput_busy = torch.where(count > 0, beats / torch.clamp(busy, min=1).to(torch.float32), 0.0)
+    cnt = st.pt_count.to(torch.float32)
+    granted_beats = st.slice_beats.sum(1, dtype=torch.int32)
+
+    def lat_avg(i):
+        mean = st.pt_lat_sum[..., i] / torch.clamp(cnt[..., i], min=1.0)
+        return torch.where(cnt[..., i] > 0, mean, 0.0)
+
+    return {
+        "throughput": tput[..., 2],
+        "read_throughput": tput[..., 0],
+        "write_throughput": tput[..., 1],
+        "throughput_busy": tput_busy[..., 2],
+        "read_throughput_busy": tput_busy[..., 0],
+        "write_throughput_busy": tput_busy[..., 1],
+        "busy_cycles": st.busy_any,
+        "read_lat_avg": lat_avg(0),
+        "read_lat_max": st.pt_lat_max[..., 0],
+        "write_lat_avg": lat_avg(1),
+        "write_lat_max": st.pt_lat_max[..., 1],
+        "all_done": st.pt_count.flatten(1).sum(1, dtype=torch.int32) == n_real,
+        "beats_done": st.beats_done,
+        "cycles": st.now,
+        "drained_cycle": st.drained_at,
+        "effective_cycles": torch.where(st.drained_at >= 0, st.drained_at, st.now),
+        "skipped_cycles": st.skipped,
+        "slice_beats": st.slice_beats,
+        "remote_beats": st.remote_beats,
+        "remote_beat_fraction": torch.where(
+            granted_beats > 0,
+            st.remote_beats / torch.clamp(granted_beats, min=1).to(torch.float32),
+            0.0,
+        ),
+        # streaming accumulator state (fixed-size; see core/percentile.py)
+        "p2_height": st.p2_height,
+        "p2_npos": st.p2_npos,
+        "p2_count": st.p2_count,
+        "p2_max": st.p2_max,
+        "cls_done": st.cls_done,
+        "dl_done": st.dl_done,
+        "dl_miss": st.dl_miss,
+        "txns_done_port": st.pt_count,
+    }
+
+
 def _resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA device; there is no silent CPU fallback."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "simulate() runs on the CUDA device by default and this machine has none; "
+                "the simulator runs on the CUDA device by default and this machine has none; "
                 "pass device='cpu' to run the plain PyTorch path on the host"
             )
         return torch.device("cuda")
     return torch.device(device)
 
 
-def simulate(trace: Trace, prm: SimParams = SimParams(), device=None) -> Dict[str, np.ndarray]:
+def _run(args: tuple, prm: SimParams, use_sched: bool) -> Dict[str, torch.Tensor]:
+    """Set up, drive and measure one batch of device inputs (``_device_args``
+    order, leading axis B) under the static envelope ``prm``."""
+    setup = _sched_setup if use_sched else _dense_setup
+    state, ctx = setup(*args, prm)
+    if state.now.is_cuda:
+        cycle = _GraphedCycle(prm, ctx, state)
+    else:
+        cycle = _pipeline_cycle(prm, ctx)
+    state = _run_cycles(state, cycle, ctx, prm, skip=use_sched and prm.time_skip)
+    if use_sched and prm.collect == "stream":
+        return _stream_metrics(state, ctx["tx_burst"])
+    return _metrics(state, ctx["tx_burst"], ctx["tx_write"])
+
+
+def _numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _prepare(trace, prm: SimParams, device) -> tuple:
+    use_sched = prm.uses_schedule()
+    host = [a[None] for a in _host_args(_as_input(trace, use_sched), prm, use_sched)]
+    return _device_args(prm, host, prm.dyn_vector()[None], device, use_sched), use_sched
+
+
+def simulate(trace, prm: SimParams = SimParams(), device=None) -> Dict[str, np.ndarray]:
     """Run the simulator on ``device`` (default: CUDA); returns per-port and
-    per-transaction statistics as numpy arrays in the reference's dtypes."""
+    per-transaction statistics as numpy arrays in the reference's dtypes.
+
+    Takes a dense :class:`Trace` or a packed ``EventSchedule``; ``prm.stages``
+    picks the pipeline and the input is converted to match."""
     dev = _resolve_device(device)
-    prm.pipeline()
-    host = [a[None] for a in _host_args(trace, prm)]
-    args = _device_args(prm, host, prm.dyn_vector()[None], dev)
-    state, ctx = _dense_setup(*args, prm)
-    state = _run_cycles(state, _pipeline_cycle(prm, ctx), prm)
-    out = _metrics(state, ctx["tx_burst"], ctx["tx_write"])
-    return {k: v[0].cpu().numpy() for k, v in out.items()}
+    args, use_sched = _prepare(trace, prm, dev)
+    return {k: v[0] for k, v in _numpy(_run(args, prm, use_sched)).items()}
+
+
+def compile_simulate(trace, prm: SimParams, device=None):
+    """Prepare :func:`simulate` for this (trace, prm) on ``device``: returns
+    a zero-argument runner that holds the prepared device inputs and gives
+    the same metrics dict, so a timed call leaves out the host's preparation."""
+    dev = _resolve_device(device)
+    args, use_sched = _prepare(trace, prm, dev)
+
+    def run() -> Dict[str, np.ndarray]:
+        return {k: v[0] for k, v in _numpy(_run(args, prm, use_sched)).items()}
+
+    return run
+
+
+def batch_envelope(prms: Sequence[SimParams]) -> SimParams:
+    """The static envelope a batch shares: every point must agree on the
+    program-shaping fields; the beat-slot ring (and, on the schedule
+    pipeline, the in-flight table) is sized for the largest point."""
+    if not prms:
+        raise ValueError("empty parameter batch")
+    key = prms[0].static_key()
+    for p in prms[1:]:
+        if p.static_key() != key:
+            raise ValueError(
+                "batched points must share geom/expand_rate/max_burst/banking/max_cycles/"
+                "stages/arbiter/collect/early_exit/block_cycles/time_skip; "
+                f"got {p.static_key()} vs {key}"
+            )
+    return dataclasses_replace(
+        prms[0],
+        slots_override=max(p.slots_per_master for p in prms),
+        inflight_override=max(p.inflight_slots for p in prms),
+    )
+
+
+def _pad_batch(arrs: list, pad: int) -> list:
+    """Repeat each stacked array's last row ``pad`` times: inert padding
+    lanes whose outputs are sliced off before the caller sees them."""
+    if pad == 0:
+        return arrs
+    return [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in arrs]
+
+
+def simulate_batch(
+    traces,
+    prms: Sequence[SimParams],
+    *,
+    shard: bool = True,
+    chunk: Optional[int] = None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Run B (trace, params) points as lanes of one batch on ``device``
+    (default: CUDA): one cycle loop steps every lane, and each cycle launches
+    the arbiter kernel once for all of them.
+
+    The traces must share one [X, N] shape (``core.traffic.stack_traces``)
+    and the params one static envelope (:func:`batch_envelope`).  Returns
+    the metrics of :func:`simulate` with a leading batch axis; row ``i``
+    equals ``simulate(traces[i], replace(prms[i], slots_override=...,
+    inflight_override=...))`` at the envelope's sizes, bit for bit.
+
+    * Shared trace: one trace with B > 1 points enters once, as ``[1, ...]``
+      tensors expanded to the batch (no B copies).
+    * ``chunk=C`` runs the batch C lanes at a time, one after the other, so
+      peak memory is one chunk's; the last chunk is padded by repeating the
+      last point, and the result is sliced back to B.
+    * ``shard`` keeps the reference's signature.  With one visible device it
+      changes nothing, as in the reference; splitting lanes across several
+      CUDA devices is not ported (ROADMAP.md Queue 1 item 6), so there it
+      raises rather than use one card silently (pass ``shard=False``)."""
+    if not prms:
+        raise ValueError("empty parameter batch")
+    dev = _resolve_device(device)
+    B = len(prms)
+    shared = len(traces) == 1 and B > 1
+    if not shared and len(traces) != B:
+        raise ValueError(
+            f"{len(traces)} traces vs {B} param points "
+            "(pass one trace to share it across all points)"
+        )
+    if shard and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "simulate_batch(shard=True) with several visible CUDA devices: splitting the batch "
+            "across devices is not ported yet (ROADMAP.md Queue 1 item 6); pass shard=False"
+        )
+    env = batch_envelope(prms)
+    use_sched = env.uses_schedule()
+    traces = [_as_input(t, use_sched) for t in traces]
+    shape = traces[0].is_write.shape
+    for t in traces[1:]:
+        if t.is_write.shape != shape:
+            raise ValueError(
+                f"all traces in a batch must share [X, N]; got {t.is_write.shape} vs {shape}"
+            )
+    dyn = np.stack([p.dyn_vector() for p in prms])
+    if shared:
+        host = [a[None] for a in _host_args(traces[0], env, use_sched)]
+    else:
+        per = [_host_args(t, p, use_sched) for t, p in zip(traces, prms)]
+        host = [np.stack([h[i] for h in per]) for i in range(len(per[0]))]
+    C = chunk if chunk is not None and 0 < chunk < B else B
+    n_chunks = -(-B // C)
+    lanes = _pad_batch([dyn] if shared else host + [dyn], n_chunks * C - B)
+    if shared:
+        trace_dev = _device_args(env, host, dyn[:1], dev, use_sched)[:-1]
+        trace_dev = tuple(a.expand(C, *a.shape[1:]) for a in trace_dev)
+    outs = []
+    for k in range(n_chunks):
+        part = [a[k * C : (k + 1) * C] for a in lanes]
+        if shared:
+            dyn_dev = torch.from_numpy(part[0]).to(dev)
+            args = (*trace_dev, dyn_dev)
+        else:
+            args = _device_args(env, part[:-1], part[-1], dev, use_sched)
+        outs.append(_numpy(_run(args, env, use_sched)))
+    return {k: np.concatenate([o[k] for o in outs])[:B] for k in outs[0]}
+
+
+# ---------------------------------------------------------------------------
+# Footprint accounting
+# ---------------------------------------------------------------------------
+
+
+def carry_nbytes(prm: SimParams, num_masters: int, num_txns: int) -> int:
+    """Bytes of ONE lane's loop carry (:class:`SimState`): what a batch or a
+    chunk multiplies.  Shapes only, built on the meta device."""
+    p = dataclasses_replace(
+        prm, slots_override=prm.slots_per_master, inflight_override=prm.inflight_slots
+    )
+    use_sched = p.uses_schedule()
+    exact = p.collect == "exact"
+    meta = torch.device("meta")
+    d = {f: torch.zeros(1, dtype=torch.int32, device=meta) for f in DYN_FIELDS}
+    st = init_state(
+        X=num_masters,
+        N=num_txns,
+        P=p.slots_per_master,
+        NB=p.geom.num_banks,
+        NSL=p.geom.num_slices,
+        tx_burst=torch.zeros((1, num_masters, num_txns), dtype=torch.int8, device=meta),
+        d=d,
+        F=p.inflight_slots if use_sched else 0,
+        NC=0 if exact else STREAM_CLASSES,
+        NQ=len(STREAM_PCTS),
+        exact=exact,
+    )
+    return sum(getattr(st, f.name).numel() * getattr(st, f.name).element_size() for f in fields(st))
+
+
+def input_nbytes(trace, prm: SimParams) -> int:
+    """Bytes of ONE point's prepared simulator inputs.  The dense path's
+    precomputed [X, N, max_burst] beat tables dominate it; the schedule path
+    carries only the packed event arrays."""
+    use_sched = prm.uses_schedule()
+    host = _host_args(_as_input(trace, use_sched), prm, use_sched)
+    return int(sum(np.asarray(a).nbytes for a in host) + prm.dyn_vector().nbytes)

@@ -34,6 +34,31 @@ drained_at         int32       cycle the lane went quiescent, -1 if never [B]
 skipped            int32       idle cycles jumped by the time skip [B]
 =================  ==========  =============================================
 
+Schedule-pipeline extension (``init_state(F=..., ...)``; every field below is
+zero-size on the dense path, so the dense carry is byte-identical):
+
+=================  ==========  =============================================
+ift_write/burst    int8        in-flight command table [B, X, F]: direction
+ift_remaining      int8        and undelivered beats per live command
+ift_accept/start   int32       acceptance / earliest-issue cycle [B, X, F]
+ift_txn            int16/32    schedule index of the live command [B, X, F]
+pt_first/last      int32       per-port per-direction completion window
+pt_beats/count     int32       completed beats / transactions [B, X, 2]
+pt_lat_sum/max     float32     accept->complete latency sums / maxima [B, X, 2]
+p2_height/npos     float32     P² markers [B, G, NQ, 5] (G = 4 x NC groups:
+p2_count           int32       (view, class, direction); NQ percentiles)
+p2_max             float32     exact per-group latency maximum [B, G]
+cls_done           int32       completed transactions per class x dir [B, NC, 2]
+dl_done/dl_miss    int32       deadline bookkeeping per class [B, NC]
+=================  ==========  =============================================
+
+The in-flight table replaces the per-transaction ``remaining`` counters on
+the schedule pipeline: ``F`` is sized to ``2 x outstanding`` (a port holds no
+more live commands than its two channels' credits), so nothing in the carry
+scales with the schedule length.  ``collect="exact"`` keeps the ``[B, X, N]``
+timestamp arrays as well; ``collect="stream"`` drops them for the
+accumulators.
+
 Stage functions never do arithmetic in the narrow dtypes: PyTorch keeps an
 ``int16`` plus a Python int in ``int16`` and shifts a ``uint8`` in ``uint8``.
 :func:`widen` and :func:`unpack_slot_flags` give ``int32`` views on read, and
@@ -47,6 +72,8 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.core.percentile import p2_init
 
 #: "infinite" cycle sentinel (also the arbitration-key filler ceiling)
 INF32 = 2**30
@@ -116,6 +143,27 @@ class SimState:
     accept_cycle: torch.Tensor
     complete_cycle: torch.Tensor
     beats_done: torch.Tensor
+    # schedule-pipeline extension (zero-size on the dense path)
+    ift_write: torch.Tensor
+    ift_burst: torch.Tensor
+    ift_remaining: torch.Tensor
+    ift_accept: torch.Tensor
+    ift_start: torch.Tensor
+    ift_txn: torch.Tensor
+    pt_first: torch.Tensor
+    pt_last: torch.Tensor
+    pt_beats: torch.Tensor
+    pt_count: torch.Tensor
+    pt_lat_sum: torch.Tensor
+    pt_lat_max: torch.Tensor
+    p2_height: torch.Tensor
+    p2_npos: torch.Tensor
+    p2_count: torch.Tensor
+    p2_max: torch.Tensor
+    cls_done: torch.Tensor
+    dl_done: torch.Tensor
+    dl_miss: torch.Tensor
+    # drain bookkeeping (early-exit driver + time skip)
     drained_at: torch.Tensor
     skipped: torch.Tensor
 
@@ -125,14 +173,34 @@ class SimState:
 
 
 def init_state(
-    *, X: int, N: int, P: int, NB: int, NSL: int, tx_burst: torch.Tensor, d: dict
+    *,
+    X: int,
+    N: int,
+    P: int,
+    NB: int,
+    NSL: int,
+    tx_burst: torch.Tensor,
+    d: dict,
+    F: int = 0,
+    NC: int = 0,
+    NQ: int = 0,
+    exact: bool = True,
 ) -> SimState:
-    """Cycle-0 dense state for ``B`` lanes of ``X`` ports x ``P`` ring slots,
-    ``N`` transactions, ``NB`` banks and ``NSL`` slices.  ``d`` maps dyn-field
-    names to ``[B]`` int32 tensors (credits and regulator buckets start from
-    them); ``tx_burst`` ``[B, X, N]`` seeds the remaining-beat counters."""
+    """Cycle-0 state for ``B`` lanes of ``X`` ports x ``P`` ring slots, ``N``
+    transactions, ``NB`` banks and ``NSL`` slices.  ``d`` maps dyn-field names
+    to ``[B]`` int32 tensors (credits and regulator buckets start from them);
+    ``tx_burst`` ``[B, X, N]`` seeds the remaining-beat counters.
+
+    ``F > 0`` allocates the schedule pipeline's in-flight table; ``exact``
+    keeps the ``[B, X, N]`` timestamp arrays (dense path, or schedule path in
+    exact mode).  ``exact=False`` swaps them for the streaming accumulators:
+    ``NC`` QoS classes x ``NQ`` tracked percentiles."""
     B = tx_burst.shape[0]
     dev = tx_burst.device
+    nex = N if exact else 0  # timestamp width
+    XS = X if F > 0 and not exact else 0  # streaming per-port width
+    G = 4 * NC  # (lat | e2e) x class x direction groups
+    p2_h, p2_n, p2_c = p2_init(B, G, NQ, device=dev)
 
     def zeros(*shape, dtype=torch.int32):
         return torch.zeros((B, *shape), dtype=dtype, device=dev)
@@ -163,10 +231,35 @@ def init_state(
         ing_used=zeros(NSL),
         slice_beats=zeros(NSL),
         remote_beats=zeros(),
-        remaining=torch.where(burst > 0, burst, 0).to(torch.int8),
-        accept_cycle=full(-1, X, N),
-        complete_cycle=full(-1, X, N),
+        # the schedule pipeline (F > 0) counts undelivered beats in the
+        # in-flight table instead of one row per transaction
+        remaining=(
+            zeros(X, 0, dtype=torch.int8)
+            if F > 0
+            else torch.where(burst > 0, burst, 0).to(torch.int8)
+        ),
+        accept_cycle=full(-1, X, nex),
+        complete_cycle=full(-1, X, nex),
         beats_done=zeros(X),
+        ift_write=zeros(X, F, dtype=torch.int8),
+        ift_burst=zeros(X, F, dtype=torch.int8),
+        ift_remaining=zeros(X, F, dtype=torch.int8),
+        ift_accept=zeros(X, F),
+        ift_start=zeros(X, F),
+        ift_txn=zeros(X, F, dtype=txn_dtype(max(N, 1))),
+        pt_first=full(INF32, XS, 2),
+        pt_last=full(-1, XS, 2),
+        pt_beats=zeros(XS, 2),
+        pt_count=zeros(XS, 2),
+        pt_lat_sum=zeros(XS, 2, dtype=torch.float32),
+        pt_lat_max=zeros(XS, 2, dtype=torch.float32),
+        p2_height=p2_h,
+        p2_npos=p2_n,
+        p2_count=p2_c,
+        p2_max=zeros(G, dtype=torch.float32),
+        cls_done=zeros(NC, 2),
+        dl_done=zeros(NC),
+        dl_miss=zeros(NC),
         drained_at=full(-1),
         skipped=zeros(),
     )

@@ -5,19 +5,112 @@ Every generator returns a :class:`~repro_torch.core.simulator.Trace`
 reference package's generator of the same name for the same arguments and
 seed.  ``full_duplex`` splits each master into an independent read port and
 write port (AXI R/W channels issue independently: 2X internal ports).
-The packed ``EventSchedule`` form arrives with the schedule pipeline.
+
+:class:`EventSchedule` is the packed per-master form of the same stream
+(int8 direction and burst columns, per-master QoS class and deadline), which
+the simulator's ``SCHEDULE_PIPELINE`` advances inside its cycle loop.
+``compile_schedule`` lowers a Trace to one and ``EventSchedule.to_trace`` goes
+back, so either form runs on either pipeline.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.address import MemoryGeometry
-from repro_torch.core.simulator import Trace
+from repro_torch.core.simulator import MAX_BURST_LIMIT, STREAM_CLASSES, UNCLASSIFIED, Trace
 
 BEAT = 32  # bytes per 256-bit beat
+
+
+@dataclass
+class EventSchedule:
+    """Packed per-master event schedule: the [X, N] event stream of a
+    :class:`Trace`, stored narrow, with the per-master metadata the streaming
+    collector needs.  ``cls`` is a class index (the scenario layer's
+    ``QOS_CLASSES`` order, ``UNCLASSIFIED`` for padding and unclassified
+    rows) and ``deadline`` the completion bound in cycles past each event's
+    ``start`` (-1 = none).  The schedule pipeline routes each burst's beats
+    in the loop, so a schedule costs O(events) bytes and no beat table."""
+
+    is_write: np.ndarray  # int8 [X, N]
+    burst: np.ndarray  # int8 [X, N] (0 = padding event)
+    addr: np.ndarray  # int32 [X, N] beat units
+    start: np.ndarray  # int32 [X, N] earliest-issue cycle
+    prio: np.ndarray  # int8 [X] arbitration level
+    cls: np.ndarray  # int8 [X] QoS class index (< STREAM_CLASSES)
+    deadline: np.ndarray  # int32 [X] cycles past start; -1 = none
+
+    @property
+    def num_masters(self) -> int:
+        return self.is_write.shape[0]
+
+    @property
+    def num_txns(self) -> int:
+        return self.is_write.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        cols = (self.is_write, self.burst, self.addr, self.start, self.prio, self.cls)
+        return int(sum(np.asarray(a).nbytes for a in (*cols, self.deadline)))
+
+    def to_trace(self) -> Trace:
+        """Dense-pipeline view (int32 columns, metadata dropped)."""
+        return Trace(
+            np.asarray(self.is_write, np.int32),
+            np.asarray(self.burst, np.int32),
+            np.asarray(self.addr, np.int32),
+            np.asarray(self.start, np.int32),
+            np.asarray(self.prio, np.int32),
+        )
+
+
+def compile_schedule(
+    trace: Trace,
+    *,
+    classes: Optional[Sequence[int]] = None,
+    deadlines: Optional[Sequence[Optional[int]]] = None,
+) -> EventSchedule:
+    """Lower a dense :class:`Trace` to a packed :class:`EventSchedule`.
+
+    ``classes`` are per-master class indices (default: all
+    ``UNCLASSIFIED``); ``deadlines`` per-master completion bounds in cycles
+    (``None`` entries -> -1)."""
+    iw = np.asarray(trace.is_write)
+    b = np.asarray(trace.burst)
+    X = trace.num_masters
+    if b.max(initial=0) > MAX_BURST_LIMIT or b.min(initial=0) < 0:
+        raise ValueError(
+            f"schedule bursts must be in [0, {MAX_BURST_LIMIT}] (int8 packing); got "
+            f"[{int(b.min(initial=0))}, {int(b.max(initial=0))}]"
+        )
+    if classes is None:
+        cls = np.full((X,), UNCLASSIFIED, np.int8)
+    else:
+        cls = np.asarray(classes, np.int64)
+        if len(cls) != X or cls.min(initial=0) < 0 or cls.max(initial=0) >= STREAM_CLASSES:
+            raise ValueError(
+                f"classes must be {X} indices in [0, {STREAM_CLASSES}); got {classes!r}"
+            )
+        cls = cls.astype(np.int8)
+    if deadlines is None:
+        dl = np.full((X,), -1, np.int32)
+    else:
+        if len(deadlines) != X:
+            raise ValueError(f"need {X} deadlines, got {len(deadlines)}")
+        dl = np.array([-1 if d is None else int(d) for d in deadlines], np.int32)
+    return EventSchedule(
+        iw.astype(np.int8),
+        b.astype(np.int8),
+        np.asarray(trace.addr, np.int32),
+        trace.start_or_zeros(),
+        trace.prio_or_zeros().astype(np.int8),
+        cls,
+        dl,
+    )
 
 
 def pad_rows(rows: Sequence[np.ndarray], n: Optional[int] = None) -> np.ndarray:

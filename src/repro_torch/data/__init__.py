@@ -1,22 +1,33 @@
-"""The three golden single-slice cases, replayable without the reference.
+"""Replayable reference data: the golden cases and the full-width sweep.
 
 ``golden_inputs.npz`` holds the ``urban_perception`` and ``highway_qos``
 scenario traces (int32 columns ``<case>__<column>``), which the reference
 builds with its scenario engine; ``random_uniform`` comes from the port's own
-generator.  The expected outputs are ``tests/data/golden_single_slice.json``
-(``"cases"``), compared on ``GOLDEN_KEYS``.
+generator.  The expected outputs are ``tests/data/golden_single_slice.json``:
+``"cases"`` for the three single points (:func:`golden_cases`) and ``"batch"``
+for the two scenario points run as one batch (:func:`golden_batch`), compared
+on ``GOLDEN_KEYS``.
+
+``sweep_reference.json`` holds the reference's ``run_sweep`` results for every
+preset scenario at ``SWEEP_TXNS`` transactions per master under each of
+``SWEEP_OUTSTANDING`` (one batch, dense pipeline, exact collection), each
+point as :func:`sweep_record` writes it.  ``tests/data/capture_torch_sweep.py``
+makes it with the reference package.
 """
 
 from __future__ import annotations
 
+import json
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 
 from repro_torch.core.simulator import SimParams, Trace
-from repro_torch.core.traffic import random_uniform
+from repro_torch.core.traffic import random_uniform, stack_traces
 
 GOLDEN_INPUTS = Path(__file__).resolve().parent / "golden_inputs.npz"
+SWEEP_REFERENCE = Path(__file__).resolve().parent / "sweep_reference.json"
 TRACE_COLUMNS = ("is_write", "burst", "addr", "start", "prio")
 
 #: metric keys the golden file pins
@@ -65,3 +76,49 @@ def golden_cases():
             ),
         ),
     ]
+
+
+def golden_batch():
+    """(traces, params) of the golden ``"batch"`` entry: the two scenario
+    cases padded to one shape and run as one batch at 4000 cycles."""
+    cases = golden_cases()
+    traces = stack_traces([cases[1][1], cases[2][1]])
+    return traces, [replace(cases[1][2], max_cycles=4000), replace(cases[2][2], max_cycles=4000)]
+
+
+#: the full-width sweep: every preset at this many transactions per master ...
+SWEEP_TXNS = 256
+#: ... under each of these outstanding-command credits
+SWEEP_OUTSTANDING = (1, 8)
+#: raw integer metrics kept per sweep point, beside its summary
+SWEEP_INT_KEYS = (
+    "cycles",
+    "drained_cycle",
+    "effective_cycles",
+    "skipped_cycles",
+    "beats_done",
+    "busy_cycles",
+    "txns_done_port",
+    "slice_beats",
+)
+#: ``sim_rate`` keys that are host timings, not results
+SWEEP_TIMING_KEYS = ("wall_s", "sim_cycles_per_sec", "effective_cycles_per_sec")
+
+
+def sweep_record(result) -> dict:
+    """One sweep point as ``sweep_reference.json`` keeps it: the summary
+    without its host timings, and the raw integer metrics ``SWEEP_INT_KEYS``.
+    Takes the reference's ``SweepResult`` and the port's alike."""
+    summary = result.summary()
+    summary["sim_rate"] = {
+        k: v for k, v in summary["sim_rate"].items() if k not in SWEEP_TIMING_KEYS
+    }
+    summary["raw"] = {k: np.asarray(result.metrics[k]).tolist() for k in SWEEP_INT_KEYS}
+    return json.loads(json.dumps(summary))
+
+
+def sweep_reference() -> dict:
+    """``sweep_reference.json``: ``max_cycles``, the capture's slowest
+    ``drained_cycle`` and one :func:`sweep_record` per point, scenario-major
+    in ``preset_scenarios`` order, then ``SWEEP_OUTSTANDING`` order."""
+    return json.loads(SWEEP_REFERENCE.read_text())

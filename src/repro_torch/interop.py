@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.address import MemoryGeometry
 from repro_torch.core.simulator import SimParams, Trace
 from repro_torch.core.state import SimState
+from repro_torch.core.traffic import EventSchedule
 from repro_torch.models.model import Transformer, empty_model
 
 #: the reference's arbiter backends, both of which the Hopper kernel replaces
@@ -27,7 +28,9 @@ _REFERENCE_ARBITERS = ("jax", "pallas")
 
 def params_from_reference(d: Mapping) -> SimParams:
     """A port ``SimParams`` from ``dataclasses.asdict`` of a reference
-    ``SimParams`` (``geom`` nested as a dict)."""
+    ``SimParams`` (``geom`` nested as a dict).  Every field carries over
+    (``stages``, ``collect``, ``inflight_override``, ``time_skip`` and the
+    rest); the reference's arbiter backends map to the port's kernel."""
     fields = dict(d)
     fields["geom"] = MemoryGeometry(**fields["geom"])
     if fields.get("arbiter") in _REFERENCE_ARBITERS:
@@ -48,19 +51,29 @@ def trace_from_arrays(
     return Trace(col(is_write), col(burst), col(addr), col(start), col(prio))
 
 
+def schedule_from_arrays(is_write, burst, addr, start, prio, cls, deadline) -> EventSchedule:
+    """A port ``EventSchedule`` from the reference schedule's columns, in
+    their storage dtypes (int8 direction, burst, prio and class; int32
+    addresses, starts and deadlines)."""
+    i8, i32 = np.int8, np.int32
+    cols = (is_write, burst, addr, start, prio, cls, deadline)
+    return EventSchedule(
+        *(np.asarray(a, t) for a, t in zip(cols, (i8, i8, i32, i32, i8, i8, i32)))
+    )
+
+
 def state_from_numpy(fields: Mapping[str, np.ndarray], device) -> SimState:
     """A ``B = 1`` :class:`SimState` from one reference state's fields (numpy
-    arrays by field name, e.g. from the reference's dense set-up or its state
-    after k cycles).  Every port field must be present with its storage
-    dtype; extra reference fields are accepted only when empty (the schedule
-    pipeline's tables, zero-size on the dense path)."""
+    arrays by field name, e.g. from the reference's set-up of either pipeline
+    or its state after k cycles).  Every field must be present with its
+    storage dtype, and no other."""
     names = [f.name for f in dataclasses.fields(SimState)]
     missing = [n for n in names if n not in fields]
     if missing:
         raise KeyError(f"state fields missing: {missing}")
-    extra = [k for k in fields if k not in names and np.asarray(fields[k]).size]
+    extra = [k for k in fields if k not in names]
     if extra:
-        raise ValueError(f"non-empty fields the dense port does not carry: {extra}")
+        raise ValueError(f"fields the port's state does not have: {extra}")
     return SimState(**{n: torch.from_numpy(np.array(fields[n])[None]).to(device) for n in names})
 
 

@@ -1,0 +1,68 @@
+"""Declarative ADAS scenario engine (paper §II-C, Figs. 6–7), the port's copy.
+
+A :class:`~repro_torch.scenarios.spec.Scenario` composes per-master traffic
+sources (camera frame DMA, Radar chirps, Lidar scatter, AI-accelerator tiles,
+CPU scatter) with QoS classes, memory-region placement, and injection rates.
+Every workload goes through one interface: ``TrafficSource.emit →
+Scenario.compile() → CompiledScenario.simulate`` (or ``.simulate_batch`` for a
+parameter grid as lanes of one batch); ``scenarios.sweep.run_sweep`` does the
+same for scenario × parameter grids.  Runs go to the CUDA device unless the
+caller passes ``device="cpu"``.  The serving sources, the fuzzer and its
+property oracles are not ported yet (ROADMAP.md Queue 1 items 11 and 12).
+"""
+
+from repro_torch.scenarios.generators import GENERATORS
+from repro_torch.scenarios.library import (
+    highway_pilot,
+    parking_surround,
+    preset_scenarios,
+    qos_isolation,
+    sensor_stress,
+    slice_scaling,
+    urban_perception,
+)
+from repro_torch.scenarios.spec import (
+    QOS_CLASSES,
+    QOS_PRIORITY,
+    CompiledScenario,
+    MasterSpec,
+    Scenario,
+    SyntheticSource,
+    TrafficSource,
+    compile_scenario,
+)
+from repro_torch.scenarios.sweep import (
+    DEPRECATED_METRIC_KEYS,
+    MetricAliasDict,
+    SweepPoint,
+    SweepResult,
+    run_sweep,
+    summarize_compiled,
+    summarize_point,
+)
+
+__all__ = [
+    "CompiledScenario",
+    "MasterSpec",
+    "Scenario",
+    "SyntheticSource",
+    "TrafficSource",
+    "QOS_CLASSES",
+    "QOS_PRIORITY",
+    "compile_scenario",
+    "GENERATORS",
+    "DEPRECATED_METRIC_KEYS",
+    "MetricAliasDict",
+    "SweepPoint",
+    "SweepResult",
+    "run_sweep",
+    "summarize_compiled",
+    "summarize_point",
+    "highway_pilot",
+    "parking_surround",
+    "preset_scenarios",
+    "qos_isolation",
+    "sensor_stress",
+    "slice_scaling",
+    "urban_perception",
+]

@@ -9,6 +9,7 @@ machine as it is:
 """
 
 import json
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -16,9 +17,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.simulator import SimParams, simulate, stepped_cycles
-from repro_torch.core.traffic import random_uniform
-from repro_torch.data import GOLDEN_KEYS, golden_cases
+from repro_torch.core import simulator as tsim
+from repro_torch.core.simulator import SCHEDULE_PIPELINE, SimParams, simulate, simulate_batch
+from repro_torch.core.traffic import random_bursty, random_uniform
+from repro_torch.data import GOLDEN_KEYS, golden_batch, golden_cases
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.bank_arbiter.ops import bank_arbiter_winners
 from repro_torch.kernels.bank_arbiter.ref import bank_arbiter_ref
@@ -179,11 +181,49 @@ def test_main_path_launches_kernel_once_per_cycle(card):
     trace = random_uniform(4, 16, burst=16, seed=5)
     prm = SimParams(max_cycles=2000)
     reset_launches()
+    tsim.reset_driver_counts()
     got = simulate(trace, prm)
-    assert LAUNCHES["bank_arbiter"] == stepped_cycles(got["drained_cycle"], prm) > 0
+    assert LAUNCHES["bank_arbiter"] == tsim.DRIVER_COUNTS["cycles"] > 0
     ref = simulate(trace, SimParams(max_cycles=2000, arbiter="ref"))
     for k in got:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_golden_batch_and_schedule_goldens_on_card(card):
+    """The golden ``"batch"`` entry through ``simulate_batch``, and the three
+    golden cases through the schedule pipeline, bit for bit."""
+    golden = json.loads(GOLDEN.read_text())
+    traces, prms = golden_batch()
+    got = simulate_batch(traces, prms)
+    for k in GOLDEN_KEYS:
+        assert np.asarray(got[k]).tolist() == golden["batch"][k], k
+    for name, trace, prm in golden_cases():
+        got = simulate(trace, replace(prm, stages=SCHEDULE_PIPELINE))
+        for k in GOLDEN_KEYS:
+            assert np.asarray(got[k]).tolist() == golden["cases"][name][k], (name, k)
+
+
+@pytest.mark.parametrize("collect", ["exact", "stream"])
+def test_schedule_batch_on_card_equals_cpu(card, collect):
+    """Lanes whose clocks diverge under the time skip, in chunks of 2 with a
+    padded last chunk: the card equals the CPU path on every key, the
+    kernel launches once per cycle body for every lane, and ``arbiter="ref"``
+    gives the same on the card."""
+    traces = [random_bursty(4, 6, burst=8, gap=150 + 40 * i, seed=i) for i in range(3)]
+    prms = [
+        SimParams(max_cycles=2500, stages=SCHEDULE_PIPELINE, collect=collect, outstanding=o)
+        for o in (2, 4, 8)
+    ]
+    reset_launches()
+    tsim.reset_driver_counts()
+    got = simulate_batch(traces, prms, chunk=2)
+    assert LAUNCHES["bank_arbiter"] == tsim.DRIVER_COUNTS["cycles"] > 0
+    assert (got["skipped_cycles"] > 0).all()
+    want = simulate_batch(traces, prms, chunk=2, device="cpu")
+    ref = simulate_batch(traces, [replace(p, arbiter="ref") for p in prms], chunk=2)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(ref[k], want[k], err_msg=k)
 
 
 # ---------------------------------------------------------------- serving kernels

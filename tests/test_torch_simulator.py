@@ -212,9 +212,10 @@ def test_early_exit_equals_fixed_horizon():
 
 
 def test_driver_steps_the_cycles_it_reports():
-    """The driver checks the drain once per block, so it steps whole blocks:
-    ``stepped_cycles`` (what ``chip_smoke.py`` holds the kernel's launch
-    count to) is the count of cycle bodies actually run."""
+    """The driver counts every cycle body it runs (``DRIVER_COUNTS``, what
+    ``chip_smoke.py`` holds the kernel's launch count to) and reads one flag
+    back per block, plus one for the tail; on the schedule pipeline with the
+    time skip and per-lane activity too."""
     calls = []
 
     @tsim.register_stage("test_count_cycles")
@@ -226,12 +227,15 @@ def test_driver_steps_the_cycles_it_reports():
         trace = _small_trace(1)
         runs = [(7, 700, True), (32, 700, True), (5000, 700, True), (32, 90, True), (32, 90, False)]
         for K, mc, early in runs:
-            calls.clear()
-            prm = jsim.SimParams(max_cycles=mc, block_cycles=K, early_exit=early)
-            out = _port(trace, prm, stages=tsim.DEFAULT_PIPELINE + ("test_count_cycles",))
-            tp = interop.params_from_reference(asdict(prm))
-            assert len(calls) == tsim.stepped_cycles(out["drained_cycle"], tp), (K, mc, early)
-            assert int(out["cycles"]) == mc
+            for base in (tsim.DEFAULT_PIPELINE, tsim.SCHEDULE_PIPELINE):
+                calls.clear()
+                tsim.reset_driver_counts()
+                prm = jsim.SimParams(max_cycles=mc, block_cycles=K, early_exit=early)
+                out = _port(trace, prm, stages=base + ("test_count_cycles",))
+                assert len(calls) == tsim.DRIVER_COUNTS["cycles"] > 0, (K, mc, early)
+                blocks = -(-len(calls) // min(K, mc))
+                assert tsim.DRIVER_COUNTS["host_reads"] <= (blocks + 2 if early else 0)
+                assert int(out["cycles"]) == mc
     finally:
         del tsim.STAGE_REGISTRY["test_count_cycles"]
 
@@ -291,8 +295,8 @@ def test_state_from_numpy_is_loud():
     assert st.now.shape == (1,) and st.sl_flags.dtype == torch.uint8
     with pytest.raises(KeyError, match="missing"):
         interop.state_from_numpy({k: v for k, v in fields.items() if k != "now"}, "cpu")
-    with pytest.raises(ValueError, match="non-empty"):
-        interop.state_from_numpy({**fields, "ift_write": np.ones((2, 2), np.int8)}, "cpu")
+    with pytest.raises(ValueError, match="does not have"):
+        interop.state_from_numpy({**fields, "ift_table": np.ones((2, 2), np.int8)}, "cpu")
 
 
 def test_init_state_narrow_dtypes_with_batch_axis():
@@ -328,10 +332,12 @@ def test_loud_errors():
         tsim.simulate(big, tsim.SimParams(max_burst=200), device="cpu")
     with pytest.raises(ValueError, match="int16 credit counters"):
         tsim.SimParams(split_buffer=2**14).dyn_vector()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="out of range"):
         tsim.simulate(oob, tsim.SimParams(stages=tsim.SCHEDULE_PIPELINE), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="needs the schedule pipeline"):
         tsim.simulate(oob, tsim.SimParams(collect="stream"), device="cpu")
+    with pytest.raises(ValueError, match="collect must be"):
+        tsim.SimParams(collect="sampled").pipeline()
     with pytest.raises(ValueError, match="unknown stage"):
         tsim.SimParams(stages=("accept", "teleport")).pipeline()
     with pytest.raises(ValueError, match="unknown arbiter"):
