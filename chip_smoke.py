@@ -447,6 +447,16 @@ def _window(fn, host_us_per_cycle: float) -> dict:
     }
 
 
+def _rates(wall: float, stepped: int, lanes: int) -> dict:
+    return {
+        "lanes": lanes,
+        "host_s": wall,
+        "stepped_cycles": stepped,
+        "cycles_per_s": stepped / wall,
+        "lane_cycles_per_s": stepped * lanes / wall,
+    }
+
+
 def _sweep_run(name: str, lanes: int, fn, window) -> tuple:
     """One run of the scale path: counted, checked (arbiter launches equal
     the cycle bodies stepped), then a profiled window of its shape
@@ -455,12 +465,8 @@ def _sweep_run(name: str, lanes: int, fn, window) -> tuple:
     check(stepped > 0, f"sweep {name}: no cycle stepped")
     check(launches == stepped, f"sweep {name}: {launches} arbiter launches for {stepped} cycles")
     row = {
-        "lanes": lanes,
-        "host_s": wall,
-        "stepped_cycles": stepped,
+        **_rates(wall, stepped, lanes),
         "arbiter_launches": launches,
-        "cycles_per_s": stepped / wall,
-        "lane_cycles_per_s": stepped * lanes / wall,
         **_window(window, wall / stepped * 1e6),
     }
     emit("sweep_run", run=name, **row)
@@ -554,7 +560,7 @@ def phase_sweep() -> dict:
         bad = [k for k in GOLDEN_KEYS if np.asarray(out[k]).tolist() != golden["cases"][name][k]]
         check(not bad, f"golden {name} on the schedule pipeline: keys differ {bad}")
         check(launches == stepped, f"golden {name} schedule: {launches} launches, {stepped} cycles")
-        emit("sweep_golden_schedule", case=name, host_s=wall, stepped_cycles=stepped)
+        emit("sweep_golden_schedule", case=name, **_rates(wall, stepped, 1))
 
     # 2. the full-width sweep, B = 10, against the reference's capture
     ref = sweep_reference()
@@ -573,7 +579,7 @@ def phase_sweep() -> dict:
     check(float_diff == 0.0, f"full-width sweep: float keys differ by up to {float_diff}")
     check(all(bool(r.metrics["all_done"]) for r in res), "full-width sweep: a lane not all_done")
     plain = [replace(p, params=replace(p.params, arbiter="ref")) for p in points]
-    ref_res, ref_wall, _, _ = counted(lambda: run_sweep(plain))
+    ref_res, ref_wall, _, ref_stepped = counted(lambda: run_sweep(plain))
     bad = [k for r, q in zip(res, ref_res) for k in _equal_keys(r.metrics, q.metrics)]
     check(not bad, f"full-width sweep: kernel and ref arbiters differ on {sorted(set(bad))}")
     emit(
@@ -582,7 +588,7 @@ def phase_sweep() -> dict:
         max_cycles=ref["max_cycles"],
         drained_cycles=[int(r.metrics["drained_cycle"]) for r in res],
         float_max_abs_diff=float_diff,
-        ref_arbiter_host_s=ref_wall,
+        ref_arbiter=_rates(ref_wall, ref_stepped, len(points)),
     )
 
     # 3. the scale grid: one shared schedule, 48 points, chunks of 32, B = 32
@@ -657,7 +663,7 @@ def phase_sweep() -> dict:
         lambda: simulate_batch(bursty, [prm] * 8),
         lambda: simulate_batch(bursty, short),
     )
-    off, _, off_launches, off_stepped = counted(
+    off, off_wall, off_launches, off_stepped = counted(
         lambda: simulate_batch(bursty, [replace(prm, time_skip=False)] * 8)
     )
     check(off_launches == off_stepped, "time skip off: launches differ from cycles stepped")
@@ -669,7 +675,7 @@ def phase_sweep() -> dict:
         skipped_cycles=on["skipped_cycles"].tolist(),
         drained_cycles=on["drained_cycle"].tolist(),
         stepped_with_skip=runs["time_skip"]["stepped_cycles"],
-        stepped_without=off_stepped,
+        without_skip=_rates(off_wall, off_stepped, len(bursty)),
     )
     return runs
 
