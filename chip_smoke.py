@@ -23,10 +23,13 @@ Phases, one JSON line each; any failure exits non-zero:
   4. fig4/table1  the paper's Fig. 4 sweep (X = 1..16) and Table I
                 (outstanding 16 vs 1) at the prototype's full width with the
                 paper's asserts; the X=16 point is the main path: its kernel
-                launches are counted and must equal the cycles stepped, and it
-                must equal ``arbiter="ref"`` key for key
-  5. profile    device kernels, device busy time and idle share per cycle
-                of the main path, from ``torch.profiler``
+                launches are counted and must equal the cycles stepped and
+                these the count predicted from its drain, and it must equal
+                ``arbiter="ref"`` key for key
+  5. profile    device kernels, device busy time and idle share per steady
+                cycle of the main path: fixed-horizon runs of 8 and 72
+                cycles, differenced, under ``torch.profiler`` for device
+                time and without it for host time
   6. timing     per-call device time of each kernel, its plain version and
                 one PyTorch call computing the same function: the arbiter at
                 the main path's shape (B = 1) and a sweep's (B = 64), each
@@ -43,7 +46,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 by 1/8: see ``_tempered``)
   8. serving_profile  device kernels, busy time and idle share per decode step
   9. llm_timing the three serving kernels' timing rows at the path's shapes
-                (and flash at the short prompts, S = 128 and 517)
+                (and flash at the short prompts, S = 128 and 517); flash
+                against SDPA at S = 1024 in alternating rounds of queued calls
   10. sweep     the scale path's main path, through the public entry points
                  with B lanes per arbiter launch: the golden ``"batch"`` entry
                  through ``simulate_batch`` and the three golden cases through
@@ -53,10 +57,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  against ``arbiter="ref"``; the scale grid (one shared
                  ``urban_perception`` schedule, 48 points, streaming
                  percentiles, chunks of 32), lanes 0 and 47 against their own
-                 ``simulate``; the time skip (8 gapped lanes) against no skip.
-                 Launches must equal the cycle bodies stepped in every run; a
-                 profiled window of each run's shape gives the arbiter's device
-                 time per launch at its B, device busy time and idle share
+                 ``simulate`` and the reference's capture, every lane against
+                 ``arbiter="ref"``; the time skip (8 gapped lanes) against the
+                 reference's capture, no skip and ``arbiter="ref"``.  Launches
+                 must equal the cycle bodies stepped in every run, and these
+                 the count predicted from the drains where no lane skips; a
+                 steady window of each run's shape (as in 5) gives the
+                 arbiter's device time per launch at its B, device busy time
+                 and idle share
 then the kernels line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -64,6 +72,7 @@ then the kernels line, the card's name and power limit, and as the last line
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -78,6 +87,13 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12
+#: clock cycles of the spin kernel ``queued_ms`` puts ahead of its calls:
+#: 50 ms or more at the H100's top clock (1.98 GHz)
+SPIN_CYCLES = 100_000_000
+#: host seconds of issue that ``queued_ms`` accepts: half the spin's least length
+SPIN_MIN_S = 0.025
+#: alternating rounds of flash and SDPA queued calls in ``llm_timing``
+FLASH_ROUNDS = 5
 #: the kernels of the serving path, in the order of the kernels line
 LLM_KERNELS = ("banked_copy", "paged_attention", "flash_attention")
 
@@ -110,34 +126,63 @@ def time_ms(fn, iters: int, warmup: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+#: profiler sessions tried before a measurement is given up: on the card's
+#: machine a session now and then records no device activity at all
+PROFILER_ATTEMPTS = 3
+
+
 def device_kernels(fn):
     """Run ``fn()`` under ``torch.profiler``; returns ``(device kernel
-    events, host seconds)``.  The list is empty where the profiler records no
-    device activity."""
+    events, host seconds)`` of the first of ``PROFILER_ATTEMPTS`` sessions
+    that records device time (``fn()`` runs once per session).  The list is
+    empty where none does."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(PROFILER_ATTEMPTS):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if sum(e.time_range.elapsed_us() for e in kernels) > 0:
+            break
+    return kernels, wall
 
 
-def device_ms(fn, iters: int, attempts: int = 3):
+def device_ms(fn, iters: int):
     """Mean device time of ``fn()`` in ms from the profiler's kernel events,
-    or None where the profiler records no device time in ``attempts``
-    sessions (on that machine a session now and then records no kernel)."""
+    or None where the profiler records no device time."""
     fn()
-    for _ in range(attempts):
-        kernels, _ = device_kernels(lambda: [fn() for _ in range(iters)])
-        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        if busy_us > 0:
-            return busy_us / iters / 1e3
-    return None
+    kernels, _ = device_kernels(lambda: [fn() for _ in range(iters)])
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return busy_us / iters / 1e3 if busy_us > 0 else None
+
+
+def queued_ms(fn, iters: int) -> float | None:
+    """Device time per call of ``iters`` back-to-back calls of ``fn()``
+    between two CUDA events, enqueued behind a spin kernel so that the
+    device starts them only once the host has issued them all: the host's
+    launch cost stays off the clock.  None where the host took longer to
+    issue them than the spin surely lasts."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters if issued < SPIN_MIN_S else None
 
 
 def arb_inputs(rng, B, S, NB, X, *, elig_p=0.4, bank_dtype=None, key_hi=None):
@@ -220,6 +265,9 @@ def phase_kernels() -> int:
         # the most banks the wrapper takes: over 48 KB of dynamic shared memory
         *(("nb6144_cluster%d" % c, 1, 8192, 6144, 32, {"cluster": c}) for c in (1, 2, 4, 8)),
         ("nb6144_ragged_int32", 3, 8193, 6144, 32, {"bank_dtype": torch.int32}),
+        # the sweep phase's launch shapes: the scale grid and the time skip
+        ("scale_grid_32x4608", 32, 4608, 256, 9, {}),
+        ("time_skip_8x4096", 8, 4096, 256, 16, {}),
     ]
     worst, rows = 0, []
     for name, B, S, NB, X, opts in cases:
@@ -349,6 +397,8 @@ def phase_full_width() -> dict:
         main["launches"] == main["stepped"],
         f"fig4 X=16: {main['launches']} kernel launches for {main['stepped']} cycles stepped",
     )
+    want = predicted_cycles(main["out"]["drained_cycle"], main["prm"])
+    check(main["stepped"] == want, f"fig4 X=16: {main['stepped']} cycles stepped, {want} predicted")
     emit("fig4_throughput", rows={str(k): v for k, v in rows.items()}, launches=main["launches"])
 
     rng = np.random.default_rng(0)
@@ -392,59 +442,108 @@ def phase_full_width() -> dict:
     return main
 
 
+#: cycles of each profiled window beyond its lead-in run
+PROFILE_CYCLES = 64
+#: cycles of the lead-in run whose set-up the window subtracts
+WINDOW_LEAD = 8
+#: unprofiled runs of each length, the fastest of which gives host time
+WINDOW_REPEATS = 3
+
+
+def steady_window(run) -> dict:
+    """Device kernels, busy time, idle share and the arbiter's device time
+    per launch of a run's steady cycles.  ``run(n)`` runs ``n`` fixed-horizon
+    cycles of the run's shape; it runs with ``n = WINDOW_LEAD`` and
+    ``WINDOW_LEAD + PROFILE_CYCLES``, and every number is the difference of
+    the two over ``PROFILE_CYCLES``, so the set-up both share (state, graph
+    capture and its plain-arbiter warm-up cycle, copies, metrics) drops out.
+    Kernels and busy time come from runs under the profiler.  Host time per
+    cycle comes from runs without it (the profiler's own host cost,
+    ``profiled_host_us_per_cycle``, would inflate it): the host seconds of
+    the simulator's cycle loop alone, between two synchronizations, best of
+    ``WINDOW_REPEATS`` runs (the set-up's host time varies by more than the
+    window's cycles take).  The idle share is 1 - busy / host, None where
+    busy reads above host (noise of a device-bound loop)."""
+    import torch
+
+    from repro_torch.core import simulator as sim
+
+    inner, loop_s = sim._run_cycles, []
+
+    def timed_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        loop_s[-1] += time.perf_counter() - t0
+        return state
+
+    def host_us(n):
+        sim._run_cycles = timed_loop
+        try:
+            for _ in range(WINDOW_REPEATS):
+                loop_s.append(0.0)
+                run(n)
+        finally:
+            sim._run_cycles = inner
+        return min(loop_s[-WINDOW_REPEATS:]) * 1e6
+
+    run(WINDOW_LEAD)  # warm: the first call of a shape allocates
+    got = []
+    for n in (WINDOW_LEAD, WINDOW_LEAD + PROFILE_CYCLES):
+        kernels, wall = device_kernels(lambda: run(n))
+        arb = [e.time_range.elapsed_us() for e in kernels if "bank_arbiter" in e.name]
+        busy = sum(e.time_range.elapsed_us() for e in kernels)
+        got.append((busy, len(kernels), wall * 1e6, host_us(n), len(arb), sum(arb)))
+    recorded = got[0][0] > 0 and got[1][0] > 0  # else a session lost its device time
+    busy, kernels, profiled, host, arb_n, arb_us = (
+        (b - a) / PROFILE_CYCLES for a, b in zip(*got)
+    )
+    return {
+        "window_cycles": PROFILE_CYCLES,
+        "host_us_per_cycle": host,
+        "profiled_host_us_per_cycle": profiled,
+        "device_kernels_per_cycle": kernels if recorded else None,
+        "device_busy_us_per_cycle": busy if recorded else None,
+        "device_idle_share": 1 - busy / host if recorded and 0 <= busy <= host else None,
+        "arbiter_device_us_mean": arb_us / arb_n if recorded and arb_n > 0 else None,
+    }
+
+
+def predicted_cycles(drained_cycle, prm) -> int:
+    """Cycle bodies the driver steps for a run whose lanes drained at
+    ``drained_cycle`` when no lane takes the time skip: every cycle where
+    early exit is off or a lane never drains, else the slowest lane's drain
+    rounded up to whole blocks of ``block_cycles``.  A prediction from the
+    results, independent of the driver's own count."""
+    import numpy as np
+
+    MC = prm.max_cycles
+    drained = np.asarray(drained_cycle).reshape(-1)
+    if not prm.early_exit or MC == 0 or (drained < 0).any():
+        return MC
+    K = max(1, min(prm.block_cycles, MC))
+    return int(min(MC, -(-int(drained.max()) // K) * K))
+
+
 def phase_profile(main: dict) -> None:
-    """Where a cycle's time goes on the main path: device kernels per cycle,
-    device busy time per cycle against the unprofiled host time per cycle
-    (from the main run), and the arbiter kernel's share of the device time."""
+    """Where a cycle's time goes on the main path: device kernels, busy time
+    and idle share per steady cycle (``steady_window``), beside the host
+    time per cycle of the main run, and the arbiter kernel's share of the
+    device time."""
     from repro_torch.core.simulator import simulate
 
-    cycles = 96
-    prm = replace(main["prm"], max_cycles=cycles, early_exit=False)
-    simulate(main["trace"], prm)
-    kernels, wall = device_kernels(lambda: simulate(main["trace"], prm))
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    arb_us = [e.time_range.elapsed_us() for e in kernels if "bank_arbiter" in e.name]
-    host_us_per_cycle = main["wall_s"] / main["stepped"] * 1e6
+    def run(n):
+        return simulate(main["trace"], replace(main["prm"], max_cycles=n, early_exit=False))
+
+    w = steady_window(run)
+    arb_us, busy_us = w["arbiter_device_us_mean"], w["device_busy_us_per_cycle"]
     emit(
         "profile",
-        cycles=cycles,
-        device_kernels_per_cycle=len(kernels) / cycles,
-        device_busy_us_per_cycle=busy_us / cycles,
-        host_us_per_cycle_unprofiled=host_us_per_cycle,
-        device_idle_share=1 - busy_us / cycles / host_us_per_cycle if busy_us else None,
-        arbiter_launches=len(arb_us),
-        arbiter_device_us_mean=sum(arb_us) / len(arb_us) if arb_us else None,
-        arbiter_share_of_device_time=sum(arb_us) / busy_us if busy_us else None,
-        profiled_wall_s=wall,
+        **w,
+        run_host_us_per_cycle=main["wall_s"] / main["stepped"] * 1e6,
+        arbiter_share_of_device_time=arb_us / busy_us if arb_us and busy_us else None,
     )
-
-
-#: the scale grid's horizon: the smallest multiple of 1000 above 1.3 x its
-#: slowest lane's drain (7951 cycles in the reference, every lane alike)
-SCALE_MAX_CYCLES = 11_000
-#: cycles of each sweep run's profiled window
-PROFILE_CYCLES = 32
-
-
-def _window(fn, host_us_per_cycle: float) -> dict:
-    """Device kernels, busy time and the arbiter's device time per launch
-    over ``PROFILE_CYCLES`` fixed-horizon cycles of one run's shape
-    (``fn()`` runs them), against the unprofiled host time per cycle of the
-    run itself."""
-    fn()  # warm: the first call of a shape allocates
-    kernels, wall = device_kernels(fn)
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    arb_us = [e.time_range.elapsed_us() for e in kernels if "bank_arbiter" in e.name]
-    busy = busy_us / PROFILE_CYCLES
-    return {
-        "device_kernels_per_cycle": len(kernels) / PROFILE_CYCLES,
-        "device_busy_us_per_cycle": busy,
-        "host_us_per_cycle_unprofiled": host_us_per_cycle,
-        "device_idle_share": 1 - busy / host_us_per_cycle if busy_us else None,
-        "window_arbiter_launches": len(arb_us),
-        "arbiter_device_us_mean": sum(arb_us) / len(arb_us) if arb_us else None,
-        "profiled_wall_s": wall,
-    }
 
 
 def _rates(wall: float, stepped: int, lanes: int) -> dict:
@@ -457,18 +556,20 @@ def _rates(wall: float, stepped: int, lanes: int) -> dict:
     }
 
 
-def _sweep_run(name: str, lanes: int, fn, window) -> tuple:
-    """One run of the scale path: counted, checked (arbiter launches equal
-    the cycle bodies stepped), then a profiled window of its shape
-    (``window()`` runs ``PROFILE_CYCLES`` cycles of it); emits its line."""
+def _sweep_run(name: str, lanes: int, fn, window, predict=None) -> tuple:
+    """One run of the scale path: counted and checked (arbiter launches
+    equal the cycle bodies stepped, and these equal ``predict(result)``
+    where the run takes no time skip), then ``steady_window(window)``, where
+    ``window(n)`` runs ``n`` fixed-horizon cycles of its shape; emits its
+    line."""
     out, wall, launches, stepped = counted(fn)
     check(stepped > 0, f"sweep {name}: no cycle stepped")
     check(launches == stepped, f"sweep {name}: {launches} arbiter launches for {stepped} cycles")
-    row = {
-        **_rates(wall, stepped, lanes),
-        "arbiter_launches": launches,
-        **_window(window, wall / stepped * 1e6),
-    }
+    row = {**_rates(wall, stepped, lanes), "arbiter_launches": launches}
+    if predict is not None:
+        row["predicted_cycles"] = predict(out)
+        check(stepped == row["predicted_cycles"], f"sweep {name}: cycles stepped vs drains: {row}")
+    row.update(run_host_us_per_cycle=wall / stepped * 1e6, **steady_window(window))
     emit("sweep_run", run=name, **row)
     return out, row
 
@@ -505,11 +606,17 @@ def _diff_records(got, want, path: str = "") -> tuple:
     return [m for p in parts for m in p[0]], max([0.0, *(p[1] for p in parts)])
 
 
+def _held_to_reference(name: str, got, want) -> None:
+    """``got`` equals its ``sweep_reference.json`` record: every integer and
+    boolean, and every float to the bit (the tests' stated tolerance, 0)."""
+    mismatches, float_diff = _diff_records(got, want)
+    check(not mismatches, f"{name} vs sweep_reference.json: {mismatches[:5]}")
+    check(float_diff == 0.0, f"{name}: float keys differ from the reference by up to {float_diff}")
+
+
 def phase_sweep() -> dict:
     """The scale path on the card (see the module docstring, 10); returns
     each run's row for the kernels line."""
-    import itertools
-
     import numpy as np
     import torch
 
@@ -525,10 +632,17 @@ def phase_sweep() -> dict:
     from repro_torch.core.traffic import random_bursty
     from repro_torch.data import (
         GOLDEN_KEYS,
+        SCALE_LANES,
+        SCALE_MAX_CYCLES,
         SWEEP_OUTSTANDING,
         SWEEP_TXNS,
+        TIME_SKIP_LANES,
+        TIME_SKIP_MAX_CYCLES,
+        TIME_SKIP_TRAFFIC,
         golden_batch,
         golden_cases,
+        metrics_record,
+        scale_grid_fields,
         sweep_record,
         sweep_reference,
     )
@@ -543,14 +657,18 @@ def phase_sweep() -> dict:
     golden = json.loads((ROOT / "tests" / "data" / "golden_single_slice.json").read_text())
     runs = {}
 
+    def horizon(prms, n, **pin):
+        """``prms`` cut to ``n`` fixed-horizon cycles (a profiled window)."""
+        return [replace(p, max_cycles=n, early_exit=False, **pin) for p in prms]
+
     # 1. goldens: the batch entry (B = 2) and the cases on the schedule pipeline
     traces, prms = golden_batch()
-    short = [replace(p, max_cycles=PROFILE_CYCLES, early_exit=False) for p in prms]
     out, runs["golden_batch"] = _sweep_run(
         "golden_batch",
         2,
         lambda: simulate_batch(traces, prms),
-        lambda: simulate_batch(traces, short),
+        lambda n: simulate_batch(traces, horizon(prms, n)),
+        lambda out: predicted_cycles(out["drained_cycle"], prms[0]),
     )
     bad = [k for k in GOLDEN_KEYS if np.asarray(out[k]).tolist() != golden["batch"][k]]
     check(not bad, f"golden batch: keys differ {bad}")
@@ -570,13 +688,18 @@ def phase_sweep() -> dict:
         for sc in presets
         for o in SWEEP_OUTSTANDING
     ]
-    short = [replace(p, params=replace(p.params, max_cycles=PROFILE_CYCLES)) for p in points]
     res, runs["full_width_sweep"] = _sweep_run(
-        "full_width_sweep", len(points), lambda: run_sweep(points), lambda: run_sweep(short)
+        "full_width_sweep",
+        len(points),
+        lambda: run_sweep(points),
+        lambda n: run_sweep(
+            [replace(p, params=horizon([p.params], n)[0]) for p in points]
+        ),
+        lambda res: predicted_cycles(
+            [r.metrics["drained_cycle"] for r in res], points[0].params
+        ),
     )
-    mismatches, float_diff = _diff_records([sweep_record(r) for r in res], ref["points"])
-    check(not mismatches, f"full-width sweep vs sweep_reference.json: {mismatches[:5]}")
-    check(float_diff == 0.0, f"full-width sweep: float keys differ by up to {float_diff}")
+    _held_to_reference("full-width sweep", [sweep_record(r) for r in res], ref["points"])
     check(all(bool(r.metrics["all_done"]) for r in res), "full-width sweep: a lane not all_done")
     plain = [replace(p, params=replace(p.params, arbiter="ref")) for p in points]
     ref_res, ref_wall, _, ref_stepped = counted(lambda: run_sweep(plain))
@@ -587,46 +710,42 @@ def phase_sweep() -> dict:
         points=len(points),
         max_cycles=ref["max_cycles"],
         drained_cycles=[int(r.metrics["drained_cycle"]) for r in res],
-        float_max_abs_diff=float_diff,
         ref_arbiter=_rates(ref_wall, ref_stepped, len(points)),
     )
 
     # 3. the scale grid: one shared schedule, 48 points, chunks of 32, B = 32
     sched = urban_perception().compile().schedule()
-    grid = [
-        SimParams(
-            outstanding=o,
-            qos_aging=a,
-            reg_rate=r,
-            bank_occupancy=b,
-            max_cycles=SCALE_MAX_CYCLES,
-            stages=SCHEDULE_PIPELINE,
-            collect="stream",
-        )
-        for o, a, r, b in itertools.product((2, 4, 8, 16), (0, 128), (0, 128), (1, 2, 3))
-    ]
+    grid = [SimParams(stages=SCHEDULE_PIPELINE, **f) for f in scale_grid_fields()]
     chunk = 32
     env = batch_envelope(grid)
     pin = dict(slots_override=env.slots_per_master, inflight_override=env.inflight_slots)
-    short = [replace(p, max_cycles=PROFILE_CYCLES, early_exit=False, **pin) for p in grid[:chunk]]
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     out, runs["scale_grid"] = _sweep_run(
         "scale_grid",
         chunk,
         lambda: simulate_batch([sched], grid, chunk=chunk),
-        lambda: simulate_batch([sched], short),
+        lambda n: simulate_batch([sched], horizon(grid[:chunk], n, **pin)),
     )
     peak = torch.cuda.max_memory_allocated() - base
     check(bool(out["all_done"].all()), "scale grid: a lane not all_done")
-    for i in (0, len(grid) - 1):
+    plain = [replace(p, arbiter="ref") for p in grid]
+    ref_out, ref_wall, _, ref_stepped = counted(
+        lambda: simulate_batch([sched], plain, chunk=chunk)
+    )
+    bad = _equal_keys(out, ref_out)
+    check(not bad, f"scale grid: kernel and ref arbiters differ on {bad}")
+    for i in SCALE_LANES:
         one = replace(grid[i], **pin)
-        short1 = replace(one, max_cycles=PROFILE_CYCLES, early_exit=False)
         alone, runs[f"scale_lane{i}"] = _sweep_run(
-            f"scale_lane{i}", 1, lambda: simulate(sched, one), lambda: simulate(sched, short1)
+            f"scale_lane{i}",
+            1,
+            lambda: simulate(sched, one),
+            lambda n: simulate(sched, horizon([one], n)[0]),
         )
         bad = _equal_keys(alone, {k: v[i] for k, v in out.items()})
         check(not bad, f"scale grid lane {i} differs from its own simulate() on {bad}")
+        _held_to_reference(f"scale lane {i}", metrics_record(alone), ref["scale_lanes"][str(i)])
     merged = {}
     for c, cls in enumerate(QOS_CLASSES):
         for d, dname in enumerate(("read", "write")):
@@ -651,31 +770,42 @@ def phase_sweep() -> dict:
         merged_latency_percentiles=merged,
         peak_memory_bytes_above_start=peak,
         carry_nbytes_x_chunk=carry_nbytes(env, X, N) * chunk,
+        ref_arbiter=_rates(ref_wall, ref_stepped, chunk),
     )
 
-    # 4. the time skip: 8 gapped lanes, B = 8
-    bursty = [random_bursty(16, 32, burst=8, gap=150, seed=i) for i in range(8)]
-    prm = SimParams(max_cycles=6000, stages=SCHEDULE_PIPELINE, collect="stream")
-    short = [replace(prm, max_cycles=PROFILE_CYCLES, early_exit=False)] * 8
+    # 4. the time skip: 8 gapped lanes, B = 8, against the reference and no skip
+    B = TIME_SKIP_LANES
+    bursty = [random_bursty(**TIME_SKIP_TRAFFIC, seed=i) for i in range(B)]
+    prm = SimParams(max_cycles=TIME_SKIP_MAX_CYCLES, stages=SCHEDULE_PIPELINE, collect="stream")
     on, runs["time_skip"] = _sweep_run(
         "time_skip",
-        8,
-        lambda: simulate_batch(bursty, [prm] * 8),
-        lambda: simulate_batch(bursty, short),
+        B,
+        lambda: simulate_batch(bursty, [prm] * B),
+        lambda n: simulate_batch(bursty, horizon([prm] * B, n)),
     )
+    _held_to_reference("time skip", metrics_record(on), ref["time_skip"])
+    no_skip = replace(prm, time_skip=False)
     off, off_wall, off_launches, off_stepped = counted(
-        lambda: simulate_batch(bursty, [replace(prm, time_skip=False)] * 8)
+        lambda: simulate_batch(bursty, [no_skip] * B)
     )
     check(off_launches == off_stepped, "time skip off: launches differ from cycles stepped")
+    want = predicted_cycles(off["drained_cycle"], no_skip)
+    check(off_stepped == want, f"time skip off: {off_stepped} cycles stepped, {want} predicted")
     bad = _equal_keys(on, off, skip=("skipped_cycles",))
     check(not bad, f"time skip on and off differ on {bad}")
     check(bool((on["skipped_cycles"] > 0).all()), "time skip: a lane skipped nothing")
+    ref_on, ref_wall, _, ref_stepped = counted(
+        lambda: simulate_batch(bursty, [replace(prm, arbiter="ref")] * B)
+    )
+    bad = _equal_keys(on, ref_on)
+    check(not bad, f"time skip: kernel and ref arbiters differ on {bad}")
     emit(
         "sweep_time_skip",
         skipped_cycles=on["skipped_cycles"].tolist(),
         drained_cycles=on["drained_cycle"].tolist(),
         stepped_with_skip=runs["time_skip"]["stepped_cycles"],
-        without_skip=_rates(off_wall, off_stepped, len(bursty)),
+        without_skip=_rates(off_wall, off_stepped, B),
+        ref_arbiter=_rates(ref_wall, ref_stepped, B),
     )
     return runs
 
@@ -1223,13 +1353,14 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
         check(_max_err(lib, flash_attention_ref(q, k, v)) <= 2e-2, "SDPA yardstick disagrees")
+        fns = {
+            "kernel": lambda: flash_attention(q, k, v),
+            "plain": lambda: flash_attention_ref(q, k, v),
+            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        }
         row = _timing_row(
             "flash_attention",
-            {
-                "kernel": lambda: flash_attention(q, k, v),
-                "plain": lambda: flash_attention_ref(q, k, v),
-                "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            },
+            fns,
             100,
             4 * S * H * D * 2,
             4 * D * H * S * (S + 1) // 2,
@@ -1239,6 +1370,21 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
             shape=dict(B=1, S=S, H=H, G=G, D=D, causal=True),
         )
         if S == 1024:
+            # flash against SDPA: device time of queued calls, alternating rounds
+            pairs = [
+                (queued_ms(fns["kernel"], 100), queued_ms(fns["library"], 100))
+                for _ in range(FLASH_ROUNDS)
+            ]
+            done = [p for p in pairs if None not in p]
+            if done:
+                row["queued_median_ms"] = statistics.median(a for a, _ in done)
+                row["library_queued_median_ms"] = statistics.median(b for _, b in done)
+            emit(
+                "flash_vs_sdpa",
+                S=S,
+                rounds_us=[[None if x is None else x * 1e3 for x in p] for p in pairs],
+                flash_faster_rounds=sum(a < b for a, b in done),
+            )
             rows.append(row)
         del q, k, v, qt, kt, vt, lib
 

@@ -11,12 +11,16 @@ on ``GOLDEN_KEYS``.
 ``sweep_reference.json`` holds the reference's ``run_sweep`` results for every
 preset scenario at ``SWEEP_TXNS`` transactions per master under each of
 ``SWEEP_OUTSTANDING`` (one batch, dense pipeline, exact collection), each
-point as :func:`sweep_record` writes it.  ``tests/data/capture_torch_sweep.py``
-makes it with the reference package.
+point as :func:`sweep_record` writes it; and the streaming runs' metrics, as
+:func:`metrics_record` writes them: ``SCALE_LANES`` of the scale grid
+(:func:`scale_grid_fields`), each run alone, and the time-skip batch
+(``TIME_SKIP_*``).  ``tests/data/capture_torch_sweep.py`` makes it with the
+reference package.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 from dataclasses import replace
 from pathlib import Path
@@ -117,8 +121,46 @@ def sweep_record(result) -> dict:
     return json.loads(json.dumps(summary))
 
 
+#: the scale grid's horizon: the smallest multiple of 1000 above 1.3 x its
+#: slowest lane's drain (7951 cycles in the reference, every lane alike)
+SCALE_MAX_CYCLES = 11_000
+#: lanes of the scale grid whose metrics the reference keeps (each run alone)
+SCALE_LANES = (0, 47)
+#: the time-skip batch: ``random_bursty(**TIME_SKIP_TRAFFIC, seed=i)`` for
+#: ``i < TIME_SKIP_LANES``, schedule pipeline, streaming percentiles
+TIME_SKIP_TRAFFIC = dict(num_masters=16, num_txns=32, burst=8, gap=150)
+TIME_SKIP_LANES = 8
+TIME_SKIP_MAX_CYCLES = 6000
+
+
+def scale_grid_fields() -> list:
+    """``SimParams`` fields of the scale grid's 48 points, in lane order
+    (outstanding x qos_aging x reg_rate x bank_occupancy), on the schedule
+    pipeline's streaming collector; the caller adds its package's
+    ``stages=SCHEDULE_PIPELINE``.  One ``urban_perception`` schedule (256
+    transactions per master) is shared by every point."""
+    return [
+        dict(
+            outstanding=o,
+            qos_aging=a,
+            reg_rate=r,
+            bank_occupancy=b,
+            max_cycles=SCALE_MAX_CYCLES,
+            collect="stream",
+        )
+        for o, a, r, b in itertools.product((2, 4, 8, 16), (0, 128), (0, 128), (1, 2, 3))
+    ]
+
+
+def metrics_record(metrics: dict) -> dict:
+    """A metrics dict (one lane or a batch) as nested lists, NaN kept."""
+    return {k: np.asarray(v).tolist() for k, v in metrics.items()}
+
+
 def sweep_reference() -> dict:
     """``sweep_reference.json``: ``max_cycles``, the capture's slowest
     ``drained_cycle`` and one :func:`sweep_record` per point, scenario-major
-    in ``preset_scenarios`` order, then ``SWEEP_OUTSTANDING`` order."""
+    in ``preset_scenarios`` order, then ``SWEEP_OUTSTANDING`` order;
+    ``scale_lanes`` (one :func:`metrics_record` per ``SCALE_LANES`` entry,
+    keyed by its index) and ``time_skip`` (the batch's)."""
     return json.loads(SWEEP_REFERENCE.read_text())

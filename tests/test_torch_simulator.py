@@ -211,11 +211,24 @@ def test_early_exit_equals_fixed_horizon():
     _assert_same(fixed, jsim.simulate(trace, replace(prm, early_exit=False)))
 
 
+def _predicted_cycles(drained_cycle, K, mc, early):
+    """Cycle bodies a run steps when no lane takes the time skip: the drain
+    rounded up to whole blocks of K, or every cycle where early exit is off
+    or the run never drains."""
+    drained = int(drained_cycle)
+    if not early or drained < 0:
+        return mc
+    K = max(1, min(K, mc))
+    return min(mc, -(-drained // K) * K)
+
+
 def test_driver_steps_the_cycles_it_reports():
     """The driver counts every cycle body it runs (``DRIVER_COUNTS``, what
     ``chip_smoke.py`` holds the kernel's launch count to) and reads one flag
     back per block, plus one for the tail; on the schedule pipeline with the
-    time skip and per-lane activity too."""
+    time skip and per-lane activity too.  Where no lane skips, the count
+    equals the drain rounded up to whole blocks, predicted apart from the
+    driver."""
     calls = []
 
     @tsim.register_stage("test_count_cycles")
@@ -223,16 +236,24 @@ def test_driver_steps_the_cycles_it_reports():
         calls.append(1)
         return st, wires
 
+    pipelines = [
+        (tsim.DEFAULT_PIPELINE, {}, True),
+        (tsim.SCHEDULE_PIPELINE, {}, False),
+        (tsim.SCHEDULE_PIPELINE, {"time_skip": False}, True),
+    ]
     try:
         trace = _small_trace(1)
         runs = [(7, 700, True), (32, 700, True), (5000, 700, True), (32, 90, True), (32, 90, False)]
         for K, mc, early in runs:
-            for base in (tsim.DEFAULT_PIPELINE, tsim.SCHEDULE_PIPELINE):
+            for base, kw, predictable in pipelines:
                 calls.clear()
                 tsim.reset_driver_counts()
                 prm = jsim.SimParams(max_cycles=mc, block_cycles=K, early_exit=early)
-                out = _port(trace, prm, stages=base + ("test_count_cycles",))
+                out = _port(trace, prm, stages=base + ("test_count_cycles",), **kw)
                 assert len(calls) == tsim.DRIVER_COUNTS["cycles"] > 0, (K, mc, early)
+                if predictable:
+                    want = _predicted_cycles(out["drained_cycle"], K, mc, early)
+                    assert len(calls) == want, (K, mc, early, kw)
                 blocks = -(-len(calls) // min(K, mc))
                 assert tsim.DRIVER_COUNTS["host_reads"] <= (blocks + 2 if early else 0)
                 assert int(out["cycles"]) == mc
