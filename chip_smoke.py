@@ -65,12 +65,31 @@ Phases, one JSON line each; any failure exits non-zero:
                  steady window of each run's shape (as in 5) gives the
                  arbiter's device time per launch at its B, device busy time
                  and idle share
-then the kernels line, the card's name and power limit, and as the last line
+  11. cosim     the serving co-sim grid (batch {2, 4} x slices {1, 2}, 24
+                 recorded requests each): decode alone, QoS on and QoS off as
+                 three lanes of one dense batch, every group's summaries and
+                 per-gather stats bit for bit against ``cosim_reference.json``,
+                 the reference benchmark's isolation and scaling asserts
+  12. cosim_scale  the co-sim's scale mode: 1024 recorded requests on the
+                 schedule pipeline with streaming percentiles and the time
+                 skip, against the capture; at 128 requests the fixed horizon
+                 against the time skip (equal but for ``skipped_cycles``)
+  13. fuzz      the scenario fuzzer: the 48-spec clean-tree job case by case
+                 (spec, verdict, summaries) against the capture, the committed
+                 corpus replayed to its verdicts, a planted violation found and
+                 shrunk to the reference's reproducer.  In 11-13 the arbiter's
+                 launches equal the cycle bodies stepped in every run; each
+                 phase reports host seconds, cycles and lane-cycles per second,
+                 graph-capture and set-up seconds, and (fuzz) specs per second
+The serving phase (7) also records the full-width run's KV access stream and
+holds it to a traffic-only engine's on the same prompts: the stream the
+co-sim replays.  Then the kernels line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -606,12 +625,13 @@ def _diff_records(got, want, path: str = "") -> tuple:
     return [m for p in parts for m in p[0]], max([0.0, *(p[1] for p in parts)])
 
 
-def _held_to_reference(name: str, got, want) -> None:
-    """``got`` equals its ``sweep_reference.json`` record: every integer and
-    boolean, and every float to the bit (the tests' stated tolerance, 0)."""
-    mismatches, float_diff = _diff_records(got, want)
-    check(not mismatches, f"{name} vs sweep_reference.json: {mismatches[:5]}")
-    check(float_diff == 0.0, f"{name}: float keys differ from the reference by up to {float_diff}")
+def _held_to_reference(name: str, got, want, source: str = "sweep_reference.json") -> None:
+    """``got`` equals its record in ``source`` (a capture of the reference):
+    every integer and boolean, and every float to the bit (the tests' stated
+    tolerance, 0)."""
+    mismatches, float_diff = _diff_records(json.loads(json.dumps(got)), want)
+    check(not mismatches, f"{name} vs {source}: {mismatches[:5]}")
+    check(float_diff == 0.0, f"{name}: float keys differ from {source} by up to {float_diff}")
 
 
 def phase_sweep() -> dict:
@@ -807,6 +827,423 @@ def phase_sweep() -> dict:
         without_skip=_rates(off_wall, off_stepped, B),
         ref_arbiter=_rates(ref_wall, ref_stepped, B),
     )
+    return runs
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, wrap):
+    """While active, ``module.name`` is ``wrap(module.name)``."""
+    inner = getattr(module, name)
+    setattr(module, name, wrap(inner))
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+@contextlib.contextmanager
+def sim_accounting():
+    """While active, the host seconds of every simulator cycle loop
+    (``loop_s``) and CUDA-graph capture (``capture_s``, ``captures``), each
+    between two synchronizations; what else a call takes is its set-up
+    (state, input copies, the metrics' read-back)."""
+    import torch
+
+    from repro_torch.core import simulator as sim
+
+    acc = {"loop_s": 0.0, "capture_s": 0.0, "captures": 0}
+
+    def timed(key):
+        def wrap(inner):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*args, **kwargs)
+                torch.cuda.synchronize()
+                acc[key] += time.perf_counter() - t0
+                if key == "capture_s":
+                    acc["captures"] += 1
+                return out
+
+            return run
+
+        return wrap
+
+    with _patched(sim, "_run_cycles", timed("loop_s")), _patched(
+        sim, "_GraphedCycle", timed("capture_s")
+    ):
+        yield acc
+
+
+#: the capture the co-sim and fuzz phases are held to
+COSIM_CAPTURE = "cosim_reference.json"
+#: the serving co-sim's three fabric configurations, lanes of one batch
+COSIM_CONFIGS = ("alone", "qos_on", "qos_off")
+
+
+def gather_stats(comp, trace, metrics) -> dict:
+    """Per-gather service latency of the decode class, as the reference's
+    co-sim benchmark counts it: a decode step is done when the slowest read
+    of its whole-prefix gather returns (the engine cannot sample the next
+    token before), so the latency is per decode event (the reads of one
+    master row with one start cycle), not per burst."""
+    import numpy as np
+
+    acc = np.asarray(metrics["accept_cycle"])
+    com = np.asarray(metrics["complete_cycle"])
+    iw, burst = np.asarray(trace.is_write), np.asarray(trace.burst)
+    start = trace.start_or_zeros()
+    lats = []
+    for m in [i for i, q in enumerate(comp.qos) if q == "realtime"]:
+        sel = (burst[m] > 0) & (iw[m] == 0) & (com[m] >= 0) & (acc[m] >= 0)
+        for t0 in np.unique(start[m][sel]):
+            lats.append(float(com[m][sel & (start[m] == t0)].max() - t0))
+    lats = np.asarray(lats)
+    return {
+        "gathers": int(lats.size),
+        "gather_lat_p50": float(np.percentile(lats, 50)),
+        "gather_lat_p99": float(np.percentile(lats, 99)),
+        "gather_lat_max": float(lats.max()),
+    }
+
+
+def cosim_group(
+    *,
+    max_batch,
+    num_slices,
+    num_requests,
+    prompt_lo,
+    prompt_hi,
+    max_new_tokens,
+    cycles_per_step,
+    bank_occupancy,
+    reg_rate,
+    reg_burst,
+    seed,
+    device=None,
+) -> dict:
+    """One group of the serving co-sim grid, as the reference's benchmark
+    builds it: a traffic-only engine run recorded, compiled by
+    ``serving_scenario``, and run alone (prefill silenced), with QoS on (the
+    regulator) and with QoS off (no priorities) as three lanes of one dense,
+    exact ``simulate_batch`` on ``device`` (default: CUDA).  Returns the
+    record's summary, the trace's shape, each configuration's summary and
+    gather stats, the lanes' drains and the batch's inputs."""
+    import numpy as np
+
+    from repro_torch.core.address import MemoryGeometry
+    from repro_torch.core.simulator import SimParams, Trace, simulate_batch
+    from repro_torch.scenarios import record_serving_run, serving_scenario
+
+    rec = record_serving_run(
+        num_requests=num_requests,
+        max_batch=max_batch,
+        max_len=prompt_hi + max_new_tokens + 16,
+        prompt_lo=prompt_lo,
+        prompt_hi=prompt_hi,
+        max_new_tokens=max_new_tokens,
+        seed=seed,
+    )
+    geom = MemoryGeometry(num_slices=num_slices)
+    comp = serving_scenario(
+        rec, geom=geom, cycles_per_step=cycles_per_step, decode_deadline=4 * cycles_per_step
+    ).compile()
+    full = comp.trace
+    decode = np.array([q == "realtime" for q in comp.qos])
+    silenced = np.where(decode[:, None], full.burst, 0).astype(np.int32)
+    alone = Trace(full.is_write, silenced, full.addr, full.start, full.prio)
+    blind = Trace(full.is_write, full.burst, full.addr, full.start, None)
+    base = SimParams(
+        geom=geom, max_cycles=(rec.steps + 16) * cycles_per_step, bank_occupancy=bank_occupancy
+    )
+    qos_on = replace(base, reg_rate=reg_rate, reg_burst=reg_burst)
+    traces, prms = [alone, full, blind], [qos_on, qos_on, base]
+    stacked = simulate_batch(traces, prms, device=device)
+    rows, gathers = {}, {}
+    for i, (cfg, tr, prm) in enumerate(zip(COSIM_CONFIGS, traces, prms)):
+        metrics = {k: np.asarray(v)[i] for k, v in stacked.items()}
+        rows[cfg] = replace(comp, trace=tr).summarize(prm, metrics).summary()
+        gathers[cfg] = gather_stats(comp, tr, metrics)
+    return {
+        "record": rec.summary(),
+        "trace_shape": list(full.burst.shape),
+        "rows": rows,
+        "gathers": gathers,
+        "drained_cycle": stacked["drained_cycle"],
+        "inputs": (traces, prms),
+    }
+
+
+def check_cosim_claims(groups: dict, bound_cycles: int, margin_cycles: int) -> dict:
+    """The reference benchmark's asserts over the grid's groups (named
+    ``batch<b>_slices<s>``): decode p99 with QoS on within ``bound_cycles`` of
+    alone and no deadline missed in every group; at the heaviest corner QoS
+    off at least ``margin_cycles`` worse than QoS on; a second slice at the
+    largest batch at least halves the QoS-off damage.  Returns the headline."""
+    p99 = {
+        g: {c: r["gathers"][c]["gather_lat_p99"] for c in COSIM_CONFIGS}
+        for g, r in groups.items()
+    }
+    shape = [tuple(int(x) for x in g.replace("batch", "").split("_slices")) for g in groups]
+    batch = max(b for b, _ in shape)
+    lo, hi = min(s for _, s in shape), max(s for _, s in shape)
+    for g, h in p99.items():
+        check(h["qos_on"] <= h["alone"] + bound_cycles, f"co-sim {g}: QoS-on p99 {h}")
+        misses = groups[g]["rows"]["qos_on"]["per_class"]["realtime"]["deadline_misses"]
+        check(misses == 0, f"co-sim {g}: {misses} decode deadlines missed with QoS on")
+    heavy = p99[f"batch{batch}_slices{lo}"]
+    check(heavy["qos_off"] >= heavy["qos_on"] + margin_cycles, f"co-sim heavy corner: {heavy}")
+    at = {s: p99[f"batch{batch}_slices{s}"] for s in (lo, hi)}
+    damage = {s: h["qos_off"] - h["alone"] for s, h in at.items()}
+    if hi > lo:
+        check(damage[hi] <= damage[lo] / 2, f"co-sim: a second slice does not halve {damage}")
+    return {g: {f"{c}_p99": v for c, v in h.items()} for g, h in p99.items()}
+
+
+def phase_cosim() -> dict:
+    """The serving co-sim grid on the card (module docstring, 11); returns
+    each group's row for the kernels line."""
+    from repro_torch.core.simulator import simulate_batch
+    from repro_torch.data import COSIM_GRID, cosim_reference
+
+    ref = cosim_reference()["grid"]
+    grid = dict(COSIM_GRID)
+    batches, slices = grid.pop("batch_sizes"), grid.pop("slice_counts")
+    bound, margin = grid.pop("bound_cycles"), grid.pop("margin_cycles")
+    groups, runs = {}, {}
+    for b in batches:
+        for s in slices:
+            name = f"batch{b}_slices{s}"
+            with sim_accounting() as acc:
+                out, wall, launches, stepped = counted(
+                    lambda: cosim_group(max_batch=b, num_slices=s, **grid)
+                )
+            check(launches == stepped, f"co-sim {name}: {launches} launches, {stepped} cycles")
+            want = predicted_cycles(out["drained_cycle"], out["inputs"][1][0])
+            check(stepped == want, f"co-sim {name}: {stepped} cycles stepped, {want} predicted")
+            got = {k: out[k] for k in ("record", "trace_shape", "rows", "gathers")}
+            _held_to_reference(f"co-sim {name}", got, ref[name], COSIM_CAPTURE)
+            groups[name] = out
+            runs[name] = row = {
+                **_rates(wall, stepped, 3),
+                "arbiter_launches": launches,
+                "loop_s": acc["loop_s"],
+                "capture_s": acc["capture_s"],
+                "setup_s": wall - acc["loop_s"],
+                "trace_shape": out["trace_shape"],
+                "engine_steps": out["record"]["steps"],
+                "drained_cycle": out["drained_cycle"].tolist(),
+            }
+            emit("cosim_group", group=name, **row, gathers=out["gathers"])
+    headline = check_cosim_claims(groups, bound, margin)
+    traces, prms = groups[f"batch{max(batches)}_slices{min(slices)}"]["inputs"]
+    window = steady_window(
+        lambda n: simulate_batch(traces, [replace(p, max_cycles=n, early_exit=False) for p in prms])
+    )
+    emit("cosim", headline=headline, bound_cycles=bound, margin_cycles=margin, heavy_window=window)
+    return runs
+
+
+def cosim_scale_setup(n: int) -> tuple:
+    """The co-sim's scale mode at ``n`` requests: ``(record, compiled
+    scenario, SimParams)``, a recorded traffic-only run of ``COSIM_SCALE``'s
+    shape on the schedule pipeline with streaming percentiles."""
+    from repro_torch.core.simulator import SCHEDULE_PIPELINE, SimParams
+    from repro_torch.data import COSIM_SCALE, cosim_scale_params
+    from repro_torch.scenarios import record_serving_run, serving_scenario
+
+    cfg = {k: v for k, v in COSIM_SCALE.items() if k not in ("cycles_per_step", "bank_occupancy")}
+    cps = COSIM_SCALE["cycles_per_step"]
+    rec = record_serving_run(
+        **{**cfg, "num_requests": n},
+        max_len=cfg["prompt_hi"] + cfg["max_new_tokens"] + 16,
+        max_steps=None,
+    )
+    comp = serving_scenario(rec, cycles_per_step=cps, decode_deadline=4 * cps).compile()
+    return rec, comp, SimParams(**cosim_scale_params(rec, SCHEDULE_PIPELINE))
+
+
+def phase_cosim_scale() -> dict:
+    """The co-sim's scale mode on the card (module docstring, 12); returns
+    each leg's row for the kernels line."""
+    from repro_torch.core.simulator import carry_nbytes, compile_simulate, simulate
+    from repro_torch.data import (
+        COSIM_SCALE,
+        COSIM_SCALE_FIXED_REQUESTS,
+        cosim_reference,
+        metrics_record,
+        scale_summary,
+    )
+
+    ref = cosim_reference()["scale"]
+    runs = {}
+    rec, comp, prm = cosim_scale_setup(COSIM_SCALE["num_requests"])
+    with sim_accounting() as acc:
+        res, wall, launches, stepped = counted(lambda: comp.simulate(prm))
+    check(bool(res.metrics["all_done"]), "co-sim scale: the run did not drain")
+    check(res.per_class["realtime"]["deadline_txns"] > 0, "co-sim scale: no deadline counted")
+    check(launches == stepped, f"co-sim scale: {launches} launches, {stepped} cycles")
+    carry = carry_nbytes(prm, comp.trace.num_masters, comp.trace.num_txns)
+    summary = scale_summary(rec, comp, prm, res, carry)
+    _held_to_reference("co-sim scale", summary, ref["summary"], COSIM_CAPTURE)
+    metrics = metrics_record(res.metrics)
+    _held_to_reference("co-sim scale metrics", metrics, ref["metrics"], COSIM_CAPTURE)
+    runs["scale_skip"] = row = {
+        **_rates(wall, stepped, 1),
+        "arbiter_launches": launches,
+        "loop_s": acc["loop_s"],
+        "capture_s": acc["capture_s"],
+        "setup_s": wall - acc["loop_s"],
+    }
+    sched = comp.schedule()
+    window = steady_window(lambda n: simulate(sched, replace(prm, max_cycles=n, early_exit=False)))
+    emit("cosim_scale", **summary, **row, window=window)
+
+    # the fixed horizon against the time skip, at COSIM_SCALE_FIXED_REQUESTS
+    n = COSIM_SCALE_FIXED_REQUESTS
+    rec, comp, prm = cosim_scale_setup(n)
+    sched = comp.schedule()
+    legs, rows = {}, {}
+    for name, p in (("skip", prm), ("fixed", replace(prm, early_exit=False, time_skip=False))):
+        out, wall, launches, stepped = counted(compile_simulate(sched, p))
+        check(launches == stepped, f"co-sim scale {name}: {launches} launches, {stepped} cycles")
+        want = ref[f"legs{n}"][name]
+        _held_to_reference(f"co-sim scale {name}", metrics_record(out), want, COSIM_CAPTURE)
+        legs[name], rows[name] = out, {**_rates(wall, stepped, 1), "arbiter_launches": launches}
+        runs[f"scale{n}_{name}"] = rows[name]
+    check(rows["fixed"]["stepped_cycles"] == prm.max_cycles, "co-sim scale: the fixed horizon")
+    bad = _equal_keys(legs["skip"], legs["fixed"], skip=("skipped_cycles",))
+    check(not bad, f"co-sim scale: time skip and fixed horizon differ on {bad}")
+    emit(
+        "cosim_scale_legs",
+        requests=rec.num_requests,
+        max_cycles=prm.max_cycles,
+        skipped_cycles=int(legs["skip"]["skipped_cycles"]),
+        drained_cycle=int(legs["skip"]["drained_cycle"]),
+        **rows,
+        fixed_over_skip_wall=rows["fixed"]["host_s"] / rows["skip"]["host_s"],
+        reference_speedup_floor=1.5,
+    )
+    return runs
+
+
+def _fuzz_run(name: str, cfg: dict) -> tuple:
+    """``run_fuzz(FuzzConfig(**cfg))`` on the card, counted; returns
+    ``(outcome, results, calls, row)``: every case's result (from its
+    ``evaluate_cases`` calls), every ``simulate_batch`` call (lanes, host
+    seconds, cycles stepped, inputs) and the run's line of rates: host
+    seconds, specs and cycles per second, lane-cycles per second, arbiter
+    launches (equal to the cycles stepped), and the seconds of the cycle
+    loops, of the graph captures and of the rest of the simulator calls."""
+    import torch
+
+    from repro_torch.core.simulator import DRIVER_COUNTS
+    from repro_torch.scenarios import fuzz
+
+    results, calls = [], []
+
+    def recording(inner):
+        def evaluate(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            results.extend(out)
+            return out
+
+        return evaluate
+
+    def timed(inner):
+        def batch(inputs, prms, **kwargs):
+            torch.cuda.synchronize()
+            c0, t0 = DRIVER_COUNTS["cycles"], time.perf_counter()
+            out = inner(inputs, prms, **kwargs)
+            torch.cuda.synchronize()
+            calls.append(
+                dict(
+                    lanes=len(prms),
+                    host_s=time.perf_counter() - t0,
+                    stepped_cycles=DRIVER_COUNTS["cycles"] - c0,
+                    inputs=(inputs, prms),
+                )
+            )
+            return out
+
+        return batch
+
+    with _patched(fuzz, "evaluate_cases", recording), _patched(fuzz, "simulate_batch", timed):
+        with sim_accounting() as acc:
+            outcome, wall, launches, stepped = counted(
+                lambda: fuzz.run_fuzz(fuzz.FuzzConfig(**cfg))
+            )
+    check(launches == stepped, f"{name}: {launches} launches, {stepped} cycles")
+    call_s = sum(c["host_s"] for c in calls)
+    row = {
+        "host_s": wall,
+        "specs": outcome.evaluated,
+        "specs_per_s": outcome.evaluated / wall,
+        "simulate_batch_calls": len(calls),
+        "lanes_per_call": [c["lanes"] for c in calls],
+        "stepped_cycles": stepped,
+        "cycles_per_s": stepped / wall,
+        "lane_cycles_per_s": sum(c["stepped_cycles"] * c["lanes"] for c in calls) / wall,
+        "arbiter_launches": launches,
+        "loop_s": acc["loop_s"],
+        "capture_s": acc["capture_s"],
+        "captures": acc["captures"],
+        "setup_s": call_s - acc["loop_s"],
+        "setup_s_per_call": (call_s - acc["loop_s"]) / len(calls),
+        "host_s_outside_simulator": wall - call_s,
+    }
+    return outcome, results, calls, row
+
+
+def phase_fuzz() -> dict:
+    """The scenario fuzzer on the card (module docstring, 13); returns its
+    runs' rows for the kernels line."""
+    from repro_torch.core.simulator import simulate_batch
+    from repro_torch.data import FUZZ_JOB, FUZZ_PLANTED, case_record, cosim_reference
+    from repro_torch.scenarios import fuzz
+
+    ref = cosim_reference()["fuzz"]
+    runs = {}
+
+    # the clean-tree job: every case against the capture, verdict for verdict
+    outcome, results, calls, runs["fuzz_job"] = _fuzz_run("fuzz job", FUZZ_JOB)
+    check(outcome.evaluated == FUZZ_JOB["budget"] and not outcome.truncated, "fuzz job: budget")
+    check(len(results) == len(ref["job"]["cases"]), f"fuzz job: {len(results)} cases evaluated")
+    for res, want in zip(results, ref["job"]["cases"]):
+        got = case_record(res, fuzz.case_to_json(res.case))
+        _held_to_reference(f"fuzz case {res.case.index}", got, want, COSIM_CAPTURE)
+    summary = outcome.summary()
+    got = {k: summary[k] for k in ("evaluated", "violations", "violated_oracles")}
+    _held_to_reference("fuzz job summary", got, ref["job"]["summary"], COSIM_CAPTURE)
+    inputs, prms = max(calls, key=lambda c: c["lanes"])["inputs"]
+    window = steady_window(
+        lambda n: simulate_batch(inputs, [replace(p, max_cycles=n, early_exit=False) for p in prms])
+    )
+    emit(
+        "fuzz_job",
+        **runs["fuzz_job"],
+        violated_oracles=summary["violated_oracles"],
+        verdicts={r.case.index: sorted({v.oracle for v in r.violations}) for r in results},
+        widest_call_window=window,
+    )
+
+    # the committed corpus replays to its verdicts
+    replays = {}
+    for path in sorted((ROOT / "tests" / "data" / "fuzz_corpus").glob("*.json")):
+        case, verdict = fuzz.load_reproducer(path)
+        res, wall, launches, stepped = counted(lambda: fuzz.replay_case(case))
+        got = sorted({v.oracle for v in res.violations})
+        check(got == sorted(verdict.get("violated_oracles", [])), f"corpus {path.name}: {got}")
+        check(launches == stepped, f"corpus {path.name}: {launches} launches, {stepped} cycles")
+        replays[path.stem] = dict(violated_oracles=got, **_rates(wall, stepped, 1))
+    emit("fuzz_corpus", replays=replays)
+
+    # a planted violation found and shrunk to the reference's minimal spec
+    outcome, _, _, runs["fuzz_planted"] = _fuzz_run("fuzz planted", FUZZ_PLANTED)
+    check(bool(outcome.violating), "fuzz planted: the planted violation was not found")
+    want = ref["planted"]["reproducers"]
+    _held_to_reference("fuzz planted", outcome.reproducers, want, COSIM_CAPTURE)
+    emit("fuzz_planted", **runs["fuzz_planted"], shrunk=outcome.reproducers[0]["shrunk"])
     return runs
 
 
@@ -1147,6 +1584,7 @@ def phase_serving() -> dict:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    from repro_torch.serving.record import KVAccessRecorder
 
     cfg, spec = get_config("stablelm-1.6b"), serve.FULL
     t0 = time.perf_counter()
@@ -1157,7 +1595,8 @@ def phase_serving() -> dict:
     engine_cls = _serving_engine_cls()
 
     # prediction: the traffic-only engine runs the same control flow
-    plan, _ = serve.new_engine(None, None, spec, prompts)
+    plan_rec = KVAccessRecorder()
+    plan, _ = serve.new_engine(None, None, spec, prompts, recorder=plan_rec)
     plan.run()
     L = cfg.num_layers
     want = {
@@ -1168,7 +1607,10 @@ def phase_serving() -> dict:
         "bank_arbiter": 0,
     }
 
-    eng, reqs = serve.new_engine(cfg, model, spec, prompts, engine_cls=engine_cls)
+    recorder = KVAccessRecorder()
+    eng, reqs = serve.new_engine(
+        cfg, model, spec, prompts, engine_cls=engine_cls, recorder=recorder
+    )
     first_wave = reqs[: spec.max_batch]
     eng.record = frozenset(r.rid for r in first_wave)
     torch.cuda.reset_peak_memory_stats()
@@ -1183,6 +1625,11 @@ def phase_serving() -> dict:
     summary = serve.summarize(eng, reqs, wall)
     check(launches == want, f"serving launches {launches}, predicted {want}")
     check(eng.steps == plan.steps, f"{eng.steps} engine steps, traffic-only run took {plan.steps}")
+    record = recorder.record
+    check(
+        record.events_key() == plan_rec.record.events_key(),
+        "the serving run's KV access record differs from the traffic-only engine's",
+    )
     check(
         all(r.done and len(r.out_tokens) == spec.max_new_tokens for r in reqs),
         "a request did not finish with its token count",
@@ -1242,6 +1689,7 @@ def phase_serving() -> dict:
         predicted=want,
         stats=summary["stats"],
         teacher_forcing=forcing,
+        kv_access_record=record.summary(),
     )
     return dict(
         model=model,
@@ -1472,9 +1920,11 @@ def main() -> int:
     del serving
     # the scale path last: its profiled windows hold ~10^5 kernel records each
     sweep = phase_sweep()
+    cosim = {**phase_cosim(), **phase_cosim_scale(), **phase_fuzz()}
     kernel["launches_by_path"] = {
         "fig4_x16": main_path["launches"],
         **{f"sweep_{k}": v["arbiter_launches"] for k, v in sweep.items()},
+        **{f"cosim_{k}": v["arbiter_launches"] for k, v in cosim.items()},
     }
     kernel["sweep_device_us_by_lanes"] = {
         f"{k} (B={v['lanes']})": v["arbiter_device_us_mean"] for k, v in sweep.items()

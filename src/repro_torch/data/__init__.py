@@ -16,6 +16,13 @@ point as :func:`sweep_record` writes it; and the streaming runs' metrics, as
 (:func:`scale_grid_fields`), each run alone, and the time-skip batch
 (``TIME_SKIP_*``).  ``tests/data/capture_torch_sweep.py`` makes it with the
 reference package.
+
+``cosim_reference.json`` holds the reference's results for the serving co-sim
+and the fuzzer at the sizes ``chip_smoke.py`` runs on the card: every group of
+the co-sim grid (``COSIM_GRID``), the co-sim's scale mode (``COSIM_SCALE``;
+its fixed-horizon leg at ``COSIM_SCALE_FIXED_REQUESTS``), the clean-tree fuzz
+job (``FUZZ_JOB``) case by case, and the planted find with its shrunk spec
+(``FUZZ_PLANTED``).  ``tests/data/capture_torch_cosim.py`` makes it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from repro_torch.core.traffic import random_uniform, stack_traces
 
 GOLDEN_INPUTS = Path(__file__).resolve().parent / "golden_inputs.npz"
 SWEEP_REFERENCE = Path(__file__).resolve().parent / "sweep_reference.json"
+COSIM_REFERENCE = Path(__file__).resolve().parent / "cosim_reference.json"
 TRACE_COLUMNS = ("is_write", "burst", "addr", "start", "prio")
 
 #: metric keys the golden file pins
@@ -164,3 +172,118 @@ def sweep_reference() -> dict:
     ``scale_lanes`` (one :func:`metrics_record` per ``SCALE_LANES`` entry,
     keyed by its index) and ``time_skip`` (the batch's)."""
     return json.loads(SWEEP_REFERENCE.read_text())
+
+
+#: the serving co-sim grid: the reference benchmark's defaults
+#: (``benchmarks/serving_cosim.py::serving_cosim``); every group records a
+#: traffic-only engine run and runs it alone, with QoS on and with QoS off as
+#: three lanes of one dense, exact batch
+COSIM_GRID = dict(
+    batch_sizes=(2, 4),
+    slice_counts=(1, 2),
+    num_requests=24,
+    prompt_lo=48,
+    prompt_hi=96,
+    max_new_tokens=8,
+    cycles_per_step=192,
+    bank_occupancy=32,
+    reg_rate=8,
+    reg_burst=8,
+    bound_cycles=64,
+    margin_cycles=64,
+    seed=0,
+)
+#: the co-sim's scale mode (``serving_cosim.py::serving_scale``): a recorded
+#: run of 1024 requests on the schedule pipeline with streaming percentiles
+COSIM_SCALE = dict(
+    num_requests=1024,
+    max_batch=16,
+    prompt_lo=16,
+    prompt_hi=33,
+    max_new_tokens=8,
+    cycles_per_step=256,
+    bank_occupancy=8,
+    seed=0,
+)
+#: requests of the scale mode's fixed-horizon leg (and of the time-skip leg it
+#: is held to): 1024 would step all 118784 cycles of the horizon
+COSIM_SCALE_FIXED_REQUESTS = 128
+#: the clean-tree fuzz job (``benchmarks/fuzz.py::fuzz_job``): ``FuzzConfig``
+#: fields
+FUZZ_JOB = dict(seed=0, budget=48, shrink_limit=0, max_cycles=20_000)
+#: one planted deadline violation found and shrunk (the reference's
+#: ``tests/test_fuzz.py::test_planted_violation_found_and_shrunk``)
+FUZZ_PLANTED = dict(
+    seed=7,
+    budget=2,
+    chunk=8,
+    geometries=("small16",),
+    max_masters=6,
+    txns_hi=16,
+    max_cycles=6000,
+    plant_rate=1.0,
+    shrink_limit=1,
+)
+
+
+def cosim_scale_params(record, stages) -> dict:
+    """``SimParams`` fields of the scale mode for a recorded run: a horizon
+    of the run's steps plus 16, ``bank_occupancy`` and the streaming
+    collector on the caller's package's ``stages`` (``SCHEDULE_PIPELINE``)."""
+    cps = COSIM_SCALE["cycles_per_step"]
+    return dict(
+        max_cycles=(record.steps + 16) * cps,
+        bank_occupancy=COSIM_SCALE["bank_occupancy"],
+        stages=stages,
+        collect="stream",
+    )
+
+
+def scale_summary(record, compiled, params, result, carry_bytes: int) -> dict:
+    """The scale mode's summary, as the reference's benchmark reports it: the
+    recording's size, the run's cycle counts, the schedule's and the carry's
+    bytes, the decode class's latency and deadline numbers and the prefill
+    ports' write throughput.  Takes the reference's objects and the port's
+    alike (``carry_bytes`` from the caller's ``carry_nbytes``)."""
+    m, dec = result.metrics, result.per_class["realtime"]
+    sched = compiled.schedule()
+    keys = (
+        "txns_done",
+        "read_lat_p50",
+        "read_lat_p99",
+        "read_lat_max",
+        "deadline_txns",
+        "deadline_misses",
+        "deadline_miss_rate",
+    )
+    return {
+        "requests": record.num_requests,
+        "engine_steps": record.steps,
+        "trace_shape": list(compiled.trace.burst.shape),
+        "max_cycles": params.max_cycles,
+        **{k: int(m[k]) for k in ("cycles", "effective_cycles", "skipped_cycles", "drained_cycle")},
+        "schedule_txns": sched.num_txns,
+        "schedule_bytes": sched.nbytes,
+        "carry_bytes": carry_bytes,
+        "decode": {k: dec[k] for k in keys},
+        "prefill_write_throughput": result.per_class["besteffort"]["write_throughput"],
+    }
+
+
+def case_record(result, spec: dict) -> dict:
+    """One evaluated fuzz case as ``cosim_reference.json`` keeps it: its spec
+    (``case_to_json`` of the caller's package), its violations and the
+    summaries (:func:`sweep_record`) of its run and of its alone-run.  Takes
+    the reference's ``CaseResult`` and the port's alike."""
+    return {
+        "index": result.case.index,
+        "spec": spec,
+        "violations": json.loads(json.dumps([v.to_json() for v in result.violations])),
+        "result": sweep_record(result.result),
+        "alone": None if result.alone is None else sweep_record(result.alone),
+    }
+
+
+def cosim_reference() -> dict:
+    """``cosim_reference.json`` (see the module docstring)."""
+    return json.loads(COSIM_REFERENCE.read_text())

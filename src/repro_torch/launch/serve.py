@@ -54,10 +54,16 @@ def make_prompts(cfg: ModelConfig, spec: ServeSpec, seed: int = 0):
     ]
 
 
-def new_engine(cfg, model, spec: ServeSpec, prompts, engine_cls=ServingEngine):
-    """An engine of ``spec``'s sizes with ``prompts`` submitted."""
+def new_engine(cfg, model, spec: ServeSpec, prompts, engine_cls=ServingEngine, recorder=None):
+    """An engine of ``spec``'s sizes with ``prompts`` submitted; ``recorder``
+    (a ``serving.record.KVAccessRecorder``) records its KV access stream."""
     eng = engine_cls(
-        cfg, model, max_batch=spec.max_batch, max_len=spec.max_len, block_size=spec.block_size
+        cfg,
+        model,
+        max_batch=spec.max_batch,
+        max_len=spec.max_len,
+        block_size=spec.block_size,
+        recorder=recorder,
     )
     reqs = [eng.submit(p, max_new_tokens=spec.max_new_tokens) for p in prompts]
     return eng, reqs

@@ -2,15 +2,30 @@
 
 A :class:`~repro_torch.scenarios.spec.Scenario` composes per-master traffic
 sources (camera frame DMA, Radar chirps, Lidar scatter, AI-accelerator tiles,
-CPU scatter) with QoS classes, memory-region placement, and injection rates.
+CPU scatter, or recorded LLM-serving streams) with QoS classes, memory-region
+placement, and injection rates.
 Every workload goes through one interface: ``TrafficSource.emit →
 Scenario.compile() → CompiledScenario.simulate`` (or ``.simulate_batch`` for a
 parameter grid as lanes of one batch); ``scenarios.sweep.run_sweep`` does the
 same for scenario × parameter grids.  Runs go to the CUDA device unless the
-caller passes ``device="cpu"``.  The serving sources, the fuzzer and its
-property oracles are not ported yet (ROADMAP.md Queue 1 items 11 and 12).
+caller passes ``device="cpu"``.  ``serving`` turns a recorded serving run
+into fabric traffic (the co-sim); ``fuzz`` samples random specs and judges
+them with the property oracles of ``properties``.
 """
 
+from repro_torch.scenarios.fuzz import (
+    FuzzCase,
+    FuzzConfig,
+    FuzzOutcome,
+    case_from_json,
+    case_to_json,
+    evaluate_cases,
+    load_reproducer,
+    replay_case,
+    run_fuzz,
+    sample_case,
+    shrink_case,
+)
 from repro_torch.scenarios.generators import GENERATORS
 from repro_torch.scenarios.library import (
     highway_pilot,
@@ -21,6 +36,14 @@ from repro_torch.scenarios.library import (
     slice_scaling,
     urban_perception,
 )
+from repro_torch.scenarios.properties import (
+    ORACLES,
+    OracleBounds,
+    PropertyContext,
+    Violation,
+    check_properties,
+)
+from repro_torch.scenarios.serving import ServingSource, serving_scenario
 from repro_torch.scenarios.spec import (
     QOS_CLASSES,
     QOS_PRIORITY,
@@ -40,6 +63,7 @@ from repro_torch.scenarios.sweep import (
     summarize_compiled,
     summarize_point,
 )
+from repro_torch.serving.record import record_serving_run
 
 __all__ = [
     "CompiledScenario",
@@ -58,6 +82,9 @@ __all__ = [
     "run_sweep",
     "summarize_compiled",
     "summarize_point",
+    "ServingSource",
+    "serving_scenario",
+    "record_serving_run",
     "highway_pilot",
     "parking_surround",
     "preset_scenarios",
@@ -65,4 +92,20 @@ __all__ = [
     "sensor_stress",
     "slice_scaling",
     "urban_perception",
+    "FuzzCase",
+    "FuzzConfig",
+    "FuzzOutcome",
+    "case_from_json",
+    "case_to_json",
+    "evaluate_cases",
+    "load_reproducer",
+    "replay_case",
+    "run_fuzz",
+    "sample_case",
+    "shrink_case",
+    "ORACLES",
+    "OracleBounds",
+    "PropertyContext",
+    "Violation",
+    "check_properties",
 ]

@@ -17,8 +17,8 @@ Every workload reaches the simulator through the same interface::
 A ``TrafficSource`` is anything with an ``emit`` method returning one
 master's ``(is_write, burst, addr, start)`` rows: the synthetic ADAS
 generators (wrapped by :class:`SyntheticSource`; a plain string model name in
-``MasterSpec.model`` still works and resolves to one), and, once the serving
-co-sim is ported, recorded LLM-serving streams.  Sources
+``MasterSpec.model`` still works and resolves to one), and recorded
+LLM-serving streams (``scenarios.serving.ServingSource``).  Sources
 that replay a recorded stream may ignore the synthetic knobs (``txns``,
 ``rate``, ``seed``) — their stream is already fully determined.
 

@@ -72,7 +72,10 @@ class EngineStats:
 
 class ServingEngine:
     """``params`` is the port's :class:`~repro_torch.models.model.Transformer`
-    (its device is the engine's), or None for a traffic-only run."""
+    (its device is the engine's), or None for a traffic-only run.  Attach a
+    :class:`~repro_torch.serving.record.KVAccessRecorder` with ``recorder=``
+    to capture the KV access stream for the fabric co-sim; it is the same
+    stream either way, since no control decision reads a logit."""
 
     def __init__(
         self,
@@ -85,8 +88,6 @@ class ServingEngine:
         greedy: bool = True,
         recorder=None,
     ):
-        if recorder is not None:
-            raise NotImplementedError("KV access recording arrives with the serving co-sim slice")
         if not greedy:
             raise NotImplementedError("the engine decodes greedily, as the reference's does")
         if params is not None and params.cfg != cfg:
@@ -96,9 +97,14 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.block_size = block_size
+        self.recorder = recorder
         nblocks = max(1, max_batch * max_len // block_size * 2)
         nblocks = -(-nblocks // 8) * 8  # round to a bank multiple
-        self.pool = BankedKVPool(num_blocks=nblocks, block_size=block_size, num_banks=8)
+        self.pool = BankedKVPool(
+            num_blocks=nblocks, block_size=block_size, num_banks=8, recorder=recorder
+        )
+        if recorder is not None:
+            recorder.bind_pool(nblocks, block_size, self.pool.num_banks, max_batch)
         self.table_width = -(-max_len // block_size)  # blocks a slot can reach
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int64)
@@ -160,6 +166,7 @@ class ServingEngine:
             r.out_tokens.append(0)
             self.slot_req[slot] = r
             self.slot_pos[slot] = S
+            self._record_prefill(slot, r)
             return
         t0 = time.perf_counter()
         model, bs = self.params, self.block_size
@@ -173,6 +180,11 @@ class ServingEngine:
         self.slot_req[slot] = r
         self.slot_pos[slot] = S
         self.stats.prefill_s += time.perf_counter() - t0
+        self._record_prefill(slot, r)
+
+    def _record_prefill(self, slot: int, r: Request) -> None:
+        if self.recorder is not None:
+            self.recorder.on_prefill(slot, r.rid, len(r.prompt), self.pool.by_request[r.rid])
 
     def _decode(self, active: List[int]) -> List[int]:
         """One batched decode step over every slot; returns the active
@@ -200,11 +212,21 @@ class ServingEngine:
     def step(self) -> int:
         """One engine iteration: admit + one batched decode step.
         Returns the number of active slots."""
+        if self.recorder is not None:
+            self.recorder.step = self.steps
         self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             self.steps += 1
+            if self.recorder is not None:
+                self.recorder.end_step()
             return 0
+        if self.recorder is not None:  # the full allocation, not the table's slice
+            for i in active:
+                r = self.slot_req[i]
+                self.recorder.on_decode(
+                    i, r.rid, int(self.slot_pos[i]), self.pool.by_request[r.rid]
+                )
         t0 = time.perf_counter()
         if self.params is None:  # traffic-only decode: cadence only
             nxt = [0] * len(active)
@@ -224,6 +246,8 @@ class ServingEngine:
         if not self.pool.check_isolation():
             raise RuntimeError("KV block isolation violated")
         self.steps += 1
+        if self.recorder is not None:
+            self.recorder.end_step()
         return len(active)
 
     def run(self, max_steps: int = 1000) -> None:

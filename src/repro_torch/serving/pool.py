@@ -46,8 +46,6 @@ class BankedKVPool:
     ):
         if num_blocks % num_banks:
             raise ValueError(f"num_blocks={num_blocks} is not a multiple of num_banks={num_banks}")
-        if recorder is not None:
-            raise NotImplementedError("KV access recording arrives with the serving co-sim slice")
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.num_banks = num_banks
@@ -57,6 +55,9 @@ class BankedKVPool:
         self.by_request: Dict[int, List[int]] = {}
         self.stats = PoolStats()
         self._rr = 0
+        # optional KVAccessRecorder (serving co-sim): alloc/free events feed
+        # the fabric traffic model's block-churn stream
+        self.recorder = recorder
 
     # banks are contiguous slabs, like the paper's SRAM arrays: a first-free
     # allocator therefore camps in slab 0, which the fractal policy whitens
@@ -101,6 +102,8 @@ class BankedKVPool:
         self._rr = (self._rr + 1) % self.num_banks
         self.by_request.setdefault(request_id, []).extend(got)
         self.stats.allocs += n_blocks
+        if self.recorder is not None:
+            self.recorder.on_alloc(request_id, got)
         return got
 
     def free(self, request_id: int) -> int:
@@ -110,6 +113,8 @@ class BankedKVPool:
                 raise RuntimeError(f"block {b} of request {request_id} is owned by {self.owner[b]}")
             self.owner[b] = -1
         self.stats.frees += len(blocks)
+        if self.recorder is not None and blocks:
+            self.recorder.on_free(request_id, blocks)
         return len(blocks)
 
     def check_isolation(self) -> bool:

@@ -1,6 +1,6 @@
 """The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
-imports JAX or the reference package, and the port (simulator and serving)
-runs with both blocked."""
+imports JAX or the reference package, and the port (simulator, serving, the
+co-sim's recording and the fuzzer's sampling) runs with both blocked."""
 
 import ast
 import os
@@ -61,7 +61,11 @@ from repro_torch.kernels.banked_copy import ops as _bc  # noqa: F401
 from repro_torch.kernels.flash_attention import ops as _fa  # noqa: F401
 from repro_torch.kernels.paged_attention import ops as _pa  # noqa: F401
 from repro_torch.launch import serve
+from repro_torch.scenarios import record_serving_run, sample_case, serving_scenario, FuzzConfig
 assert len(golden_cases()) == 3
+rec = record_serving_run(num_requests=3, max_batch=2)
+assert serving_scenario(rec).compile().qos[0] == "realtime"
+assert sample_case(FuzzConfig(), 0).scenario.masters
 serve.main(["--smoke", "--device", "cpu", "--requests", "3"])
 out = simulate(random_uniform(2, 4, burst=4, seed=1), SimParams(max_cycles=400), device="cpu")
 assert bool(out["all_done"]) and out["throughput"].shape == (4,)
