@@ -16,8 +16,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 flash attention, paged attention and banked_copy at the JAX
                 tests' shapes, at the edges (S = 1, ragged T, GQA 8:1, head
                 dims 16..128, lengths 0, 1, at a split and past the table)
-                and at the serving path's shapes; flash and paged twice at
-                the path's shapes, bit for bit
+                and at both serving paths' shapes (stablelm-1.6b: 32 heads
+                of 64; olmoe-1b-7b: 16 heads of 128, a 65536-wide pool row);
+                flash and paged twice at those shapes, bit for bit
   3. golden     the three golden single-slice cases on the card, bit for bit
                 against ``tests/data/golden_single_slice.json``
   4. fig4/table1  the paper's Fig. 4 sweep (X = 1..16) and Table I
@@ -35,7 +36,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 the main path's shape (B = 1) and a sweep's (B = 64), each
                 beside the empty kernel of its launch shape (its floor) and
                 at every cluster size
-  7. serving    the second main path: stablelm-1.6b at full width (random
+  7. moe_whitening  the paper's MoE-whitening check: the reference
+                benchmark's inputs through the port's ``route`` with the
+                fractal slot permutation on and off, its two asserts, its
+                numbers and every expert choice and slot against
+                ``moe_reference.json``
+  8. serving    the second main path: stablelm-1.6b at full width (random
                 weights from a seed) through ``repro_torch.launch.serve``,
                 16 requests of 128..1024 prompt tokens, 32 new tokens each,
                 8 slots; pool isolation after every step; kernel launches
@@ -44,11 +50,19 @@ Phases, one JSON line each; any failure exits non-zero:
                 logits held to the kernel run's, in bf16 and in float32 (the
                 weights keep the reference's init with ``wq``/``wk`` scaled
                 by 1/8: see ``_tempered``)
-  8. serving_profile  device kernels, busy time and idle share per decode step
-  9. llm_timing the three serving kernels' timing rows at the path's shapes
+  9. serving_profile  device kernels, busy time and idle share per decode step
+  10. llm_timing the three serving kernels' timing rows at the path's shapes
                 (and flash at the short prompts, S = 128 and 517); flash
                 against SDPA at S = 1024 in alternating rounds of queued calls
-  10. sweep     the scale path's main path, through the public entry points
+  11. serving_moe  the MoE serving path: olmoe-1b-7b at full width (64
+                experts, top-8, QK-norm) with the same request mix and
+                checks as 8 (no tempering: QK-norm keeps the scores of unit
+                scale), and the share of routing decisions that agree
+                between the kernel run and each teacher-forced run; then its
+                profile (as 9, and one decode step's expert products against
+                their weight-read bound) and its kernels' timing rows (as 10,
+                flash at S = 1024)
+  12. sweep     the scale path's main path, through the public entry points
                  with B lanes per arbiter launch: the golden ``"batch"`` entry
                  through ``simulate_batch`` and the three golden cases through
                  ``SCHEDULE_PIPELINE``, bit for bit; the full-width sweep
@@ -65,24 +79,24 @@ Phases, one JSON line each; any failure exits non-zero:
                  steady window of each run's shape (as in 5) gives the
                  arbiter's device time per launch at its B, device busy time
                  and idle share
-  11. cosim     the serving co-sim grid (batch {2, 4} x slices {1, 2}, 24
+  13. cosim     the serving co-sim grid (batch {2, 4} x slices {1, 2}, 24
                  recorded requests each): decode alone, QoS on and QoS off as
                  three lanes of one dense batch, every group's summaries and
                  per-gather stats bit for bit against ``cosim_reference.json``,
                  the reference benchmark's isolation and scaling asserts
-  12. cosim_scale  the co-sim's scale mode: 1024 recorded requests on the
+  14. cosim_scale  the co-sim's scale mode: 1024 recorded requests on the
                  schedule pipeline with streaming percentiles and the time
                  skip, against the capture; at 128 requests the fixed horizon
                  against the time skip (equal but for ``skipped_cycles``)
-  13. fuzz      the scenario fuzzer: the 48-spec clean-tree job case by case
+  15. fuzz      the scenario fuzzer: the 48-spec clean-tree job case by case
                  (spec, verdict, summaries) against the capture, the committed
                  corpus replayed to its verdicts, a planted violation found and
-                 shrunk to the reference's reproducer.  In 11-13 the arbiter's
+                 shrunk to the reference's reproducer.  In 13-15 the arbiter's
                  launches equal the cycle bodies stepped in every run; each
                  phase reports host seconds, cycles and lane-cycles per second,
                  graph-capture and set-up seconds, and (fuzz) specs per second
-The serving phase (7) also records the full-width run's KV access stream and
-holds it to a traffic-only engine's on the same prompts: the stream the
+The serving phases (8, 11) also record each full-width run's KV access stream and
+hold it to a traffic-only engine's on the same prompts: the stream the
 co-sim replays.  Then the kernels line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1387,7 +1401,8 @@ def phase_llm_kernels() -> dict:
 
     # flash: (case, B, S, T, H, G, D, causal, window, dtype); the JAX tests'
     # [BH, S, D] x [BG, T, D] cases in the port's [B, S, H, D] layout, then
-    # the serving path's prefill shapes (stablelm-1.6b: H = G = 32, D = 64)
+    # the serving paths' prefill shapes (stablelm-1.6b: H = G = 32, D = 64;
+    # olmoe-1b-7b: H = G = 16, D = 128)
     flash_cases = [
         ("jax_4_2_256_causal", 1, 256, 256, 4, 2, 64, True, 0),
         ("jax_2_2_512_d128", 1, 512, 512, 2, 2, 128, True, 0),
@@ -1398,6 +1413,9 @@ def phase_llm_kernels() -> dict:
         ("path_S128", 1, 128, 128, 32, 32, 64, True, 0),
         ("path_S517", 1, 517, 517, 32, 32, 64, True, 0),
         ("path_S1024", 1, 1024, 1024, 32, 32, 64, True, 0),
+        ("olmoe_S128", 1, 128, 128, 16, 16, 128, True, 0),
+        ("olmoe_S517", 1, 517, 517, 16, 16, 128, True, 0),
+        ("olmoe_S1024", 1, 1024, 1024, 16, 16, 128, True, 0),
         ("S1", 1, 1, 1, 4, 4, 64, True, 0),
         ("S15", 1, 15, 15, 4, 4, 64, True, 0),
         ("S2048_gqa4", 1, 2048, 2048, 4, 1, 64, True, 0),
@@ -1416,23 +1434,26 @@ def phase_llm_kernels() -> dict:
             want = flash_attention_ref(q, k, v, causal=causal, window=window)
             record("flash_attention", f"{name}_{str(dtype)[6:]}", _max_err(got, want), tol)
 
-    # paged: the JAX tests' shapes, then the decode path's: 8 slots over
-    # strided layer views of an all-layer pool, one slot idle (length 0)
+    # paged: the JAX tests' shapes, then the decode paths': 8 slots over
+    # strided layer views of an all-layer pool (24 layers for stablelm-1.6b,
+    # 16 for olmoe-1b-7b), one slot idle (length 0)
     paged_cases = [
-        ("jax_2_8_2_64", 2, 8, 2, 64, 16, 16, 4, False),
-        ("jax_3_4_1_128", 3, 4, 1, 128, 32, 8, 6, False),
-        ("jax_2_16_4_64", 2, 16, 4, 64, 64, 32, 3, False),
-        ("heads8_3_16_2_64", 3, 16, 2, 64, 64, 16, 8, False),
-        ("d16_4_16_2_16", 4, 16, 2, 16, 64, 16, 8, False),
-        ("path_8x32x64_pool_view", 8, 32, 32, 64, 2048, 16, 128, True),
+        ("jax_2_8_2_64", 2, 8, 2, 64, 16, 16, 4, 0),
+        ("jax_3_4_1_128", 3, 4, 1, 128, 32, 8, 6, 0),
+        ("jax_2_16_4_64", 2, 16, 4, 64, 64, 32, 3, 0),
+        ("heads8_3_16_2_64", 3, 16, 2, 64, 64, 16, 8, 0),
+        ("d16_4_16_2_16", 4, 16, 2, 16, 64, 16, 8, 0),
+        ("path_8x32x64_pool_view", 8, 32, 32, 64, 2048, 16, 128, 24),
+        ("olmoe_8x16x128_pool_view", 8, 16, 16, 128, 2048, 16, 128, 16),
     ]
-    for name, B, H, G, D, NB, bs, mb, path in paged_cases:
+    for name, B, H, G, D, NB, bs, mb, path_layers in paged_cases:
+        path = path_layers > 0
         for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
             if path and dtype == f32:
                 continue
             q = _cuda_randn(gen, (B, H, D), dtype)
             if path:
-                pool = _cuda_randn(gen, (NB, bs, 24, 2, G, D), dtype)
+                pool = _cuda_randn(gen, (NB, bs, path_layers, 2, G, D), dtype)
                 kp, vp = pool[:, :, 5, 0], pool[:, :, 5, 1]
                 lens = torch.randint(128, 1057, (B,), generator=gen, device="cuda")
                 lens[3] = 0
@@ -1471,13 +1492,14 @@ def phase_llm_kernels() -> dict:
             check(bool((got[B - 1] == 0).all()), f"paged edge lengths bs={bs}: empty request not 0")
 
     # banked_copy: the JAX tests' shapes and dtypes, two unaligned tiles, and
-    # the admission path's burst of 64 blocks into the 2048-block pool
+    # the admission paths' bursts of 64 blocks into the 2048-block pool
     copy_cases = [
         ("jax_2_4_32_16_128", 2, 4, 32, 16, 128, (f32, bf16, torch.int32)),
         ("jax_3_2_16_8_256", 3, 2, 16, 8, 256, (f32, bf16, torch.int32)),
         ("jax_1_8_64_32_64", 1, 8, 64, 32, 64, (f32, bf16, torch.int32)),
         ("unaligned_3x5", 2, 3, 16, 3, 5, (f32, bf16)),
         ("path_64_blocks", 1, 64, 2048, 16, 24 * 2 * 32 * 64, (bf16,)),
+        ("olmoe_64_blocks", 1, 64, 2048, 16, 16 * 2 * 16 * 128, (bf16,)),
     ]
     for name, B, nblk, NB, bs, W, dtypes in copy_cases:
         for dtype in dtypes:
@@ -1495,23 +1517,110 @@ def phase_llm_kernels() -> dict:
             record("banked_copy", f"{name}_{str(dtype)[6:]}", float(not torch.equal(got, want)), 0)
             del pool, new, got, want
 
-    # the redesigned kernels repeat to the bit at the path's shapes
+    # the redesigned kernels repeat to the bit at the paths' shapes
+    # (stablelm-1.6b: 32 heads of 64; olmoe-1b-7b: 16 heads of 128)
     repeat = {}
-    q, k, v = (_cuda_randn(gen, (1, 1024, 32, 64), bf16) for _ in range(3))
-    repeat["flash_attention"] = torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
-    pool = _cuda_randn(gen, (2048, 16, 2, 2, 32, 64), bf16)
-    kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
-    lens = [585, 1061, 0, 700, 1024, 128, 845, 990]
-    tbl = _unique_tables(gen, 8, 128, 2048, [-(-n // 16) for n in lens])
-    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    q = _cuda_randn(gen, (8, 32, 64), bf16)
-    repeat["paged_attention"] = torch.equal(
-        paged_attention(q, kp, vp, tbl, ln), paged_attention(q, kp, vp, tbl, ln)
-    )
-    del pool, kp, vp
+    for label, H, D in (("", 32, 64), ("_olmoe", 16, 128)):
+        q, k, v = (_cuda_randn(gen, (1, 1024, H, D), bf16) for _ in range(3))
+        repeat["flash_attention" + label] = torch.equal(
+            flash_attention(q, k, v), flash_attention(q, k, v)
+        )
+        pool = _cuda_randn(gen, (2048, 16, 2, 2, H, D), bf16)
+        kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
+        lens = [585, 1061, 0, 700, 1024, 128, 845, 990]
+        tbl = _unique_tables(gen, 8, 128, 2048, [-(-n // 16) for n in lens])
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = _cuda_randn(gen, (8, H, D), bf16)
+        repeat["paged_attention" + label] = torch.equal(
+            paged_attention(q, kp, vp, tbl, ln), paged_attention(q, kp, vp, tbl, ln)
+        )
+        del pool, kp, vp
     check(all(repeat.values()), f"a kernel's second call differs from its first: {repeat}")
     emit("llm_kernels", cases=rows, max_abs_err=worst, repeats_bit_for_bit=repeat)
     return worst
+
+
+#: largest float64 logit gap between two experts that a float32 product of the
+#: ``moe_whitening`` inputs may reorder: 64 terms of magnitude up to ~10 and a
+#: sum up to ~37, each rounding off at most half a step of 3.8e-6
+MOE_NEAR_TIE = 64 * 3.8e-6
+
+
+def phase_moe_whitening() -> dict:
+    """The paper's MoE-whitening check on the card: the reference benchmark's
+    inputs (``benchmarks/paper_figures.py::moe_whitening``) through the
+    port's ``route`` in float32, with the fractal slot permutation on and
+    off.  The benchmark's two asserts must hold, its two numbers must equal
+    ``moe_reference.json``, and every (b, s, k) expert choice and slot is
+    held to the capture's: each that differs is counted and printed, and
+    passes only where the two experts' float64 logits lie within
+    ``MOE_NEAR_TIE`` (a near-tie that float32 rounding may order either way)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import (
+        MOE_WHITENING_CAPACITY_FACTOR,
+        moe_reference,
+        moe_whitening_inputs,
+        moe_whitening_record,
+        unpack_decisions,
+    )
+    from repro_torch.models.moe import expert_capacity, route
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "float32 matmuls must not round to TF32")
+    cfg = dataclasses.replace(
+        get_config("olmoe-1b-7b"), moe_capacity_factor=MOE_WHITENING_CAPACITY_FACTOR
+    )
+    x, router = moe_whitening_inputs()
+    logits64 = x.astype(np.float64) @ router.astype(np.float64)
+    capture = moe_reference()
+    C = expert_capacity(cfg, x.shape[1])
+    check(C == capture["capacity"], f"capacity {C}, the capture's {capture['capacity']}")
+    xt, rt = torch.from_numpy(x).cuda(), torch.from_numpy(router).cuda()
+    out = {}
+    for name, whiten in (("fractal", True), ("tail_drop", False)):
+        t0 = time.perf_counter()
+        _, top_e, slot, _ = route(cfg, xt, rt, whiten=whiten)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        top_e, slot = top_e.cpu().numpy(), slot.cpu().numpy()
+        rec = moe_whitening_record(top_e, slot, C)
+        want = capture[name]
+        want_e = unpack_decisions(want["top_e"])
+        differ = np.argwhere(top_e != want_e)
+        gaps = [
+            abs(logits64[b, t, top_e[b, t, k]] - logits64[b, t, want_e[b, t, k]])
+            for b, t, k in differ
+        ]
+        out[name] = {
+            "drop_rate": rec["drop_rate"],
+            "fraction_of_drops_in_last_quarter": rec["fraction_of_drops_in_last_quarter"],
+            "decisions": int(top_e.size),
+            "decisions_differing": int(len(differ)),
+            "slots_differing": int((slot != unpack_decisions(want["slot"])).sum()),
+            "largest_logit_gap_of_a_differing_decision": max(gaps, default=None),
+            "seconds": seconds,
+        }
+    emit("moe_whitening", capacity=C, source=capture["source"], **out)
+    frac = {k: v["fraction_of_drops_in_last_quarter"] for k, v in out.items()}
+    check(frac["fractal"] < 0.35, f"whitened drops not spread over the sequence: {frac}")
+    check(frac["tail_drop"] > 0.4, f"tail-drop does not drop the tail: {frac}")
+    for name, got in out.items():
+        for key in ("drop_rate", "fraction_of_drops_in_last_quarter"):
+            check(
+                got[key] == capture[name][key],
+                f"moe_whitening {name} {key}: {got[key]}, the capture's {capture[name][key]}",
+            )
+        gap = got["largest_logit_gap_of_a_differing_decision"]
+        check(
+            gap is None or gap <= MOE_NEAR_TIE,
+            f"moe_whitening {name}: an expert choice differs from the capture's beyond a "
+            f"near-tie (float64 logit gap {gap})",
+        )
+    return out
 
 
 def _serving_engine_cls():
@@ -1575,9 +1684,87 @@ def _logits_gap(a: dict, b: dict) -> dict:
     }
 
 
+#: teacher-forcing bounds per architecture, bf16 and float32 kernel runs
+#: against the plain attention path: (largest |Δlogit| over tokens, least
+#: share of tokens whose argmax agrees); their reasons are in PERF.md.
+#: olmoe-1b-7b's are set from its first full-width run on an H100 (bf16
+#: 0.0352 and 97.7 %, float32 6.6e-6 and 100 %): about 3x and 15x the
+#: measured gaps
+FORCING_BOUNDS = {
+    "stablelm-1.6b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
+    "olmoe-1b-7b": {"bf16": (0.1, 0.9), "f32": (1e-4, 0.99)},
+}
+#: least share of routing decisions (layer, token, k) on which the MoE
+#: path's teacher-forced plain run agrees with its kernel run (measured in
+#: that run: bf16 95.7 %, float32 99.9995 %; bf16 attention's rounding
+#: moves bf16 router logits, which tie often, across a top-8 edge)
+ROUTE_AGREEMENT = {"bf16": 0.9, "f32": 0.999}
+
+
+@contextlib.contextmanager
+def _routes_logged():
+    """While active, the expert choices ``top_e`` of every ``moe.route``
+    call, in call order (one call per MoE layer per prefill or decode step)."""
+    from repro_torch.models import moe
+
+    log = []
+
+    def wrap(inner):
+        def run(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            log.append(out[1].clone())
+            return out
+
+        return run
+
+    with _patched(moe, "route", wrap):
+        yield log
+
+
+def _route_agreement(kernel: list, plain: list) -> dict:
+    """How many routing decisions (layer, token, k) of the teacher-forced
+    plain run equal the kernel run's on the same calls (the plain run's
+    calls are the first of the kernel run's); and the share of tokens that
+    picked the same experts in any order (a swap of two near-equal weights
+    moves an expert between positions k without changing the output)."""
+    check(len(kernel) >= len(plain) > 0, f"route calls: {len(kernel)} vs {len(plain)}")
+    same = total = same_sets = tokens = 0
+    first = None
+    for n, (a, b) in enumerate(zip(kernel, plain)):
+        check(a.shape == b.shape, f"route call {n}: {tuple(a.shape)} vs {tuple(b.shape)}")
+        eq = int((a == b).sum())
+        same, total = same + eq, total + b.numel()
+        if first is None and eq < b.numel():
+            first = n
+        sets = (a.sort(-1).values == b.sort(-1).values).all(-1)
+        same_sets, tokens = same_sets + int(sets.sum()), tokens + sets.numel()
+    return {
+        "calls": len(plain),
+        "decisions": total,
+        "decisions_differing": total - same,
+        "agreement": same / total,
+        "tokens_with_the_same_experts": same_sets / tokens,
+        "first_differing_call": first,
+    }
+
+
 def phase_serving() -> dict:
-    """The serving main path at full width; returns what the later phases
-    need (model, prompts, launch counts, host time per decode step)."""
+    """The serving main path, stablelm-1.6b at full width (``wq``/``wk``
+    tempered, see ``_tempered``)."""
+    return _serving_path("stablelm-1.6b", "serving", temper=True)
+
+
+def phase_serving_moe() -> dict:
+    """The MoE serving path: olmoe-1b-7b at full width, untempered (its
+    QK-norm keeps the attention scores of unit scale), with the routing
+    decisions of the kernel and teacher-forced runs compared."""
+    return _serving_path("olmoe-1b-7b", "serving_moe", temper=False)
+
+
+def _serving_path(arch: str, phase: str, *, temper: bool) -> dict:
+    """One serving path at full width through ``repro_torch.launch.serve``;
+    returns what the later phases need (model, prompts, launch counts, host
+    time per decode step)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1586,9 +1773,12 @@ def phase_serving() -> dict:
     from repro_torch.models import model as M
     from repro_torch.serving.record import KVAccessRecorder
 
-    cfg, spec = get_config("stablelm-1.6b"), serve.FULL
+    cfg, spec = get_config(arch), serve.FULL
+    moe = cfg.is_moe_layer(0)
     t0 = time.perf_counter()
-    model = _tempered(M.init_params(cfg, 0))
+    model = M.init_params(cfg, 0)
+    if temper:
+        model = _tempered(model)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = serve.make_prompts(cfg, spec, seed=0)
@@ -1615,16 +1805,19 @@ def phase_serving() -> dict:
     eng.record = frozenset(r.rid for r in first_wave)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.perf_counter()
-    while eng.queue or any(r is not None for r in eng.slot_req):
-        eng.step()
-        check(eng.pool.check_isolation(), f"pool isolation broken at step {eng.steps}")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _routes_logged() as kernel_routes:
+        t0 = time.perf_counter()
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            eng.step()
+            check(eng.pool.check_isolation(), f"pool isolation broken at step {eng.steps}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {k: LAUNCHES[k] for k in want}
     summary = serve.summarize(eng, reqs, wall)
-    check(launches == want, f"serving launches {launches}, predicted {want}")
+    check(launches == want, f"{arch} serving launches {launches}, predicted {want}")
     check(eng.steps == plan.steps, f"{eng.steps} engine steps, traffic-only run took {plan.steps}")
+    routes_want = L * (plan.stats.admissions + plan.stats.decode_steps) if moe else 0
+    check(len(kernel_routes) == routes_want, f"{len(kernel_routes)} route calls, {routes_want} due")
     record = recorder.record
     check(
         record.events_key() == plan_rec.record.events_key(),
@@ -1647,34 +1840,49 @@ def phase_serving() -> dict:
         reset_launches()
         tf, _ = serve.new_engine(cfg, m, spec, prompts[: spec.max_batch], engine_cls=engine_cls)
         tf.record, tf.forced = frozenset(forced), forced
-        tf.run()
+        with _routes_logged() as routes:
+            tf.run()
         m.impl = "kernel"
         ran = sum(LAUNCHES.values())
         check((ran > 0) == (impl == "kernel"), f"{impl} path launched {ran} kernels")
         check(set(tf.logits) == set(kernel_logits), "teacher-forced run saw other tokens")
-        return tf.logits
+        return tf.logits, routes
 
-    plain_logits = forced_run(model, "ref")
-    model32 = _tempered(
-        M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
-    )
-    kernel32, plain32 = forced_run(model32, "kernel"), forced_run(model32, "ref")
+    plain_logits, plain_routes = forced_run(model, "ref")
+    model32 = M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
+    if temper:
+        model32 = _tempered(model32)
+    kernel32, kernel32_routes = forced_run(model32, "kernel")
+    plain32, plain32_routes = forced_run(model32, "ref")
     del model32
     forcing = {
         "bf16_kernel_vs_plain": _logits_gap(kernel_logits, plain_logits),
         "f32_kernel_vs_plain": _logits_gap(kernel32, plain32),
         "bf16_kernel_vs_f32_plain": _logits_gap(kernel_logits, plain32),
     }
-    emit("teacher_forcing", tokens=len(kernel_logits), **forcing)
+    if moe:
+        forcing["routes"] = {
+            "bf16_kernel_vs_plain": _route_agreement(kernel_routes, plain_routes),
+            "f32_kernel_vs_plain": _route_agreement(kernel32_routes, plain32_routes),
+            "bf16_kernel_vs_f32_plain": _route_agreement(kernel_routes, plain32_routes),
+        }
+    del kernel_routes, plain_routes, kernel32_routes, plain32_routes
+    emit(phase.replace("serving", "teacher_forcing"), tokens=len(kernel_logits), **forcing)
     # tolerances and their reasons are stated in PERF.md (Findings) before their first run
-    for name, max_gap, agreement in (("bf16", 0.5, 0.9), ("f32", 1e-2, 0.99)):
+    for name, (max_gap, agreement) in FORCING_BOUNDS[arch].items():
         gap = forcing[f"{name}_kernel_vs_plain"]
         check(
             gap["max"] <= max_gap and gap["argmax_agreement"] >= agreement,
-            f"{name} teacher forcing: kernel and plain paths differ: {gap}",
+            f"{arch} {name} teacher forcing: kernel and plain paths differ: {gap}",
         )
+        if moe:
+            routes = forcing["routes"][f"{name}_kernel_vs_plain"]
+            check(
+                routes["agreement"] >= ROUTE_AGREEMENT[name],
+                f"{arch} {name} teacher forcing: routing decisions differ: {routes}",
+            )
     emit(
-        "serving",
+        phase,
         arch=cfg.name,
         params=cfg.num_params(),
         init_s=init_s,
@@ -1697,12 +1905,15 @@ def phase_serving() -> dict:
         prompts=prompts,
         launches=launches,
         decode_ms_per_step=summary["decode_ms_per_step"],
+        phase=phase,
     )
 
 
 def phase_serving_profile(serving: dict) -> None:
     """Where a decode step's time goes: 8 decode-only steps of the first wave
-    under ``torch.profiler`` against the unprofiled host time per step."""
+    under ``torch.profiler`` against the unprofiled host time per step.  On
+    an MoE path, also the expert products of one decode step (every layer's
+    batched matmuls at the step's shapes) against their weight-read bound."""
     from repro_torch.launch import serve
 
     spec, steps = serving["spec"], 8
@@ -1719,8 +1930,10 @@ def phase_serving_profile(serving: dict) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     paged_us = sum(v for k, v in by_name.items() if "paged_split" in k or "paged_merge" in k)
     host_us = serving["decode_ms_per_step"] * 1e3
+    del eng
+    moe = _expert_products(serving, busy_us / steps) if serving["model"].cfg.moe_num_experts else {}
     emit(
-        "serving_profile",
+        serving["phase"] + "_profile",
         decode_steps=steps,
         device_kernels_per_step=len(kernels) / steps,
         device_busy_us_per_step=busy_us / steps,
@@ -1730,11 +1943,56 @@ def phase_serving_profile(serving: dict) -> None:
         paged_attention_share_of_device_time=paged_us / busy_us if busy_us else None,
         top_kernels_us_per_step={k[:80]: v / steps for k, v in top},
         profiled_wall_s=wall,
+        **moe,
     )
 
 
-def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=None):
-    """Device and call times of kernel / plain / library and the bound."""
+def _expert_products(serving: dict, busy_us_per_step: float) -> dict:
+    """Device time of one decode step's expert products: ``expert_products``
+    of every layer on that layer's weights at the step's shapes (8 groups of
+    one token, capacity 8 each: 64 rows per expert), timed by the profiler
+    over 5 steps' worth and between CUDA events; beside it the bound, every
+    expert's weights read once (bytes) or the products' operations."""
+    import torch
+
+    from repro_torch.models.moe import expert_capacity, expert_products
+
+    model, spec = serving["model"], serving["spec"]
+    cfg = model.cfg
+    E, d, f, L = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_layers
+    rows = spec.max_batch * expert_capacity(cfg, 1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    buf = _cuda_randn(gen, (E, rows, d), model.embed.dtype)
+    out = torch.empty_like(buf)
+    layers = [blk.moe for blk in model.layers]
+
+    def one_step():
+        for m in layers:
+            expert_products(buf, m.w_gate, m.w_up, m.w_down, out=out)
+
+    dev = device_ms(one_step, 5)
+    call = time_ms(one_step, 10, warmup=2)
+    esize = buf.element_size()
+    nbytes = L * (3 * E * d * f + 2 * E * rows * d) * esize
+    ops = L * 2 * 3 * E * rows * d * f
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    del buf, out
+    return {
+        "expert_products": {
+            "rows_per_expert": rows,
+            "device_us_per_step": None if dev is None else dev * 1e3,
+            "call_us_per_step": call * 1e3,
+            "weight_bytes_per_step": L * 3 * E * d * f * esize,
+            "bound_us": max(bytes_ms, ops_ms) * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_decode_busy": None if dev is None else dev * 1e3 / busy_us_per_step,
+        }
+    }
+
+
+def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=None, path=None):
+    """Device and call times of kernel / plain / library and the bound, on
+    the serving path of architecture ``path``."""
     call_ms = {k: time_ms(fn, iters) for k, fn in fns.items()}
     dev_ms = {k: device_ms(fn, max(5, iters // 5)) for k, fn in fns.items()}
     ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
@@ -1743,6 +2001,7 @@ def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=Non
     emit(
         "timing",
         kernel=name,
+        path=path,
         shape=shape,
         device_us={k: None if v is None else v * 1e3 for k, v in dev_ms.items()},
         call_us={k: v * 1e3 for k, v in call_ms.items()},
@@ -1753,6 +2012,7 @@ def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=Non
     )
     return {
         "name": name,
+        "path": path,
         "route": "cuda",
         "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
         "replaces": {
@@ -1772,10 +2032,10 @@ def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=Non
     }
 
 
-def phase_llm_timing(serving: dict, errs: dict) -> list:
-    """Timing rows of the serving kernels at the path's shapes (bf16,
-    stablelm-1.6b): flash at the longest prompt (S = 1024; S = 128 and 517 on
-    timing lines of their own), paged attention
+def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) -> list:
+    """Timing rows of the serving kernels at a serving path's shapes (bf16;
+    stablelm-1.6b or olmoe-1b-7b): flash at the longest prompt (S = 1024;
+    shorter ``flash_lengths`` on timing lines of their own), paged attention
     over 8 slots at the first wave's mid-decode lengths, banked_copy of a
     64-block burst into the 2048-block pool."""
     import torch
@@ -1796,7 +2056,7 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
 
     # flash at the short prompts (timing lines only, where a 64-row tile
     # leaves the card underfilled) and at the longest (the kernels line)
-    for S in (128, 517, 1024):
+    for S in flash_lengths:
         q, k, v = (_cuda_randn(gen, (1, S, n, D), bf16) for n in (H, G, G))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
@@ -1816,6 +2076,7 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
             errs["flash_attention"],
             "F.scaled_dot_product_attention(is_causal=True)",
             shape=dict(B=1, S=S, H=H, G=G, D=D, causal=True),
+            path=cfg.name,
         )
         if S == 1024:
             # flash against SDPA: device time of queued calls, alternating rounds
@@ -1829,6 +2090,7 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
                 row["library_queued_median_ms"] = statistics.median(b for _, b in done)
             emit(
                 "flash_vs_sdpa",
+                path=cfg.name,
                 S=S,
                 rounds_us=[[None if x is None else x * 1e3 for x in p] for p in pairs],
                 flash_faster_rounds=sum(a < b for a, b in done),
@@ -1866,6 +2128,7 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
             errs["paged_attention"],
             "F.scaled_dot_product_attention on K/V gathered beforehand",
             shape=dict(B=B, H=H, G=G, D=D, block_size=bs, lengths=lens),
+            path=cfg.name,
         )
     )
     del pool, kp, vp, kg, vg, lib
@@ -1890,6 +2153,7 @@ def phase_llm_timing(serving: dict, errs: dict) -> list:
             errs["banked_copy"],
             "Tensor.index_copy_",
             shape=dict(blocks=nblk, block_size=bs, W=W, pool_blocks=NB),
+            path=cfg.name,
         )
     )
     del pool, burst
@@ -1914,10 +2178,17 @@ def main() -> int:
     phase_profile(main_path)
     kernel = phase_timing(main_path["launches"], max_abs_err)
     llm_errs = phase_llm_kernels()
+    phase_moe_whitening()
     serving = phase_serving()
     phase_serving_profile(serving)
     rows = phase_llm_timing(serving, llm_errs)
     del serving
+    torch.cuda.empty_cache()
+    serving = phase_serving_moe()
+    phase_serving_profile(serving)
+    rows += phase_llm_timing(serving, llm_errs, flash_lengths=(1024,))
+    del serving
+    torch.cuda.empty_cache()
     # the scale path last: its profiled windows hold ~10^5 kernel records each
     sweep = phase_sweep()
     cosim = {**phase_cosim(), **phase_cosim_scale(), **phase_fuzz()}

@@ -95,47 +95,60 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab_size)
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if not self.moe_num_experts:
+            return False
+        if self.moe_layer_period > 1:
+            return layer_idx % self.moe_layer_period == self.moe_layer_period - 1
+        return True
+
     def num_params(self) -> int:
-        """The reference's analytic parameter count, for the dense uniform
-        stacks the port runs (it counts one scale vector per norm)."""
+        """The reference's analytic parameter count, for the uniform stacks
+        the port runs (it counts one scale vector per norm, and no QK-norm
+        scales)."""
         check_supported(self)
         d, V, hd = self.d_model, self.padded_vocab, self.resolved_head_dim
         attn = d * self.num_heads * hd * 2 + 2 * d * self.num_kv_heads * hd
-        ffn = (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
+        if self.is_moe_layer(0):
+            f = self.moe_d_ff or self.d_ff
+            ffn = self.moe_num_experts * 3 * d * f + d * self.moe_num_experts
+            ffn += 3 * d * self.moe_num_shared * f
+        else:
+            ffn = (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
         return 2 * V * d + self.num_layers * (attn + ffn + 2 * d)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet: it
-    carries the dense uniform GQA stack (ROADMAP Queue 1 item 13 lists the
-    rest and the slice that brings it)."""
+    carries uniform GQA stacks, dense or with an MoE FFN on every layer, with
+    or without QK-norm (ROADMAP Queue 1 item 13 lists the rest and the slice
+    that brings it)."""
     later = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         later.append(f"family {cfg.family!r}")
     if cfg.use_mla:
         later.append("MLA")
-    if cfg.moe_num_experts:
-        later.append("MoE")
+    if cfg.moe_num_experts and cfg.moe_layer_period != 1:
+        later.append("MoE on every k-th layer")
     if cfg.ssm_state_dim or cfg.attn_layer_period:
         later.append("SSM / hybrid stacks")
     if cfg.is_encoder_decoder:
         later.append("encoder-decoder")
     if cfg.sliding_window > 0:
         later.append("sliding-window attention")
-    if cfg.use_qk_norm:
-        later.append("QK-norm")
     if cfg.tie_embeddings:
         later.append("tied embeddings")
     if later:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} not ported yet; the port runs dense GQA "
-            "stacks, and the later slices of ROADMAP Queue 1 item 13 bring the rest"
+            f"{cfg.name}: {', '.join(later)} not ported yet; the port runs uniform GQA "
+            "stacks (dense or MoE), and the later slices of ROADMAP Queue 1 item 13 bring "
+            "the rest"
         )
 
 
 def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU tests (tiny widths, real structure),
-    as the reference's ``smoke`` makes it for a dense stack."""
+    as the reference's ``smoke`` makes it for a uniform stack."""
     check_supported(cfg)
     changes = dict(
         name=cfg.name + "-smoke",
@@ -148,5 +161,7 @@ def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         changes["num_heads"] = 4
         changes["num_kv_heads"] = max(1, int(round(4 * cfg.num_kv_heads / cfg.num_heads)))
         changes["head_dim"] = 16
+    if cfg.moe_num_experts:
+        changes.update(moe_num_experts=4, moe_top_k=min(2, cfg.moe_top_k), moe_d_ff=64)
     changes.update(overrides)
     return dataclasses.replace(cfg, **changes)

@@ -250,3 +250,16 @@ def sub_bank_id(beat_addr, geom: MemoryGeometry = MemoryGeometry()):
     a = np.asarray(beat_addr).astype(np.int64)
     region = a // (geom.beats_total // geom.sub_banks)
     return np.clip(region, 0, geom.sub_banks - 1).astype(np.int32)
+
+
+def fractal_permute(n: int, seed: int = 0) -> np.ndarray:
+    """Deterministic whitening permutation of range(n).
+
+    Used where the framework assigns *slots* in a shared pool (MoE capacity
+    slots, KV blocks): consumers iterating linearly get spread the same way the
+    paper spreads burst beats.  Bijection built from the same hash family.
+    """
+    idx = np.arange(n, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        keys = _hash32(idx + np.uint32(seed) * _MULT2)
+    return np.argsort(keys, kind="stable").astype(np.int32)

@@ -23,10 +23,18 @@ the co-sim grid (``COSIM_GRID``), the co-sim's scale mode (``COSIM_SCALE``;
 its fixed-horizon leg at ``COSIM_SCALE_FIXED_REQUESTS``), the clean-tree fuzz
 job (``FUZZ_JOB``) case by case, and the planted find with its shrunk spec
 (``FUZZ_PLANTED``).  ``tests/data/capture_torch_cosim.py`` makes it.
+
+``moe_reference.json`` holds the reference's MoE routing on the inputs of its
+``moe_whitening`` benchmark (:func:`moe_whitening_inputs`), with the fractal
+slot permutation on and off: drop rate, the share of drops in the last
+quarter of the sequence, and every (b, s, k) expert choice and slot
+(:func:`moe_whitening_record`).  ``tests/data/capture_torch_moe.py`` makes it.
 """
 
 from __future__ import annotations
 
+import base64
+import hashlib
 import itertools
 import json
 from dataclasses import replace
@@ -40,6 +48,7 @@ from repro_torch.core.traffic import random_uniform, stack_traces
 GOLDEN_INPUTS = Path(__file__).resolve().parent / "golden_inputs.npz"
 SWEEP_REFERENCE = Path(__file__).resolve().parent / "sweep_reference.json"
 COSIM_REFERENCE = Path(__file__).resolve().parent / "cosim_reference.json"
+MOE_REFERENCE = Path(__file__).resolve().parent / "moe_reference.json"
 TRACE_COLUMNS = ("is_write", "burst", "addr", "start", "prio")
 
 #: metric keys the golden file pins
@@ -287,3 +296,56 @@ def case_record(result, spec: dict) -> dict:
 def cosim_reference() -> dict:
     """``cosim_reference.json`` (see the module docstring)."""
     return json.loads(COSIM_REFERENCE.read_text())
+
+
+# ---------------------------------------------------------------------------
+# MoE whitening: the reference benchmark's inputs and what it reads from them
+# ---------------------------------------------------------------------------
+
+#: the benchmark's capacity factor: half of what top-8 over 64 experts needs, so it drops
+MOE_WHITENING_CAPACITY_FACTOR = 0.5
+
+
+def moe_whitening_inputs():
+    """``(x [4, 512, 64], router [64, 64])`` float32, drawn as the reference's
+    ``benchmarks/paper_figures.py::moe_whitening`` draws them (olmoe-1b-7b's
+    64 experts over a 64-wide input)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4, 512, 64)).astype(np.float32)
+    router = rng.normal(size=(64, 64)).astype(np.float32)
+    return x, router
+
+
+def _pack(a: np.ndarray) -> dict:
+    raw = np.ascontiguousarray(a, np.uint8).tobytes()
+    return {
+        "shape": list(a.shape),
+        "sha256": hashlib.sha256(raw).hexdigest(),
+        "uint8_base64": base64.b64encode(raw).decode(),
+    }
+
+
+def unpack_decisions(d: dict) -> np.ndarray:
+    """The int array a :func:`moe_whitening_record` field packs."""
+    raw = base64.b64decode(d["uint8_base64"])
+    return np.frombuffer(raw, np.uint8).reshape(d["shape"]).astype(np.int64)
+
+
+def moe_whitening_record(top_e, slot, capacity: int) -> dict:
+    """The benchmark's two numbers for one routing (``slot >= capacity`` is a
+    drop) and its decisions, packed as uint8 (experts < 64, slots <= C)."""
+    top_e, slot = np.asarray(top_e), np.asarray(slot)
+    dropped = slot >= capacity
+    quarter = 3 * slot.shape[1] // 4
+    return {
+        "drop_rate": float(dropped.mean()),
+        "fraction_of_drops_in_last_quarter": float(
+            dropped[:, quarter:, :].sum() / max(dropped.sum(), 1)
+        ),
+        "top_e": _pack(top_e),
+        "slot": _pack(slot),
+    }
+
+
+def moe_reference() -> dict:
+    return json.loads(MOE_REFERENCE.read_text())

@@ -92,7 +92,9 @@ def model_from_reference(
     ``tree`` is the reference's parameter tree with numpy leaves (its
     ``init_params`` output through ``np.asarray``): nested dicts, the layer
     stack's leaves stacked ``[L, ...]``, layouts as in the reference
-    (``wq [d, h, k]``, ``wo [h, k, d]``, ``embed [Vp, d]``, ``lm_head [d, Vp]``).
+    (``wq [d, h, k]``, ``wo [h, k, d]``, ``embed [Vp, d]``, ``lm_head [d, Vp]``;
+    an MoE layer's ``moe`` leaves ``router [d, E]``, ``w_gate``/``w_up
+    [E, d, f]``, ``w_down [E, f, d]``; QK-norm's ``q_norm``/``k_norm [k]``).
     Weight matrices are cast to ``compute_dtype`` once here; norm scales and
     biases stay float32.  ``device`` defaults to CUDA."""
     model = empty_model(

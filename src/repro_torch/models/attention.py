@@ -1,4 +1,4 @@
-"""Grouped-query attention (+ partial RoPE) over the banked KV pool.
+"""Grouped-query attention (+ partial RoPE, optional QK-norm) over the banked KV pool.
 
 The GQA part of the reference's ``models/attention.py``, with its layouts at
 the public functions (``wq [d, h, k]``, ``wo [h, k, d]``, K/V ``[.., T, G, D]``).
@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from repro_torch.models.layers import ParamSpec, apply_rope
+from repro_torch.models.layers import ParamSpec, apply_rope, rmsnorm
 
 NEG_INF = -1e9
 
@@ -43,12 +43,16 @@ ATTENTION = {
 def gqa_specs(cfg: ModelConfig) -> dict:
     d, h, g = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     k = cfg.resolved_head_dim
-    return {
+    spec = {
         "wq": ParamSpec((d, h, k), ("embed", "heads", "head_dim"), init="fan_in"),
         "wk": ParamSpec((d, g, k), ("embed", "kv_heads", "head_dim"), init="fan_in"),
         "wv": ParamSpec((d, g, k), ("embed", "kv_heads", "head_dim"), init="fan_in"),
         "wo": ParamSpec((h, k, d), ("heads", "head_dim", "embed"), init="fan_in"),
     }
+    if cfg.use_qk_norm:
+        spec["q_norm"] = ParamSpec((k,), (None,), init="ones")
+        spec["k_norm"] = ParamSpec((k,), (None,), init="ones")
+    return spec
 
 
 def mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool, window: int):
@@ -84,12 +88,16 @@ class PagedKV:
 
 
 class GQAAttention(torch.nn.Module):
+    """Projections in the compute dtype; the QK-norm scales (``use_qk_norm``)
+    stay float32, as the reference's norms read them."""
+
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
         for name, spec in gqa_specs(cfg).items():
+            dt = dtype if len(spec.shape) > 1 else torch.float32
             self.register_parameter(
-                name, torch.nn.Parameter(torch.empty(spec.shape, dtype=dtype), requires_grad=False)
+                name, torch.nn.Parameter(torch.empty(spec.shape, dtype=dt), requires_grad=False)
             )
 
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
@@ -98,6 +106,9 @@ class GQAAttention(torch.nn.Module):
         q = (x @ self.wq.reshape(d, -1)).view(B, S, cfg.num_heads, -1)
         k = (x @ self.wk.reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
         v = (x @ self.wv.reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
+        if cfg.use_qk_norm:  # per head over head_dim, before RoPE, as the reference
+            q = rmsnorm(q, self.q_norm, cfg.norm_eps)
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
         q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
         k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
         return q, k, v

@@ -1,5 +1,5 @@
-"""Dense decoder stack of the port: the reference's ``models/model.py`` for
-uniform dense GQA architectures.
+"""Decoder stack of the port: the reference's ``models/model.py`` for
+uniform GQA architectures, dense or with an MoE FFN on every layer.
 
 Public API (each mirrors the reference's function of the same name):
   param_specs(cfg)                         -> ParamSpec tree (layers stacked [L, ...])
@@ -11,9 +11,11 @@ The stack is a ``ModuleList`` of blocks run in a Python loop (the reference
 scans stacked params).  Weight matrices and the embedding are stored in the
 compute dtype, cast once at load where the reference casts per einsum; norm
 scales and biases stay float32, as the reference's norms read them.  The KV
-dtype is bfloat16 by default, the reference's cache dtype.  Families, MLA,
-MoE and sliding windows this slice does not carry raise ``NotImplementedError``
-(``configs.base.check_supported``).
+dtype is bfloat16 by default, the reference's cache dtype.  A layer holds
+``"moe"`` in place of ``"ffn"`` where ``cfg.is_moe_layer(0)``, as the
+reference's ``_ffn_layer_specs``; its ``aux`` loss is dropped (serving).
+Families, MLA, SSM and sliding windows this slice does not carry raise
+``NotImplementedError`` (``configs.base.check_supported``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.models.attention import ATTENTION, GQAAttention, PagedKV, gqa_specs
 from repro_torch.models.layers import Norm, ParamSpec, init_leaf, iter_specs, leaf_seed, norm_spec
 from repro_torch.models.mlp import MLP, mlp_specs
+from repro_torch.models.moe import MoE, moe_specs
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -36,8 +39,11 @@ def param_specs(cfg: ModelConfig) -> dict:
         "attn_norm": norm_spec(cfg, d),
         "attn": gqa_specs(cfg),
         "ffn_norm": norm_spec(cfg, d),
-        "ffn": mlp_specs(cfg, cfg.d_ff),
     }
+    if cfg.is_moe_layer(0):
+        layer["moe"] = moe_specs(cfg)
+    else:
+        layer["ffn"] = mlp_specs(cfg, cfg.d_ff)
     return {
         "embed": ParamSpec((Vp, d), ("vocab", "embed_table"), stddev=0.02),
         "final_norm": norm_spec(cfg, d),
@@ -58,11 +64,20 @@ class Block(torch.nn.Module):
         self.attn_norm = Norm(cfg, cfg.d_model)
         self.attn = GQAAttention(cfg, dtype)
         self.ffn_norm = Norm(cfg, cfg.d_model)
-        self.ffn = MLP(cfg, cfg.d_ff, dtype)
+        self.is_moe = cfg.is_moe_layer(0)
+        if self.is_moe:
+            self.moe = MoE(cfg, dtype)
+        else:
+            self.ffn = MLP(cfg, cfg.d_ff, dtype)
+
+    def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The FFN sub-layer's residual branch (dense MLP or MoE)."""
+        h = self.ffn_norm(x)
+        return self.moe(h) if self.is_moe else self.ffn(h)
 
 
 class Transformer(torch.nn.Module):
-    """The dense stack.  ``impl`` picks the attention functions: ``"kernel"``
+    """The decoder stack.  ``impl`` picks the attention functions: ``"kernel"``
     (the wrappers: the Hopper kernels on CUDA tensors, their plain versions
     on CPU tensors) or ``"ref"`` (the plain versions on any device)."""
 
@@ -201,7 +216,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, kv_out=None) -> torch.Tens
         x = x + blk.attn.prefill(
             blk.attn_norm(x), positions, kv, kv_dtype=model.kv_dtype, impl=model.impl
         )
-        x = x + blk.ffn(blk.ffn_norm(x))
+        x = x + blk.feed_forward(x)
     return model._logits(x[:, -1:])
 
 
@@ -215,7 +230,7 @@ def decode_step(
     x = model._embed(tokens)
     for layer, blk in enumerate(model.layers):
         x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl)
-        x = x + blk.ffn(blk.ffn_norm(x))
+        x = x + blk.feed_forward(x)
     return model._logits(x)
 
 

@@ -259,6 +259,7 @@ def _tables(gen, B, width, NB, used):
         (1, 100, 333, 8, 1, 32, False, 0),  # ragged T, GQA 8:1
         (1, 300, 300, 32, 4, 64, True, 64),
         (2, 200, 200, 16, 4, 128, True, 0),
+        (1, 1024, 1024, 16, 16, 128, True, 0),  # olmoe-1b-7b's longest prompt
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, window, dtype, tol):
@@ -286,6 +287,7 @@ def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, wi
         (8, 32, 32, 64, 512, 16, 32),
         (3, 16, 2, 64, 64, 16, 8),  # 8 query heads per group
         (4, 16, 2, 16, 64, 16, 8),  # head dim 16
+        (8, 16, 16, 128, 512, 16, 128),  # olmoe-1b-7b's decode: one head per group, D = 128
     ],
 )
 def test_paged_attention_kernel_matches_plain(card, B, H, G, D, NB, bs, mb, dtype, tol):
@@ -389,12 +391,18 @@ def test_short_serving_run_at_head_dim_16(card):
     _serve_reduced(head_dim=16)
 
 
-def _serve_reduced(head_dim):
+def test_short_moe_serving_run_at_head_dim_128(card):
+    """A reduced olmoe-1b-7b (MoE on every layer, QK-norm) at its own head
+    dim of 128, one KV head per query head, through the kernels."""
+    _serve_reduced(head_dim=128, arch="olmoe-1b-7b")
+
+
+def _serve_reduced(head_dim, arch="stablelm-1.6b"):
     from repro_torch.configs import get_config, smoke
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = smoke(get_config("stablelm-1.6b"), head_dim=head_dim)
+    cfg = smoke(get_config(arch), head_dim=head_dim)
     spec = serve.SMOKE
     prompts = serve.make_prompts(cfg, spec, seed=1)
     plan, _ = serve.new_engine(None, None, spec, prompts)

@@ -43,13 +43,13 @@ TOL = {"float32": 1e-4, "bfloat16": 0.5}
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
 
-def _pair(overrides, dtype):
+def _pair(arch, overrides, dtype):
     """(ref cfg, ref params, port cfg, port model) with shared weights."""
-    cfg = smoke(get_config(ARCH), **overrides)
+    cfg = smoke(get_config(arch), **overrides)
     tree = M.init_params(cfg, 0, device="cpu", compute_dtype=torch.float32).state_tree()
     td = DTYPES[dtype][0]
     model = model_from_reference(cfg, tree, device="cpu", compute_dtype=td, kv_dtype=td)
-    ref_cfg = ref_smoke(ref_get_config(ARCH), **overrides)
+    ref_cfg = ref_smoke(ref_get_config(arch), **overrides)
     return ref_cfg, jax.tree_util.tree_map(jnp.asarray, tree), cfg, model
 
 
@@ -60,7 +60,14 @@ def _np(x):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("overrides", [{}, {"num_kv_heads": 2}], ids=["mha", "gqa"])
 def test_prefill_and_decode_match_reference(overrides, dtype):
-    ref_cfg, ref_params, cfg, model = _pair(overrides, dtype)
+    prefill_and_decode_gap(ARCH, overrides, dtype)
+
+
+def prefill_and_decode_gap(arch: str, overrides: dict, dtype: str) -> float:
+    """Two prompts prefilled and decoded for 4 steps on both sides of
+    ``smoke(arch)``; each step's logits held to ``TOL[dtype]``.  Returns the
+    largest gap seen (``tests/test_torch_model_moe.py`` runs it on its arch)."""
+    ref_cfg, ref_params, cfg, model = _pair(arch, overrides, dtype)
     jdt = DTYPES[dtype][1]
     ref_prefill = jax.jit(functools.partial(RM.prefill, ref_cfg, compute_dtype=jdt))
     ref_decode = jax.jit(functools.partial(RM.decode_step, ref_cfg, compute_dtype=jdt))
@@ -68,6 +75,7 @@ def test_prefill_and_decode_match_reference(overrides, dtype):
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (11, 6)]
     T, bs, NB = 24, 4, 16
     L, G, D = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    worst = 0.0
 
     # reference: B=1 prefills into their own caches, spliced into a B=2 cache
     cache = RM.init_cache(ref_cfg, 2, T, dtype=jdt)
@@ -84,6 +92,7 @@ def test_prefill_and_decode_match_reference(overrides, dtype):
         kv_out = burst.view(1, nblk * bs, L, 2, G, D)[:, : len(p)]
         got = M.prefill(model, torch.from_numpy(p)[None], kv_out)
         np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=TOL[dtype], err_msg="prefill")
+        worst = max(worst, float(np.abs(_np(got) - _np(want)).max()))
         banked_copy(pool, burst, torch.from_numpy(tables[b : b + 1, :nblk]))
 
     pos = np.array([len(p) for p in prompts])
@@ -102,7 +111,9 @@ def test_prefill_and_decode_match_reference(overrides, dtype):
         np.testing.assert_allclose(
             _np(got), _np(want), rtol=0, atol=TOL[dtype], err_msg=f"decode step {step}"
         )
+        worst = max(worst, float(np.abs(_np(got) - _np(want)).max()))
         pos = pos + 1
+    return worst
 
 
 def test_converter_round_trip_and_casts():

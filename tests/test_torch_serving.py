@@ -1,7 +1,8 @@
 """The port's serving stack against the JAX package: ``BankedKVPool``
 allocation under seeded churn, and the serving engine on the CPU against the
 reference ``ServingEngine(cfg, params)`` on the same seeded requests and the
-same weights: slots, block tables, steps, done flags and token streams.
+same weights: slots, block tables, steps, done flags and token streams, on
+``smoke(stablelm-1.6b)`` and ``smoke(olmoe-1b-7b)`` (MoE with QK-norm).
 
 Token streams must be identical, with one allowance that the test measures
 instead of assuming: where a request's streams part, the port's top-2 logit
@@ -111,19 +112,24 @@ def _reference_model_module(jdt):
 
 
 @pytest.mark.parametrize(
-    "overrides,dtype",
-    [({}, "float32"), ({"num_kv_heads": 2}, "float32"), ({}, "bfloat16")],
-    ids=["mha-float32", "gqa-float32", "mha-bfloat16"],
+    "arch,overrides,dtype",
+    [
+        (ARCH, {}, "float32"),
+        (ARCH, {"num_kv_heads": 2}, "float32"),
+        (ARCH, {}, "bfloat16"),
+        ("olmoe-1b-7b", {}, "float32"),
+    ],
+    ids=["mha-float32", "gqa-float32", "mha-bfloat16", "olmoe-float32"],
 )
-def test_engine_matches_reference(overrides, dtype, monkeypatch, record_property):
-    cfg = smoke(get_config(ARCH), **overrides)
+def test_engine_matches_reference(arch, overrides, dtype, monkeypatch, record_property):
+    cfg = smoke(get_config(arch), **overrides)
     tree = M.init_params(cfg, 0, device="cpu", compute_dtype=torch.float32).state_tree()
     td, jdt = DTYPES[dtype]
     monkeypatch.setattr(ref_engine, "M", _reference_model_module(jdt))
     model = model_from_reference(cfg, tree, device="cpu", compute_dtype=td, kv_dtype=td)
     prompts = serve.make_prompts(cfg, SPEC, seed=4)
 
-    ref_cfg = ref_smoke(ref_get_config(ARCH), **overrides)
+    ref_cfg = ref_smoke(ref_get_config(arch), **overrides)
     ref = ref_engine.ServingEngine(
         ref_cfg,
         jax.tree_util.tree_map(jnp.asarray, tree),
