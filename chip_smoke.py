@@ -95,6 +95,21 @@ Phases, one JSON line each; any failure exits non-zero:
                  launches equal the cycle bodies stepped in every run; each
                  phase reports host seconds, cycles and lane-cycles per second,
                  graph-capture and set-up seconds, and (fuzz) specs per second
+  16. training  (run after 11, before 12) the training path: the flash
+                 backward kernel against its plain version (stablelm-1.6b's
+                 heads at S = 4096, B = 4 and at a ragged S = 517, olmoe-1b-7b's,
+                 GQA, float32), the forward's log-sum-exp, two calls bit for bit;
+                 one full-width stablelm-1.6b step (B = 4 x S = 4096, AdamW,
+                 remat "full", bf16 compute, float32 parameters) with the
+                 kernels against the plain attention path from one state and
+                 batch, then three steps through ``train.step.make_train_step``
+                 (the main path: launches counted), step time, tokens/s, peak
+                 memory, model-FLOPs share and a profiled step; the launcher
+                 ``repro_torch.launch.train`` at full width (its loss must
+                 fall); crash and resume at full width with 2 of 24 layers;
+                 olmoe-1b-7b with 4 of 16 layers, three steps kernel against
+                 plain; and the timing rows of the backward and of the forward
+                 with its log-sum-exp
 The serving phases (8, 11) also record each full-width run's KV access stream and
 hold it to a traffic-only engine's on the same prompts: the stream the
 co-sim replays.  Then the kernels line, the card's name and power limit, and as the last line
@@ -105,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -129,6 +145,8 @@ SPIN_MIN_S = 0.025
 FLASH_ROUNDS = 5
 #: the kernels of the serving path, in the order of the kernels line
 LLM_KERNELS = ("banked_copy", "paged_attention", "flash_attention")
+#: the kernel only the training path runs
+TRAIN_KERNELS = ("flash_attention_bwd",)
 
 
 def emit(phase: str, **fields) -> None:
@@ -259,7 +277,7 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    paths = _build.build(["bank_arbiter", *LLM_KERNELS])
+    paths = _build.build(["bank_arbiter", *LLM_KERNELS, *TRAIN_KERNELS])
     emit("build", seconds=time.perf_counter() - t0, libraries={k: str(v) for k, v in paths.items()})
 
 
@@ -1990,12 +2008,21 @@ def _expert_products(serving: dict, busy_us_per_step: float) -> dict:
     }
 
 
-def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=None, path=None):
+def _timing_row(
+    name, fns, iters, nbytes, ops, launches, err, library, shape=None, path=None, queued=False
+):
     """Device and call times of kernel / plain / library and the bound, on
-    the serving path of architecture ``path``."""
-    call_ms = {k: time_ms(fn, iters) for k, fn in fns.items()}
+    the path ``path``.  The row's times are the profiler's device time, or
+    with ``queued`` the device time of queued calls between CUDA events
+    (``queued_ms``): the training path's kernels launch three kernels per
+    call from ctypes, and the profiler's per-call sessions drop some of
+    them (in a profiled train step it records them all)."""
+    call_ms = {k: time_ms(fn, iters, warmup=2 if queued else 20) for k, fn in fns.items()}
     dev_ms = {k: device_ms(fn, max(5, iters // 5)) for k, fn in fns.items()}
     ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
+    if queued:
+        q_ms = {k: queued_ms(fn, iters) for k, fn in fns.items()}
+        ms = {k: q_ms[k] if q_ms[k] is not None else call_ms[k] for k in fns}
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     emit(
@@ -2005,6 +2032,7 @@ def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=Non
         shape=shape,
         device_us={k: None if v is None else v * 1e3 for k, v in dev_ms.items()},
         call_us={k: v * 1e3 for k, v in call_ms.items()},
+        row_us={k: v * 1e3 for k, v in ms.items()},
         bytes=nbytes,
         ops=ops,
         bound_us=max(bytes_ms, ops_ms) * 1e3,
@@ -2019,6 +2047,7 @@ def _timing_row(name, fns, iters, nbytes, ops, launches, err, library, shape=Non
             "banked_copy": "src/repro/kernels/banked_copy/kernel.py:29",
             "paged_attention": "src/repro/kernels/paged_attention/kernel.py:65",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:72",
+            "flash_attention_bwd": "src/repro/models/attention.py:214",
         }[name],
         "launches": launches,
         "max_abs_err": err,
@@ -2160,6 +2189,539 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
     return rows
 
 
+#: the training phase's bounds, stated in PERF.md before its first run on the
+#: card: the backward kernel against its plain version as the largest abs
+#: difference over the largest abs entry of dQ, dK, dV (summation order in
+#: float32; one bf16 rounding of each output, 2^-8), the forward's lse as an
+#: abs difference; the full-width step's kernel run against its plain run
+#: (the bf16 forward kernel rounds P to bf16 before P V where the plain path
+#: keeps float32, through 24 layers): |loss difference|, the relative
+#: difference of the gradient norms and, per parameter leaf,
+#: ||g_kernel - g_plain|| / ||g_plain||; the MoE steps' |loss difference| and
+#: the least share of routing decisions that agree
+TRAIN_BWD_REL_TOL = {"bf16": 1e-2, "f32": 1e-4}
+TRAIN_LSE_TOL = {"bf16": 1e-3, "f32": 1e-4}
+TRAIN_STEP_BOUNDS = {"loss_abs": 0.02, "grad_norm_rel": 0.05, "leaf_rel": 0.1}
+TRAIN_MOE_BOUNDS = {"loss_abs": 0.05, "route_agreement": 0.9}
+#: the full-width step's batch: ``train_4k``'s sequence length (4096), its
+#: global batch of 256 cut to the 4 sequences one card holds
+TRAIN_B, TRAIN_S = 4, 4096
+
+
+def _rel_err(got, want) -> float:
+    """Largest abs difference over the largest abs entry of ``want``."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _train_kernel_checks() -> dict:
+    """The flash backward kernel and the forward's log-sum-exp against their
+    plain versions on the card; two calls at the main path's shape bit for
+    bit.  Returns ``{case: largest abs difference of dQ, dK, dV}``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, B, S, T, H, G, D, causal, window, dtype
+        ("stablelm_B4_S4096", 4, 4096, 4096, 32, 32, 64, True, 0, bf16),
+        ("stablelm_S517", 1, 517, 517, 32, 32, 64, True, 0, bf16),
+        ("olmoe_B2_S2048", 2, 2048, 2048, 16, 16, 128, True, 0, bf16),
+        ("gqa4_S1000", 2, 1000, 1000, 16, 4, 64, True, 0, bf16),
+        ("gqa4_S1000_f32", 2, 1000, 1000, 16, 4, 64, True, 0, f32),
+        ("window64_d128_f32", 1, 300, 300, 8, 8, 128, True, 64, f32),
+        ("d16_S77_f32", 2, 77, 77, 8, 2, 16, True, 0, f32),
+        ("d32_T333_full", 1, 100, 333, 8, 1, 32, False, 0, bf16),
+    ]
+    rows, worst, repeat = [], {}, {}
+    for name, B, S, T, H, G, D, causal, window, dtype in cases:
+        q = _cuda_randn(gen, (B, S, H, D), dtype)
+        k, v = (_cuda_randn(gen, (B, T, G, D), dtype) for _ in range(2))
+        dout = _cuda_randn(gen, (B, S, H, D), dtype)
+        kw = dict(causal=causal, window=window)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        _, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        key = "f32" if dtype == f32 else "bf16"
+        row = dict(case=name, dtype=key, lse_max_abs_err=float((lse - lse_ref).abs().max()))
+        for n, a, b in zip(("dq", "dk", "dv"), got, want):
+            row[f"{n}_max_abs_err"] = _max_err(a, b)
+            row[f"{n}_rel_err"] = _rel_err(a, b)
+            check(
+                row[f"{n}_rel_err"] <= TRAIN_BWD_REL_TOL[key],
+                f"flash_attention_bwd {name}: {n} differs from the plain version: {row}",
+            )
+        check(row["lse_max_abs_err"] <= TRAIN_LSE_TOL[key], f"flash lse {name}: {row}")
+        worst[name] = max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
+        if name in ("stablelm_B4_S4096", "olmoe_B2_S2048"):
+            again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
+            repeat[name + "_fwd_lse_vs_serving_fwd"] = torch.equal(out, flash_attention(q, k, v))
+        rows.append(row)
+        del q, k, v, dout, out, lse, got, want, lse_ref
+    check(all(repeat.values()), f"a second call differs from the first: {repeat}")
+    emit("train_kernels", cases=rows, repeats_bit_for_bit=repeat, bounds=TRAIN_BWD_REL_TOL)
+    return worst
+
+
+def _flops_per_step(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step (no remat recompute): 6 N per token
+    for the N parameters of the matrix products (all but the embedding
+    table), and 6 L H D S per token for causal attention's two products."""
+    n = cfg.num_params() - cfg.padded_vocab * cfg.d_model
+    attn = 6 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * seq
+    return float((6 * n + attn) * tokens)
+
+
+def _train_step_check() -> dict:
+    """stablelm-1.6b at full width: one step's gradients through the kernels
+    and through the plain attention path from one state and batch, then the
+    main path, three steps through ``make_train_step`` with the launches
+    counted, timed and measured."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.optim import global_norm
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaves_with_path
+
+    cfg, run = get_config("stablelm-1.6b"), RunConfig(remat_policy="full")
+    t0 = time.perf_counter()
+    state = S.init_train_state(cfg, run, seed=0)
+    _tempered(state.model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = TokenPipeline(cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S, seed=0)
+    batches = [next(pipe) for _ in range(4)]
+    grad_fn = S.make_grad_fn(cfg, run)
+
+    def grads_of(impl):
+        state.model.impl = impl
+        reset_launches()
+        t = time.perf_counter()
+        grads, m = grad_fn(state, batches[0])
+        torch.cuda.synchronize()
+        return grads, {k: float(x) for k, x in m.items()}, time.perf_counter() - t
+
+    grads, m_kernel, s_kernel = grads_of("kernel")
+    kept = [(p, g.clone()) for p, g in leaves_with_path(grads)]
+    norm_kernel = float(global_norm([g for _, g in kept]))
+    grads, m_plain, s_plain = grads_of("ref")
+    check(sum(LAUNCHES.values()) == 0, f"the plain path launched kernels: {LAUNCHES}")
+    norm_plain = float(global_norm(grads))
+    leaf_rel = {
+        p: float((a - b).norm() / b.norm().clamp_min(1e-30))
+        for (p, a), (_, b) in zip(kept, leaves_with_path(grads))
+    }
+    del kept
+    torch.cuda.empty_cache()
+    compare = {
+        "loss_kernel": m_kernel["loss"],
+        "loss_plain": m_plain["loss"],
+        "loss_abs_diff": abs(m_kernel["loss"] - m_plain["loss"]),
+        "grad_norm_kernel": norm_kernel,
+        "grad_norm_plain": norm_plain,
+        "grad_norm_rel_diff": abs(norm_kernel - norm_plain) / norm_plain,
+        "leaf_rel_diff_max": max(leaf_rel.values()),
+        "leaf_rel_diff": leaf_rel,
+        "grad_s_kernel": s_kernel,
+        "grad_s_plain": s_plain,
+        "bounds": TRAIN_STEP_BOUNDS,
+    }
+    emit("train_step_kernel_vs_plain", **compare)
+    summary = {k: v for k, v in compare.items() if k != "leaf_rel_diff"}
+    check(
+        compare["loss_abs_diff"] <= TRAIN_STEP_BOUNDS["loss_abs"]
+        and compare["grad_norm_rel_diff"] <= TRAIN_STEP_BOUNDS["grad_norm_rel"]
+        and compare["leaf_rel_diff_max"] <= TRAIN_STEP_BOUNDS["leaf_rel"],
+        f"full-width step: kernel and plain paths differ: {summary}",
+    )
+
+    # the main path: three train steps through the kernels
+    state.model.impl = "kernel"
+    step = S.make_train_step(cfg, run, total_steps=run.steps)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, metrics = [], []
+    for b in batches[1:]:
+        t = time.perf_counter()
+        state, m = step(state, b)
+        metrics.append({k: float(x) for k, x in m.items()})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
+    L, tokens = cfg.num_layers, TRAIN_B * TRAIN_S
+    want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
+    check(launches == want, f"train steps launched {launches}, due {want} (full remat)")
+    check(
+        all(math.isfinite(v) for m in metrics for v in m.values()), f"train metrics: {metrics}"
+    )
+    step_s = statistics.median(times)
+    flops = _flops_per_step(cfg, tokens, TRAIN_S)
+    out = {
+        "arch": cfg.name,
+        "params": cfg.num_params(),
+        "batch": TRAIN_B,
+        "seq": TRAIN_S,
+        "tokens_per_step": tokens,
+        "reduced": "train_4k's global batch of 256 cut to 4 sequences; full depth and width",
+        "init_s": init_s,
+        "step_s": times,
+        "step_s_median": step_s,
+        "tokens_per_s": tokens / step_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "model_flops_per_step": flops,
+        "model_flops_share": flops / step_s / BF16_OPS_PER_S,
+        "model_flops_share_formula": (
+            "(6 * (num_params - Vp * d) + 6 * L * H * D * S) * tokens / step_s / 989e12"
+        ),
+        "metrics": metrics,
+        "launches": launches,
+        "predicted": want,
+    }
+    emit("train_step", **out)
+    return dict(out, state=state, step=step, batch=batches[0], cfg=cfg, run=run)
+
+
+def _train_profile(t: dict) -> None:
+    """One profiled step of the main path: device time by kernel family,
+    the idle share; the optimizer (update and apply) and the cross-entropy
+    (forward and backward at the step's logits shape) timed apart between
+    CUDA events."""
+    import torch
+
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.optim import lr_schedule, make_optimizer
+    from repro_torch.tree import leaves
+
+    state, step, cfg, run = t["state"], t["step"], t["cfg"], t["run"]
+    kernels, wall = device_kernels(lambda: step(state, t["batch"]))
+    fam = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    count = dict.fromkeys(fam, 0)
+    for e in kernels:
+        n = e.name.lower()
+        k = next((f for f in ("flash_fwd", "flash_bwd") if f in n), None)
+        if k is None:
+            k = "gemm" if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma")) else "other"
+        fam[k] += e.time_range.elapsed_us()
+        count[k] += 1
+    busy = sum(fam.values())
+    L = cfg.num_layers
+
+    _, opt_update = make_optimizer(run.optimizer)
+    lr = lr_schedule(
+        state.step, base_lr=run.learning_rate, warmup_steps=run.warmup_steps, total_steps=run.steps
+    )
+
+    def optimizer():
+        updates, _ = opt_update(state.grads, state.opt, state.params, lr)
+        with torch.no_grad():
+            for p, u in zip(leaves(state.params), leaves(updates)):
+                p.sub_(u)
+
+    opt_ms = time_ms(optimizer, 3, warmup=1)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    logits = _cuda_randn(gen, (TRAIN_B, TRAIN_S, cfg.padded_vocab), torch.bfloat16)
+    logits.requires_grad_(True)
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S), generator=gen, device="cuda")
+    ce_ms = time_ms(lambda: cross_entropy(logits, labels, cfg.vocab_size).backward(), 3, warmup=1)
+    del logits
+    emit(
+        "train_profile",
+        device_kernels=len(kernels),
+        device_busy_ms=busy / 1e3,
+        wall_ms_profiled=wall * 1e3,
+        device_idle_share=1 - busy / 1e3 / (wall * 1e3) if busy else None,
+        flash_fwd_ms=fam["flash_fwd"] / 1e3,
+        flash_fwd_us_per_launch=fam["flash_fwd"] / (2 * L),
+        flash_bwd_ms=fam["flash_bwd"] / 1e3,
+        flash_bwd_us_per_launch=fam["flash_bwd"] / L,
+        flash_bwd_kernels=count["flash_bwd"],
+        launches_per_step={"flash_attention": 2 * L, "flash_attention_bwd": L},
+        gemm_ms=fam["gemm"] / 1e3,
+        gemm_kernels=count["gemm"],
+        other_ms=fam["other"] / 1e3,
+        other_kernels=count["other"],
+        optimizer_ms_apart=opt_ms,
+        cross_entropy_fwd_bwd_ms_apart=ce_ms,
+    )
+
+
+def _train_launcher() -> dict:
+    """``python -m repro_torch.launch.train --arch stablelm-1.6b --steps 16``
+    at full width on the card, in a process of its own; it asserts that the
+    loss fell, as the reference launcher does."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm-1.6b"]
+    cmd += ["--steps", "16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train launcher:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    fields = dict(f.split("=", 1) for f in line.split() if "=" in f)
+    out = {
+        "command": " ".join(cmd[1:]),
+        "output": line,
+        "loss_first": float(fields["loss[0]"]),
+        "loss_last": float(fields["loss[-1]"]),
+        "wall_s": wall,
+    }
+    check(out["loss_last"] < out["loss_first"], f"the launcher's loss did not fall: {line}")
+    emit("train_launcher", **out)
+    return out
+
+
+def _train_crash_resume() -> dict:
+    """Crash and resume at full width with 2 of 24 layers (a full-depth
+    checkpoint is 19.7 GB of npz): 8 steps uninterrupted; then a run that
+    checkpoints at step 4 and fails at step 6, and a run that resumes from
+    the checkpoint; the resumed losses against the uninterrupted ones.  The
+    checkpoints go to a temporary directory, removed afterwards."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.loop import train_loop
+
+    cfg = replace(get_config("stablelm-1.6b"), num_layers=2)
+    run = RunConfig(checkpoint_every=4)
+    t0 = time.perf_counter()
+    whole = train_loop(cfg, run, steps=8)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = CheckpointManager(Path(tmp) / "ck", keep=1)
+        crashed = False
+        try:
+            train_loop(cfg, run, steps=8, ckpt=ck, fail_at_step=6)
+        except RuntimeError:
+            crashed = True
+        ck.wait()
+        torch.cuda.empty_cache()
+        ck_bytes = sum(f.stat().st_size for f in (Path(tmp) / "ck").rglob("*") if f.is_file())
+        res = train_loop(cfg, run, steps=8, ckpt=ck)
+    torch.cuda.empty_cache()
+    check(crashed, "the injected failure did not raise")
+    check(res.resumed_from == 4, f"resumed from {res.resumed_from}, not 4")
+    diff = max(abs(a - b) for a, b in zip(res.losses, whole.losses[4:]))
+    out = {
+        "layers": cfg.num_layers,
+        "reduced": "2 of 24 layers: a full-depth checkpoint is 19.7 GB of npz",
+        "resumed_from": res.resumed_from,
+        "losses_resumed": res.losses,
+        "losses_uninterrupted": whole.losses[4:],
+        "bit_for_bit": res.losses == whole.losses[4:],
+        "max_abs_diff": diff,
+        "checkpoint_bytes": ck_bytes,
+        "wall_s": time.perf_counter() - t0,
+    }
+    emit("train_crash_resume", **out)
+    check(len(res.losses) == 4 and diff <= 1e-5 * abs(whole.losses[-1]), f"resume: {out}")
+    return out
+
+
+def _train_moe() -> dict:
+    """olmoe-1b-7b at full width with 4 of 16 layers (AdamW's float32 state
+    of all 16 is 111 GB), B = 2 x S = 2048: three steps through the kernels
+    and three through the plain attention path from one state (the same
+    seeded init) and batches; routing decisions compared call for call."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train import step as S
+
+    cfg = replace(get_config("olmoe-1b-7b"), num_layers=4)
+    pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=2048, seed=0)
+    batches = [next(pipe) for _ in range(3)]
+    runs = {}
+    for impl in ("pallas", "jnp"):
+        run = RunConfig(remat_policy="full", attn_impl=impl)
+        state = S.init_train_state(cfg, run, seed=0)
+        step = S.make_train_step(cfg, run, total_steps=run.steps)
+        reset_launches()
+        t0 = time.perf_counter()
+        with _routes_logged() as routes:
+            metrics = []
+            for b in batches:
+                state, m = step(state, b)
+                metrics.append({k: float(x) for k, x in m.items()})
+        torch.cuda.synchronize()
+        runs[impl] = dict(
+            metrics=metrics,
+            routes=routes,
+            wall_s=time.perf_counter() - t0,
+            launches={k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")},
+        )
+        del state, step
+        torch.cuda.empty_cache()
+    k, p = runs["pallas"], runs["jnp"]
+    L = cfg.num_layers
+    want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
+    check(k["launches"] == want, f"MoE train launches {k['launches']}, due {want}")
+    check(sum(p["launches"].values()) == 0, f"the plain MoE run launched {p['launches']}")
+    loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(k["metrics"], p["metrics"])]
+    agreement = _route_agreement(k["routes"], p["routes"])
+    out = {
+        "arch": cfg.name,
+        "layers": L,
+        "reduced": "4 of 16 layers: AdamW's float32 state of all 16 is 111 GB",
+        "batch": 2,
+        "seq": 2048,
+        "metrics_kernel": k["metrics"],
+        "metrics_plain": p["metrics"],
+        "loss_abs_diff": loss_diff,
+        "routes": agreement,
+        "wall_s": {"kernel": k["wall_s"], "plain": p["wall_s"]},
+        "launches": k["launches"],
+        "bounds": TRAIN_MOE_BOUNDS,
+    }
+    emit("train_moe", **out)
+    check(
+        all(math.isfinite(v) for m in k["metrics"] + p["metrics"] for v in m.values()),
+        "MoE train metrics not finite",
+    )
+    check(all(m["aux_loss"] > 0 for m in k["metrics"]), "MoE aux loss is not positive")
+    check(max(loss_diff) <= TRAIN_MOE_BOUNDS["loss_abs"], f"MoE losses differ: {loss_diff}")
+    check(
+        agreement["agreement"] >= TRAIN_MOE_BOUNDS["route_agreement"],
+        f"MoE routing differs: {agreement}",
+    )
+    return out
+
+
+def _train_timing(main: dict, moe: dict, errs: dict) -> list:
+    """Timing rows of the flash backward at stablelm-1.6b's and olmoe-1b-7b's
+    training shapes (bf16, causal) against its plain version and the
+    backward of ``scaled_dot_product_attention`` under autograd on the same
+    tensors; the forward with its log-sum-exp at stablelm's shape against
+    the serving forward (no lse), the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf16, rows = torch.bfloat16, []
+    shapes = [
+        ("stablelm-1.6b-train", TRAIN_B, TRAIN_S, 32, 64, main["launches"], "stablelm_B4_S4096"),
+        ("olmoe-1b-7b-train", 2, 2048, 16, 128, moe["launches"], "olmoe_B2_S2048"),
+    ]
+    for path, B, S, H, D, launches, case in shapes:
+        q, k, v, dout = (_cuda_randn(gen, (B, S, H, D), bf16) for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = dout.transpose(1, 2).contiguous()
+        lib = torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, dout)
+        for a, b in zip(lib, want):
+            check(_rel_err(a.transpose(1, 2), b) <= 2e-2, f"SDPA backward yardstick at {path}")
+        fns = {
+            "kernel": lambda: flash_attention_bwd(q, k, v, out, lse, dout),
+            "plain": lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout),
+            "library": lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+        }
+        row = _timing_row(
+            "flash_attention_bwd",
+            fns,
+            10,
+            2 * 8 * B * S * H * D + 4 * B * H * S,
+            10 * D * H * B * S * (S + 1) // 2,
+            launches["flash_attention_bwd"],
+            errs[case],
+            "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True)",
+            shape=dict(B=B, S=S, H=H, G=H, D=D, causal=True),
+            path=path,
+            queued=True,
+        )
+        rows.append(row)
+        if path.startswith("stablelm"):
+            fwd = {
+                "kernel": lambda: flash_attention_fwd(q, k, v),
+                "plain": lambda: flash_attention_fwd_ref(q, k, v),
+                "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            }
+            row = _timing_row(
+                "flash_attention",
+                fwd,
+                10,
+                2 * 4 * B * S * H * D + 4 * B * H * S,
+                4 * D * H * B * S * (S + 1) // 2,
+                launches["flash_attention"],
+                float((lse - flash_attention_fwd_ref(q, k, v)[1]).abs().max()),
+                "F.scaled_dot_product_attention(is_causal=True)",
+                shape=dict(B=B, S=S, H=H, G=H, D=D, causal=True, lse=True),
+                path=path,
+                queued=True,
+            )
+            # with and without lse in alternating rounds of queued calls
+            pairs = [
+                (queued_ms(fwd["kernel"], 10), queued_ms(lambda: flash_attention(q, k, v), 10))
+                for _ in range(FLASH_ROUNDS)
+            ]
+            done = [p for p in pairs if None not in p]
+            row["no_lse_ms"] = statistics.median(b for _, b in done) if done else None
+            emit(
+                "train_flash_lse",
+                path=path,
+                rounds_ms=pairs,
+                with_lse_median_ms=statistics.median(a for a, _ in done) if done else None,
+                without_lse_median_ms=row["no_lse_ms"],
+            )
+            rows.append(row)
+        del q, k, v, dout, out, lse, qt, kt, vt, o, dot, lib, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_training() -> list:
+    """The training path on the card; returns its kernels-line rows."""
+    import torch
+
+    t0 = time.perf_counter()
+    errs = _train_kernel_checks()
+    main = _train_step_check()
+    _train_profile(main)
+    del main["state"], main["step"]
+    torch.cuda.empty_cache()
+    _train_launcher()
+    _train_crash_resume()
+    moe = _train_moe()
+    rows = _train_timing(main, moe, errs)
+    emit("training", seconds=time.perf_counter() - t0)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2188,6 +2750,8 @@ def main() -> int:
     phase_serving_profile(serving)
     rows += phase_llm_timing(serving, llm_errs, flash_lengths=(1024,))
     del serving
+    torch.cuda.empty_cache()
+    rows += phase_training()
     torch.cuda.empty_cache()
     # the scale path last: its profiled windows hold ~10^5 kernel records each
     sweep = phase_sweep()

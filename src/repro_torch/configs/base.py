@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 VOCAB_PAD_MULTIPLE = 2048  # the reference pads so the vocabulary shards evenly
 
@@ -144,6 +145,79 @@ def check_supported(cfg: ModelConfig) -> None:
             "stacks (dense or MoE), and the later slices of ROADMAP Queue 1 item 13 bring "
             "the rest"
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell (the reference's ``ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+#: the reference's ``RunConfig.attn_impl`` values and the port's ``impl`` for each
+ATTN_IMPLS = {"jnp": "ref", "pallas": "kernel"}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Runtime and training knobs orthogonal to the architecture: the
+    reference's ``RunConfig``, field for field.
+
+    ``attn_impl`` picks the attention of the training forward through
+    ``ATTN_IMPLS``: ``"pallas"`` (the reference's kernel path) is the port's
+    hand-written kernels, ``"jnp"`` their plain PyTorch versions.  The default
+    is ``"pallas"`` where the reference's is ``"jnp"``: there the jnp path is
+    the one a host without a TPU runs, and here the kernel wrappers already
+    take their plain versions on CPU tensors.  ``param_dtype`` is the dtype
+    of the master parameters (the reference keeps float32; each use casts to
+    ``compute_dtype``).  ``seq_parallel`` (Megatron sequence parallelism) and
+    ``scan_unroll`` (layer-scan unrolling for XLA costing) mean nothing on one
+    device with an eager Python layer loop: they are kept so that a
+    reference config converts, and ignored.  ``triangular_attn`` changes no
+    value: the kernels and the plain versions skip fully masked blocks
+    always."""
+
+    arch: str = "stablelm-1.6b"
+    shape: str = "train_4k"
+    steps: int = 100
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 20
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"  # adamw | adafactor
+    remat_policy: str = "full"  # none | minimal | full
+    microbatches: int = 1  # >1 -> gradient accumulation
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    seed: int = 0
+    grad_compression: str = "none"  # none | int8_ef
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_every: int = 50
+    attn_impl: str = "pallas"  # pallas | jnp (see ATTN_IMPLS)
+    seq_parallel: bool = True  # no-op on one device
+    triangular_attn: bool = False  # no value changes
+    scan_unroll: bool = False  # no-op: the port loops over layers in Python
+
+    @property
+    def impl(self) -> str:
+        """The port's attention implementation for ``attn_impl``."""
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl must be one of {sorted(ATTN_IMPLS)}; got {self.attn_impl!r}"
+            )
+        return ATTN_IMPLS[self.attn_impl]
 
 
 def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -101,3 +101,34 @@ def model_from_reference(
         cfg, device=device, compute_dtype=compute_dtype, kv_dtype=kv_dtype, impl=impl
     )
     return model.load_tree(tree)
+
+
+@torch.no_grad()
+def load_train_state(state, tree: Mapping) -> None:
+    """Copy a train state laid out as the reference's (``{"params", "opt",
+    "step"[, "ef"]}``, numpy or tensor leaves: a reference checkpoint, or
+    ``np.asarray`` of the reference's ``init_train_state``) into the port's
+    ``train.step.TrainState``, in place: parameters (so also the model's
+    views of them), the optimizer's moments and count (AdamW or Adafactor),
+    the step and the error-feedback buffers."""
+    from repro_torch.tree import leaves_with_path
+
+    ours = list(leaves_with_path(state.tree()))
+    theirs = list(leaves_with_path(tree))
+    if [p for p, _ in ours] != [p for p, _ in theirs]:
+        raise ValueError(
+            "the train states differ in structure: "
+            f"{sorted(set(p for p, _ in ours) ^ set(p for p, _ in theirs))[:6]}"
+        )
+    for (path, dst), (_, src) in zip(ours, theirs):
+        src = src if torch.is_tensor(src) else torch.from_numpy(np.array(src))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: shape {tuple(src.shape)}, expected {tuple(dst.shape)}")
+        dst.copy_(src)
+
+
+def train_state_to_reference(state) -> dict:
+    """The port's train state as the reference's tree of numpy arrays."""
+    from repro_torch.checkpoint.manager import to_host
+
+    return to_host(state.tree())

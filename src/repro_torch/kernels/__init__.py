@@ -3,8 +3,10 @@
 Each ``kernels/<name>/`` holds ``ref.py`` (the plain PyTorch version),
 ``csrc/<name>.cu`` (the CUDA kernel, built by ``_build.py`` on first use) and
 ``ops.py`` (the wrapper: the kernel for CUDA tensors, the plain version for
-CPU tensors).  ``LAUNCHES`` counts each kernel's launches, so a run can show
-that its main path went through the kernels.
+CPU tensors).  The flash backward's source has a package of its own
+(``flash_attention_bwd/csrc``), so that it builds apart; its wrapper and
+plain version sit beside the forward's.  ``LAUNCHES`` counts each kernel's
+launches, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ LAUNCHES = {
     "paged_attention": 0,
     "paged_attention_merge": 0,
     "flash_attention": 0,
+    "flash_attention_bwd": 0,
 }
 
 

@@ -39,6 +39,13 @@
 // S = 1024, H = 32, D = 64 causal, 4.4 us at the card's 989 TFLOP/s bf16
 // tensor-core rate; reading Q, K, V and writing O once is ~5 us at 3.35 TB/s.
 //
+// Log-sum-exp.  Where the caller passes an `lse` pointer ([B, H, S] float32),
+// each row's m + log(l) in the scaled-score domain is written beside its
+// output (-inf for a row with no key): what the training backward
+// (kernels/flash_attention_bwd) needs to recompute P.  A null pointer, as
+// serving's prefill calls pass it, writes nothing: it selects the kLse =
+// false instantiation, whose code has no lse path at all.
+//
 // Interface: plain C, loaded with ctypes.  q/out [B, S, H, D] and k/v
 // [B, T, G, D], contiguous.  The wrapper (ops.py) checks shapes, dtypes,
 // devices and alignment; each function returns the cudaError_t of its launch.
@@ -62,11 +69,11 @@ constexpr int kThreadsPerRow = 4;
 constexpr int kThreads = kRows * kThreadsPerRow;
 
 // Thread c of a row owns dims 16 * j + 4 * c + e, j < D / 16, e < 4.
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int S, int Tk, int H,
-                  int G, int causal, int window, float scale) {
+                  const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                  int S, int Tk, int H, int G, int causal, int window, float scale) {
   constexpr int BK = D >= 128 ? 32 : 64;  // keys per tile: 32 KB of K + V in shared memory
   constexpr int NJ = D / 16;
   __shared__ __align__(16) float ks[BK][D];
@@ -161,6 +168,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (qi >= S) return;
+  if constexpr (kLse) {
+    if (c == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + qi] = sum > 0.f ? mx + logf(sum) : -INFINITY;
+  }
   const float inv = sum > 0.f ? 1.f / sum : 0.f;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -172,12 +183,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk, int H,
-               int G, int causal, int window, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
+               int Tk, int H, int G, int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_fwd_f32<D><<<grid, kThreads, 0, stream>>>(
+  const auto kernel = lse != nullptr ? flash_fwd_f32<D, true> : flash_fwd_f32<D, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, Tk, H, G, causal, window, scale);
+      static_cast<float*>(out), static_cast<float*>(lse), S, Tk, H, G, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -478,12 +490,13 @@ __device__ __forceinline__ void pack_p(const float (&sc)[kBN / 2], uint32_t (&pa
 // Accumulator fragment of a 64 x N wgmma tile: thread t of the warpgroup holds
 // d[4 * j + e] at row 16 * (t / 32) + (t % 32) / 4 + 8 * (e / 2) and column
 // 8 * j + 2 * (t % 4) + e % 2.
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreadsTC)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                   int S, int Tk, int H, int G, int causal, int window, float scale_log2) {
+                   float* __restrict__ lse, int S, int Tk, int H, int G, int causal, int window,
+                   float scale_log2) {
   using TS = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -601,6 +614,12 @@ __global__ void __launch_bounds__(kThreadsTC)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[rr] = l > 0.f ? 1.f / l : 0.f;
+    if constexpr (kLse) {  // ln(l) + m * scale, through log2
+      const int row = q0 + r0 + 8 * rr;
+      if (c0 == 0 && row < S)
+        lse[(static_cast<long long>(b) * H + h) * S + row] =
+            l > 0.f ? (m_run[rr] * scale_log2 + log2f(l)) * 0.6931471805599453f : -INFINITY;
+    }
   }
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -645,12 +664,24 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads, i
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+__global__ void fill_f32(float* __restrict__ x, long long n, float value) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = value;
+}
+
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk, int H,
-                int G, int causal, int window, float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
+                int Tk, int H, int G, int causal, int window, float scale, cudaStream_t stream) {
   using TS = Tile<D>;
-  if (Tk == 0) {  // no key: every row gets 0
+  if (Tk == 0) {  // no key: every row gets 0, and lse -inf
     const size_t bytes = static_cast<size_t>(B) * S * H * D * 2;
+    if (lse != nullptr) {
+      const long long n = static_cast<long long>(B) * H * S;
+      fill_f32<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+          static_cast<float*>(lse), n, -INFINITY);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     return static_cast<int>(cudaMemsetAsync(out, 0, bytes, stream));
   }
   const CUtensorMapSwizzle swizzle = TS::kSwizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -663,15 +694,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
     return static_cast<int>(cudaErrorInvalidValue);
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_fwd_bf16<D, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
   const dim3 grid((S + kBM - 1) / kBM, H, B);
-  flash_fwd_bf16<D><<<grid, kThreadsTC, TS::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), S, Tk, H, G, causal, window,
-      scale * 1.4426950408889634f);
+  const auto kernel = lse != nullptr ? flash_fwd_bf16<D, true> : flash_fwd_bf16<D, false>;
+  kernel<<<grid, kThreadsTC, TS::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, Tk, H, G, causal,
+      window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -680,13 +715,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 #define FLASH_DISPATCH(fn)                                                            \
   switch (D) {                                                                        \
     case 16:                                                                          \
-      return fn<16>(q, k, v, out, B, S, T, H, G, causal, window, scale, s);           \
+      return fn<16>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);      \
     case 32:                                                                          \
-      return fn<32>(q, k, v, out, B, S, T, H, G, causal, window, scale, s);           \
+      return fn<32>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);      \
     case 64:                                                                          \
-      return fn<64>(q, k, v, out, B, S, T, H, G, causal, window, scale, s);           \
+      return fn<64>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);      \
     case 128:                                                                         \
-      return fn<128>(q, k, v, out, B, S, T, H, G, causal, window, scale, s);          \
+      return fn<128>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);     \
     default:                                                                          \
       return static_cast<int>(cudaErrorInvalidValue);                                 \
   }
@@ -694,7 +729,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 // float32 inputs: the CUDA-core kernel.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                        int B, int S, int T, int H, int G, int D, int causal,
-                                       int window, float scale, void* stream) {
+                                       int window, float scale, void* lse, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (G <= 0 || H % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -704,7 +739,7 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
 // bfloat16 inputs: the wgmma + TMA kernel.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                         int B, int S, int T, int H, int G, int D, int causal,
-                                        int window, float scale, void* stream) {
+                                        int window, float scale, void* lse, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (G <= 0 || H % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);

@@ -20,7 +20,13 @@ from pathlib import Path
 
 from repro_torch.kernels import _build
 
-KERNELS = ("bank_arbiter", "banked_copy", "paged_attention", "flash_attention")
+KERNELS = (
+    "bank_arbiter",
+    "banked_copy",
+    "paged_attention",
+    "flash_attention",
+    "flash_attention_bwd",
+)
 REPORT_DIR = _build.BUILD_DIR / "report"
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)' for")

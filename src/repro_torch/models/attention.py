@@ -16,6 +16,14 @@ K/V are stored in the KV dtype (bfloat16, as the reference's cache) and
 attention reads them back from there, so a float32 run rounds them exactly
 where the reference does.  ``impl="ref"`` calls the kernels' plain versions
 on any device; it is the yardstick the card's run is held to.
+
+Training (``forward_train``) attends over the fresh K/V of the sequence with
+no cache, as the reference's ``gqa_attention`` without one, through
+``TRAIN_ATTENTION[impl]``: the flash forward with its log-sum-exp and the
+flash backward under autograd (the kernels, or their plain blockwise
+versions).  Weights are cast to the activations' dtype at each use, which
+costs nothing in serving (stored in that dtype) and casts the float32 master
+weights of a training model, as the reference's ``p[...].astype(x.dtype)``.
 """
 
 from __future__ import annotations
@@ -25,8 +33,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_train
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref, flash_attention_train_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models.layers import ParamSpec, apply_rope, rmsnorm
@@ -38,6 +46,9 @@ ATTENTION = {
     "kernel": (flash_attention, paged_attention),
     "ref": (flash_attention_ref, paged_attention_ref),
 }
+
+#: differentiable attention of the training forward per implementation
+TRAIN_ATTENTION = {"kernel": flash_attention_train, "ref": flash_attention_train_ref}
 
 
 def gqa_specs(cfg: ModelConfig) -> dict:
@@ -103,9 +114,9 @@ class GQAAttention(torch.nn.Module):
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
         B, S, d = x.shape
-        q = (x @ self.wq.reshape(d, -1)).view(B, S, cfg.num_heads, -1)
-        k = (x @ self.wk.reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
-        v = (x @ self.wv.reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
+        q = (x @ self.wq.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_heads, -1)
+        k = (x @ self.wk.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
+        v = (x @ self.wv.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
         if cfg.use_qk_norm:  # per head over head_dim, before RoPE, as the reference
             q = rmsnorm(q, self.q_norm, cfg.norm_eps)
             k = rmsnorm(k, self.k_norm, cfg.norm_eps)
@@ -115,7 +126,7 @@ class GQAAttention(torch.nn.Module):
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
         B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ self.wo.reshape(-1, self.cfg.d_model)
+        return o.reshape(B, S, -1) @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model)
 
     def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str) -> torch.Tensor:
         """x ``[B, S, d]``, positions ``[B, S]``; ``kv_out`` (``[B, S, 2, G, D]``
@@ -127,6 +138,12 @@ class GQAAttention(torch.nn.Module):
             kv_out[:, :, 1] = v
         flash = ATTENTION[impl][0]
         return self._out(flash(q, k.to(x.dtype), v.to(x.dtype), causal=True))
+
+    def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
+        """Causal self-attention over ``x [B, S, d]``, differentiable."""
+        q, k, v = self._qkv(x, positions)
+        flash = TRAIN_ATTENTION[impl]
+        return self._out(flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=True))
 
     def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str) -> torch.Tensor:
         """x ``[B, 1, d]``, positions ``[B, 1]``."""

@@ -144,3 +144,28 @@ def apply_rope(
     x1, x2 = xr.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def vocab_mask_bias(vocab_size: int, padded: int, device=None) -> torch.Tensor:
+    """Additive float32 bias masking the padded vocabulary columns out of
+    the softmax (-1e9 past ``vocab_size``)."""
+    cols = torch.arange(padded, device=device)
+    return torch.where(cols < vocab_size, 0.0, -1e9).float()
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, vocab_size: int, ignore_id: int = -1
+) -> torch.Tensor:
+    """Mean cross-entropy over the positions whose label is not
+    ``ignore_id``; logits ``[..., Vp]`` are upcast to float32 and their
+    padded columns masked, as the reference computes it."""
+    logits = logits.float() + vocab_mask_bias(vocab_size, logits.shape[-1], logits.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)

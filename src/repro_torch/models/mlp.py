@@ -1,8 +1,10 @@
 """Dense FFN blocks: SwiGLU (llama family) and biased GELU (whisper).
 
-Weights keep the reference's layouts (``w_gate [d, f]``, ``w_down [f, d]``)
-and are stored in the compute dtype, cast once at load where the reference
-casts per einsum.  Biases stay float32 and are cast per call, as there.
+Weights keep the reference's layouts (``w_gate [d, f]``, ``w_down [f, d]``).
+A serving model stores them in the compute dtype, cast once at load where the
+reference casts per einsum; a training model keeps float32 master weights,
+and each use casts to the activations' dtype (a no-op when they match).
+Biases stay float32 and are cast per call, as there.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class MLP(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.swiglu:
-            return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
-        h = F.gelu(x @ self.w_in + self.b_in.to(x.dtype), approximate="tanh")
-        return h @ self.w_out + self.b_out.to(x.dtype)
+            dt = x.dtype
+            return (F.silu(x @ self.w_gate.to(dt)) * (x @ self.w_up.to(dt))) @ self.w_down.to(dt)
+        h = F.gelu(x @ self.w_in.to(x.dtype) + self.b_in.to(x.dtype), approximate="tanh")
+        return h @ self.w_out.to(x.dtype) + self.b_out.to(x.dtype)

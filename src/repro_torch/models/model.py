@@ -6,6 +6,7 @@ Public API (each mirrors the reference's function of the same name):
   init_params(cfg, seed, device=...)       -> Transformer with seeded random weights
   prefill(model, tokens, kv_out)           -> logits [B, 1, Vp] of the last position
   decode_step(model, tokens, pos, cache)   -> logits [B, 1, Vp]
+  forward_train(model, tokens, remat_policy=...) -> (logits [B, S, Vp], aux)
 
 The stack is a ``ModuleList`` of blocks run in a Python loop (the reference
 scans stacked params).  Weight matrices and the embedding are stored in the
@@ -16,14 +17,29 @@ dtype is bfloat16 by default, the reference's cache dtype.  A layer holds
 reference's ``_ffn_layer_specs``; its ``aux`` loss is dropped (serving).
 Families, MLA, SSM and sliding windows this slice does not carry raise
 ``NotImplementedError`` (``configs.base.check_supported``).
+
+Training takes a model built with ``param_dtype`` (float32, the reference's
+master parameters): every parameter is stored in that dtype with
+``requires_grad``, and each use casts it to the compute dtype, as the
+reference's ``p[...].astype(x.dtype)``.  ``forward_train`` runs the stack
+under the reference's remat policies: ``"full"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant, nothing saved), ``"minimal"``
+saves the layer's weight-matrix products (``aten.mm``: the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
+saves everything; the three give the same values.  The embedding's backward
+adds the rows of repeated tokens in a fixed order (``embed_lookup``), so that
+two runs of a step agree to the bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import contextlib
+import functools
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.models.attention import ATTENTION, GQAAttention, PagedKV, gqa_specs
@@ -75,11 +91,24 @@ class Block(torch.nn.Module):
         h = self.ffn_norm(x)
         return self.moe(h) if self.is_moe else self.ffn(h)
 
+    def train_layer(self, x, positions, impl: str):
+        """One layer of the training forward: ``(x, aux)``, aux float32 (0
+        for a dense FFN, as the reference's ``_apply_ffn``)."""
+        x = x + self.attn.forward_train(self.attn_norm(x), positions, impl=impl)
+        h = self.ffn_norm(x)
+        if self.is_moe:
+            out, aux = self.moe.forward_aux(h)
+        else:
+            out, aux = self.ffn(h), torch.zeros((), device=x.device)
+        return x + out, aux
+
 
 class Transformer(torch.nn.Module):
     """The decoder stack.  ``impl`` picks the attention functions: ``"kernel"``
     (the wrappers: the Hopper kernels on CUDA tensors, their plain versions
-    on CPU tensors) or ``"ref"`` (the plain versions on any device)."""
+    on CPU tensors) or ``"ref"`` (the plain versions on any device).
+    ``param_dtype`` (None: serving) makes a training model: parameters in
+    that dtype with ``requires_grad``, cast to ``compute_dtype`` per use."""
 
     def __init__(
         self,
@@ -88,6 +117,7 @@ class Transformer(torch.nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
         kv_dtype: torch.dtype = torch.bfloat16,
         impl: str = "kernel",
+        param_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         check_supported(cfg)
@@ -96,11 +126,16 @@ class Transformer(torch.nn.Module):
         self.cfg = cfg
         self.kv_dtype = kv_dtype
         self.impl = impl
+        self.compute_dtype = compute_dtype
+        wdt = param_dtype or compute_dtype
         d, Vp = cfg.d_model, cfg.padded_vocab
-        self.embed = torch.nn.Parameter(torch.empty(Vp, d, dtype=compute_dtype), False)
+        self.embed = torch.nn.Parameter(torch.empty(Vp, d, dtype=wdt), False)
         self.final_norm = Norm(cfg, d)
-        self.lm_head = torch.nn.Parameter(torch.empty(d, Vp, dtype=compute_dtype), False)
-        self.layers = torch.nn.ModuleList(Block(cfg, compute_dtype) for _ in range(cfg.num_layers))
+        self.lm_head = torch.nn.Parameter(torch.empty(d, Vp, dtype=wdt), False)
+        self.layers = torch.nn.ModuleList(Block(cfg, wdt) for _ in range(cfg.num_layers))
+        if param_dtype is not None:
+            for p in self.parameters():
+                p.requires_grad_(True)
 
     @property
     def device(self) -> torch.device:
@@ -152,7 +187,7 @@ class Transformer(torch.nn.Module):
         return self.embed[tokens.long()]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.final_norm(x) @ self.lm_head
+        return self.final_norm(x) @ self.lm_head.to(x.dtype)
 
 
 def _param(module: torch.nn.Module, keys) -> torch.Tensor:
@@ -191,12 +226,18 @@ def init_params(
     compute_dtype: torch.dtype = torch.bfloat16,
     kv_dtype: torch.dtype = torch.bfloat16,
     impl: str = "kernel",
+    param_dtype: Optional[torch.dtype] = None,
 ) -> Transformer:
     """A :class:`Transformer` with random weights drawn on ``device``
     (default: CUDA) by the reference's init rules, each leaf from its own
     generator seeded from ``seed`` and the leaf's path."""
     model = empty_model(
-        cfg, device=device, compute_dtype=compute_dtype, kv_dtype=kv_dtype, impl=impl
+        cfg,
+        device=device,
+        compute_dtype=compute_dtype,
+        kv_dtype=kv_dtype,
+        impl=impl,
+        param_dtype=param_dtype,
     )
     for keys, spec in iter_specs(param_specs(cfg)):
         model._assign(keys, init_leaf(spec, leaf_seed(seed, keys), model.device), spec)
@@ -234,11 +275,84 @@ def decode_step(
     return model._logits(x)
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms for the ops inside (restored after)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """Rows of ``table`` by ``ids``; the backward adds the gradients of
+    repeated ids in a fixed order (PyTorch's deterministic ``index_put_``
+    with accumulate, where its default on CUDA adds with atomics)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        out = grad.new_zeros(ctx.table_shape)
+        with _deterministic():
+            out.index_put_((ids.reshape(-1),), grad.reshape(-1, grad.shape[-1]), accumulate=True)
+        return out, None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``, differentiable with a deterministic backward."""
+    return _EmbedLookup.apply(table, tokens.long())
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the reference's remat policy ``none``/``minimal``/``full``."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "minimal":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context)
+    raise ValueError(f"remat_policy must be none, minimal or full; got {policy!r}")
+
+
+def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str = "minimal"):
+    """tokens ``[B, S]`` -> ``(logits [B, S, Vp]`` in the compute dtype,
+    ``aux`` float32 scalar, the layers' summed MoE load-balancing loss``)``:
+    the reference's ``forward_train`` for a decoder-only stack, with
+    gradients to every parameter of a training model."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = embed_lookup(model.embed, tokens).to(model.compute_dtype)
+    aux = torch.zeros((), device=tokens.device)
+    for blk in model.layers:
+        x, a = _remat(functools.partial(blk.train_layer, impl=model.impl), remat_policy)(
+            x, positions
+        )
+        aux = aux + a
+    return model._logits(x), aux
+
+
 __all__ = [
     "PagedKV",
     "Transformer",
     "decode_step",
+    "embed_lookup",
     "empty_model",
+    "forward_train",
     "init_params",
     "param_specs",
     "prefill",

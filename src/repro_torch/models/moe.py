@@ -26,6 +26,13 @@ capacity.  What the reference computes, and how the port keeps it:
     dtype (``top_w`` cast to the compute dtype, the sum rounded after each
     add); dropped pairs gather a zero row.
 
+Under autograd (training) the same algebra is differentiable: gradients
+flow through the softmax weights, the indexed dispatch (its backward gathers)
+and the combine (its backward adds into each kept row once; only the spare
+row takes several), while the slot algebra stays integer.  The expert
+products then return a fresh tensor where serving writes into a preallocated
+one.
+
 The reference's ``shard_map`` expert-parallel path is not ported yet
 (ROADMAP).  No Pallas kernel is on this path: the reference leaves routing
 and the expert products to XLA, and the port to PyTorch.
@@ -138,9 +145,15 @@ def dispatch_compute_combine(cfg: ModelConfig, x, w_gate, w_up, w_down, top_w, t
     row = torch.where(slot < C, top_e * M + group + slot, n)
     buf = x.new_zeros(n + 1, d)
     buf[row] = x[:, :, None, :]
-    out_rows = x.new_empty(n + 1, d)
-    out_rows[n] = 0
-    expert_products(buf[:n].view(E, M, d), w_gate, w_up, w_down, out=out_rows[:n].view(E, M, d))
+    if torch.is_grad_enabled():  # training: no out= (autograd does not take it)
+        y = expert_products(buf[:n].view(E, M, d), w_gate, w_up, w_down)
+        out_rows = torch.cat([y.reshape(n, d), x.new_zeros(1, d)])
+    else:
+        out_rows = x.new_empty(n + 1, d)
+        out_rows[n] = 0
+        expert_products(
+            buf[:n].view(E, M, d), w_gate, w_up, w_down, out=out_rows[:n].view(E, M, d)
+        )
     weighted = out_rows[row] * top_w.to(x.dtype)[..., None]
     out = torch.zeros_like(x)
     for kk in range(cfg.moe_top_k):
@@ -165,8 +178,10 @@ def moe_ffn(
 
 
 class MoE(torch.nn.Module):
-    """The MoE FFN of one layer; weights stored in the compute dtype (the
-    reference casts them per einsum).  Serving drops ``aux``."""
+    """The MoE FFN of one layer; a serving model stores its weights in the
+    compute dtype (the reference casts them per einsum), a training model in
+    float32, cast at each use.  Serving drops ``aux``; training adds it to
+    the loss (``forward_aux``)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -177,4 +192,8 @@ class MoE(torch.nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return moe_ffn(self.cfg, self._parameters, x)[0]
+        return self.forward_aux(x)[0]
+
+    def forward_aux(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(out, aux)``: the layer's output and its float32 load-balancing loss."""
+        return moe_ffn(self.cfg, {k: v.to(x.dtype) for k, v in self._parameters.items()}, x)

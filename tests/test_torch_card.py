@@ -426,3 +426,167 @@ def _serve_reduced(head_dim, arch="stablelm-1.6b"):
         else:
             assert sum(launches.values()) == 0
     assert tokens["kernel"] == tokens["ref"]
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash forward's log-sum-exp and the flash backward kernel
+# ---------------------------------------------------------------------------
+
+#: bounds of the backward kernel against its plain version, as the largest
+#: abs difference over the largest abs entry of each of dQ, dK, dV: both
+#: compute in float32 and differ in summation order (float32), and by one
+#: rounding of each output to bfloat16 (bf16 inputs: 2^-8 of an entry)
+BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+BWD_CASES = [
+    (1, 256, 256, 4, 2, 64, True, 0),  # GQA 2:1
+    (2, 77, 77, 8, 2, 16, True, 0),  # ragged S, D = 16
+    (1, 100, 333, 8, 1, 32, False, 0),  # ragged T, GQA 8:1, no mask
+    (1, 300, 300, 4, 4, 64, True, 64),  # window
+    (2, 200, 200, 16, 4, 128, True, 0),  # D = 128, GQA 4:1
+    (1, 517, 517, 32, 32, 64, True, 0),  # stablelm-1.6b's heads, ragged S
+    (1, 1024, 1024, 16, 16, 128, True, 0),  # olmoe-1b-7b's heads
+]
+
+
+def _bwd_inputs(gen, B, S, T, H, G, D, causal, window, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+
+    q = _randn(gen, (B, S, H, D), dtype)
+    k, v = _randn(gen, (B, T, G, D), dtype), _randn(gen, (B, T, G, D), dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    dout = _randn(gen, (B, S, H, D), dtype)
+    return q, k, v, out, lse, dout
+
+
+def _rel_err(got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,G,D,causal,window", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(card, B, S, T, H, G, D, causal, window, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(S + T + D)
+    args = _bwd_inputs(gen, B, S, T, H, G, D, causal, window, dtype)
+    before = LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_ref(*args, causal=causal, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel_err(a, b) <= BWD_REL_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("B,S,T,H,G,D,causal,window", BWD_CASES)
+def test_flash_fwd_lse_matches_plain(card, B, S, T, H, G, D, causal, window, dtype, tol):
+    """The log-sum-exp the forward writes, against the plain blockwise
+    forward's; the output equals the serving call's (no lse) bit for bit."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(S + T)
+    q = _randn(gen, (B, S, H, D), dtype)
+    k, v = _randn(gen, (B, T, G, D), dtype), _randn(gen, (B, T, G, D), dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    _, want = flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= tol
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_lse_of_rows_without_keys(card, dtype):
+    """No key at all (T = 0): out 0 and lse -inf, on both routes."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+
+    q = torch.randn(1, 5, 4, 64, device="cuda").to(dtype)
+    k = torch.empty(1, 0, 2, 64, device="cuda", dtype=dtype)
+    out, lse = flash_attention_fwd(q, k, k, causal=False)
+    torch.cuda.synchronize()
+    assert bool((out == 0).all()) and bool(torch.isneginf(lse).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_repeats_bit_for_bit(card, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args = _bwd_inputs(gen, 2, 600, 600, 8, 2, 64, True, 0, dtype)
+    first = flash_attention_bwd(*args)
+    second = flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_wrapper_refuses(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, out, lse, dout = _bwd_inputs(gen, 1, 64, 64, 4, 2, 64, True, 0, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, out, lse, dout[:, :32])  # dout's shape
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, out, lse, dout.float())  # dout's dtype
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, out, lse[:, :2], dout)  # lse's shape
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, out.transpose(1, 2).contiguous().transpose(1, 2), lse, dout)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half())
+    q48 = torch.zeros(1, 8, 4, 48, device="cuda", dtype=torch.bfloat16)
+    k48 = torch.zeros(1, 8, 2, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a head dim the kernel is not built for
+        flash_attention_bwd(q48, k48, k48, q48, lse[..., :8].contiguous(), q48)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_train_autograd_on_card(card, dtype):
+    """The autograd Function launches the forward and the backward kernel
+    once each and agrees with the plain Function's gradients."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_train
+    from repro_torch.kernels.flash_attention.ref import flash_attention_train_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    base = [_randn(gen, s, dtype) for s in ((2, 130, 8, 64), (2, 130, 4, 64), (2, 130, 4, 64))]
+    dout = _randn(gen, (2, 130, 8, 64), dtype)
+    grads = {}
+    for name, fn in (("kernel", flash_attention_train), ("ref", flash_attention_train_ref)):
+        xs = [x.clone().requires_grad_(True) for x in base]
+        reset_launches()
+        fn(*xs, causal=True).backward(dout)
+        torch.cuda.synchronize()
+        launched = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0))
+        grads[name] = [x.grad for x in xs]
+    for a, b in zip(grads["kernel"], grads["ref"]):
+        assert _rel_err(a, b) <= BWD_REL_TOL[dtype]
+
+
+def test_short_training_run_through_the_kernels(card):
+    """Three AdamW steps of smoke(stablelm-1.6b) with its head dim at 64 on
+    the card, float32 compute: the kernels launch once per layer each way
+    (twice forward under full remat) and the losses equal the plain path's
+    within 1e-4."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import step as S
+
+    cfg = smoke(get_config("stablelm-1.6b"), head_dim=64)
+    losses = {}
+    for impl in ("pallas", "jnp"):
+        run = RunConfig(compute_dtype="float32", attn_impl=impl, learning_rate=1e-3, warmup_steps=1)
+        state = S.init_train_state(cfg, run, 0)
+        fn = S.make_train_step(cfg, run, total_steps=3)
+        pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=64)
+        reset_launches()
+        losses[impl] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
+        want = (3 * 2 * cfg.num_layers, 3 * cfg.num_layers) if impl == "pallas" else (0, 0)
+        assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
+    np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)
