@@ -1981,12 +1981,11 @@ def _expert_products(serving: dict, busy_us_per_step: float) -> dict:
     rows = spec.max_batch * expert_capacity(cfg, 1)
     gen = torch.Generator(device="cuda").manual_seed(2)
     buf = _cuda_randn(gen, (E, rows, d), model.embed.dtype)
-    out = torch.empty_like(buf)
     layers = [blk.moe for blk in model.layers]
 
     def one_step():
         for m in layers:
-            expert_products(buf, m.w_gate, m.w_up, m.w_down, out=out)
+            expert_products(buf, m.w_gate, m.w_up, m.w_down)
 
     dev = device_ms(one_step, 5)
     call = time_ms(one_step, 10, warmup=2)
@@ -1994,7 +1993,7 @@ def _expert_products(serving: dict, busy_us_per_step: float) -> dict:
     nbytes = L * (3 * E * d * f + 2 * E * rows * d) * esize
     ops = L * 2 * 3 * E * rows * d * f
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-    del buf, out
+    del buf
     return {
         "expert_products": {
             "rows_per_expert": rows,
@@ -2192,19 +2191,22 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
 #: the training phase's bounds, stated in PERF.md before its first run on the
 #: card: the backward kernel against its plain version as the largest abs
 #: difference over the largest abs entry of dQ, dK, dV (summation order in
-#: float32; one bf16 rounding of each output, 2^-8), the forward's lse as an
-#: abs difference; the full-width step's kernel run against its plain run
-#: (the bf16 forward kernel rounds P to bf16 before P V where the plain path
-#: keeps float32, through 24 layers): |loss difference|, the relative
+#: float32; one bf16 rounding of each output, 2^-8), the forward's output
+#: likewise (the bf16 kernel also rounds P to bf16 before P V), the
+#: forward's lse as an abs difference; the full-width step's kernel run
+#: against its plain run (the bf16 forward kernel rounds P to bf16 before
+#: P V where the plain path keeps float32, through 24 layers): |loss difference|, the relative
 #: difference of the gradient norms and, per parameter leaf,
 #: ||g_kernel - g_plain|| / ||g_plain||; the MoE steps' |loss difference| and
 #: the least share of routing decisions that agree
 TRAIN_BWD_REL_TOL = {"bf16": 1e-2, "f32": 1e-4}
+TRAIN_OUT_REL_TOL = {"bf16": 1e-2, "f32": 1e-5}
 TRAIN_LSE_TOL = {"bf16": 1e-3, "f32": 1e-4}
 TRAIN_STEP_BOUNDS = {"loss_abs": 0.02, "grad_norm_rel": 0.05, "leaf_rel": 0.1}
 TRAIN_MOE_BOUNDS = {"loss_abs": 0.05, "route_agreement": 0.9}
-#: the full-width step's batch: ``train_4k``'s sequence length (4096), its
-#: global batch of 256 cut to the 4 sequences one card holds
+#: the full-width step's batch: the sequence length of ``RunConfig.shape``
+#: (``train_4k``, 4096), its global batch of 256 cut to the 4 sequences one
+#: card holds
 TRAIN_B, TRAIN_S = 4, 4096
 
 
@@ -2215,9 +2217,10 @@ def _rel_err(got, want) -> float:
 
 
 def _train_kernel_checks() -> dict:
-    """The flash backward kernel and the forward's log-sum-exp against their
-    plain versions on the card; two calls at the main path's shape bit for
-    bit.  Returns ``{case: largest abs difference of dQ, dK, dV}``."""
+    """The flash backward kernel and the forward's output and log-sum-exp
+    against their plain versions on the card; two calls at the main path's
+    shape bit for bit.  Returns ``{"bwd": {case: largest abs difference of
+    dQ, dK, dV}, "fwd": {case: the output's}}``."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
@@ -2233,7 +2236,7 @@ def _train_kernel_checks() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # name, B, S, T, H, G, D, causal, window, dtype
-        ("stablelm_B4_S4096", 4, 4096, 4096, 32, 32, 64, True, 0, bf16),
+        ("stablelm_B4_S4096", TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 64, True, 0, bf16),
         ("stablelm_S517", 1, 517, 517, 32, 32, 64, True, 0, bf16),
         ("olmoe_B2_S2048", 2, 2048, 2048, 16, 16, 128, True, 0, bf16),
         ("gqa4_S1000", 2, 1000, 1000, 16, 4, 64, True, 0, bf16),
@@ -2242,7 +2245,7 @@ def _train_kernel_checks() -> dict:
         ("d16_S77_f32", 2, 77, 77, 8, 2, 16, True, 0, f32),
         ("d32_T333_full", 1, 100, 333, 8, 1, 32, False, 0, bf16),
     ]
-    rows, worst, repeat = [], {}, {}
+    rows, worst, fwd_err, repeat = [], {}, {}, {}
     for name, B, S, T, H, G, D, causal, window, dtype in cases:
         q = _cuda_randn(gen, (B, S, H, D), dtype)
         k, v = (_cuda_randn(gen, (B, T, G, D), dtype) for _ in range(2))
@@ -2251,10 +2254,20 @@ def _train_kernel_checks() -> dict:
         out, lse = flash_attention_fwd(q, k, v, **kw)
         got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
-        _, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+        out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
         want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
         key = "f32" if dtype == f32 else "bf16"
-        row = dict(case=name, dtype=key, lse_max_abs_err=float((lse - lse_ref).abs().max()))
+        row = dict(
+            case=name,
+            dtype=key,
+            out_max_abs_err=_max_err(out, out_ref),
+            out_rel_err=_rel_err(out, out_ref),
+            lse_max_abs_err=float((lse - lse_ref).abs().max()),
+        )
+        check(
+            row["out_rel_err"] <= TRAIN_OUT_REL_TOL[key],
+            f"flash_attention_fwd {name}: the output differs from the plain version: {row}",
+        )
         for n, a, b in zip(("dq", "dk", "dv"), got, want):
             row[f"{n}_max_abs_err"] = _max_err(a, b)
             row[f"{n}_rel_err"] = _rel_err(a, b)
@@ -2264,15 +2277,21 @@ def _train_kernel_checks() -> dict:
             )
         check(row["lse_max_abs_err"] <= TRAIN_LSE_TOL[key], f"flash lse {name}: {row}")
         worst[name] = max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
+        fwd_err[name] = row["out_max_abs_err"]
         if name in ("stablelm_B4_S4096", "olmoe_B2_S2048"):
             again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
             repeat[name + "_fwd_lse_vs_serving_fwd"] = torch.equal(out, flash_attention(q, k, v))
         rows.append(row)
-        del q, k, v, dout, out, lse, got, want, lse_ref
+        del q, k, v, dout, out, lse, got, want, out_ref, lse_ref
     check(all(repeat.values()), f"a second call differs from the first: {repeat}")
-    emit("train_kernels", cases=rows, repeats_bit_for_bit=repeat, bounds=TRAIN_BWD_REL_TOL)
-    return worst
+    emit(
+        "train_kernels",
+        cases=rows,
+        repeats_bit_for_bit=repeat,
+        bounds={"bwd_rel": TRAIN_BWD_REL_TOL, "out_rel": TRAIN_OUT_REL_TOL, "lse": TRAIN_LSE_TOL},
+    )
+    return {"bwd": worst, "fwd": fwd_err}
 
 
 def _flops_per_step(cfg, tokens: int, seq: int) -> float:
@@ -2292,7 +2311,7 @@ def _train_step_check() -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.base import SHAPES_BY_NAME, RunConfig
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.optim import global_norm
@@ -2300,6 +2319,7 @@ def _train_step_check() -> dict:
     from repro_torch.tree import leaves_with_path
 
     cfg, run = get_config("stablelm-1.6b"), RunConfig(remat_policy="full")
+    check(TRAIN_S == SHAPES_BY_NAME[run.shape].seq_len, f"TRAIN_S is not {run.shape}'s")
     t0 = time.perf_counter()
     state = S.init_train_state(cfg, run, seed=0)
     _tempered(state.model)
@@ -2404,12 +2424,20 @@ def _train_profile(t: dict) -> None:
     CUDA events."""
     import torch
 
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.layers import cross_entropy
     from repro_torch.optim import lr_schedule, make_optimizer
     from repro_torch.tree import leaves
 
     state, step, cfg, run = t["state"], t["step"], t["cfg"], t["run"]
-    kernels, wall = device_kernels(lambda: step(state, t["batch"]))
+
+    def profiled_step():
+        reset_launches()  # device_kernels may run it again: count the last session
+        step(state, t["batch"])
+
+    kernels, wall = device_kernels(profiled_step)
+    launches = {k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
+    check(all(launches.values()), f"the profiled step launched no flash kernel: {launches}")
     fam = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
     count = dict.fromkeys(fam, 0)
     for e in kernels:
@@ -2420,7 +2448,6 @@ def _train_profile(t: dict) -> None:
         fam[k] += e.time_range.elapsed_us()
         count[k] += 1
     busy = sum(fam.values())
-    L = cfg.num_layers
 
     _, opt_update = make_optimizer(run.optimizer)
     lr = lr_schedule(
@@ -2447,11 +2474,11 @@ def _train_profile(t: dict) -> None:
         wall_ms_profiled=wall * 1e3,
         device_idle_share=1 - busy / 1e3 / (wall * 1e3) if busy else None,
         flash_fwd_ms=fam["flash_fwd"] / 1e3,
-        flash_fwd_us_per_launch=fam["flash_fwd"] / (2 * L),
+        flash_fwd_us_per_launch=fam["flash_fwd"] / launches["flash_attention"],
         flash_bwd_ms=fam["flash_bwd"] / 1e3,
-        flash_bwd_us_per_launch=fam["flash_bwd"] / L,
+        flash_bwd_us_per_launch=fam["flash_bwd"] / launches["flash_attention_bwd"],
         flash_bwd_kernels=count["flash_bwd"],
-        launches_per_step={"flash_attention": 2 * L, "flash_attention_bwd": L},
+        launches_per_step=launches,
         gemm_ms=fam["gemm"] / 1e3,
         gemm_kernels=count["gemm"],
         other_ms=fam["other"] / 1e3,
@@ -2556,9 +2583,10 @@ def _train_moe() -> dict:
     pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=2048, seed=0)
     batches = [next(pipe) for _ in range(3)]
     runs = {}
-    for impl in ("pallas", "jnp"):
-        run = RunConfig(remat_policy="full", attn_impl=impl)
+    run = RunConfig(remat_policy="full")
+    for impl in ("kernel", "ref"):
         state = S.init_train_state(cfg, run, seed=0)
+        state.model.impl = impl
         step = S.make_train_step(cfg, run, total_steps=run.steps)
         reset_launches()
         t0 = time.perf_counter()
@@ -2576,7 +2604,7 @@ def _train_moe() -> dict:
         )
         del state, step
         torch.cuda.empty_cache()
-    k, p = runs["pallas"], runs["jnp"]
+    k, p = runs["kernel"], runs["ref"]
     L = cfg.num_layers
     want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
     check(k["launches"] == want, f"MoE train launches {k['launches']}, due {want}")
@@ -2658,7 +2686,7 @@ def _train_timing(main: dict, moe: dict, errs: dict) -> list:
             2 * 8 * B * S * H * D + 4 * B * H * S,
             10 * D * H * B * S * (S + 1) // 2,
             launches["flash_attention_bwd"],
-            errs[case],
+            errs["bwd"][case],
             "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True)",
             shape=dict(B=B, S=S, H=H, G=H, D=D, causal=True),
             path=path,
@@ -2678,7 +2706,7 @@ def _train_timing(main: dict, moe: dict, errs: dict) -> list:
                 2 * 4 * B * S * H * D + 4 * B * H * S,
                 4 * D * H * B * S * (S + 1) // 2,
                 launches["flash_attention"],
-                float((lse - flash_attention_fwd_ref(q, k, v)[1]).abs().max()),
+                errs["fwd"][case],
                 "F.scaled_dot_product_attention(is_causal=True)",
                 shape=dict(B=B, S=S, H=H, G=H, D=D, causal=True, lse=True),
                 path=path,

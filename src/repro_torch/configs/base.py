@@ -184,10 +184,14 @@ class RunConfig:
     of the master parameters (the reference keeps float32; each use casts to
     ``compute_dtype``).  ``seq_parallel`` (Megatron sequence parallelism) and
     ``scan_unroll`` (layer-scan unrolling for XLA costing) mean nothing on one
-    device with an eager Python layer loop: they are kept so that a
-    reference config converts, and ignored.  ``triangular_attn`` changes no
+    device with an eager Python layer loop: they are kept so that the
+    fields stay the reference's, and ignored.  ``triangular_attn`` changes no
     value: the kernels and the plain versions skip fully masked blocks
-    always."""
+    always.  ``arch`` names the model the launcher trains, ``shape`` the
+    ``SHAPES`` cell whose sequence length a full-width step takes.
+    ``checkpoint_dir`` defaults to ``""``, no checkpoints, where the
+    reference's names a fixed directory under ``/tmp``: a run writes only
+    where it is told to."""
 
     arch: str = "stablelm-1.6b"
     shape: str = "train_4k"
@@ -203,7 +207,7 @@ class RunConfig:
     compute_dtype: str = "bfloat16"
     seed: int = 0
     grad_compression: str = "none"  # none | int8_ef
-    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_dir: str = ""  # "" = no checkpoints
     checkpoint_every: int = 50
     attn_impl: str = "pallas"  # pallas | jnp (see ATTN_IMPLS)
     seq_parallel: bool = True  # no-op on one device

@@ -173,9 +173,15 @@ def flash_attention_bwd(
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
+    if (
+        lse.shape != (B, H, S)
+        or lse.dtype != torch.float32
+        or lse.device != q.device
+        or not lse.is_contiguous()
+    ):
         raise ValueError(
-            f"lse must be a contiguous float32 [B, H, S]; got {tuple(lse.shape)}, {lse.dtype}"
+            f"lse must be a contiguous float32 [B, H, S] on q's device; got "
+            f"{tuple(lse.shape)}, {lse.dtype} on {lse.device}"
         )
     scale = scale if scale is not None else D**-0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -29,25 +29,26 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-dir", default=RunConfig.checkpoint_dir)
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--grad-compression", default="none")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' for the host")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = smoke(cfg)
     run = RunConfig(
         arch=args.arch,
         steps=args.steps,
         optimizer=args.optimizer,
         grad_compression=args.grad_compression,
         microbatches=args.microbatches,
+        checkpoint_dir=args.ckpt_dir,
         checkpoint_every=max(10, args.steps // 4),
     )
-    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    cfg = get_config(run.arch)
+    if args.smoke:
+        cfg = smoke(cfg)
+    ckpt = CheckpointManager(run.checkpoint_dir) if run.checkpoint_dir else None
     t0 = time.time()
     res = train_loop(cfg, run, steps=args.steps, ckpt=ckpt, device=args.device)
     dt = time.time() - t0

@@ -29,9 +29,9 @@ capacity.  What the reference computes, and how the port keeps it:
 Under autograd (training) the same algebra is differentiable: gradients
 flow through the softmax weights, the indexed dispatch (its backward gathers)
 and the combine (its backward adds into each kept row once; only the spare
-row takes several), while the slot algebra stays integer.  The expert
-products then return a fresh tensor where serving writes into a preallocated
-one.
+row takes several), while the slot algebra stays integer.  Serving and
+training share the one path: the expert products return a fresh tensor and
+the spare zero row is appended to it.
 
 The reference's ``shard_map`` expert-parallel path is not ported yet
 (ROADMAP).  No Pallas kernel is on this path: the reference leaves routing
@@ -124,12 +124,11 @@ def route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor, *, whiten: bo
 
 
 def expert_products(
-    buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor, out=None
+    buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
 ) -> torch.Tensor:
-    """SwiGLU of every expert over its rows: buf ``[E, M, d]`` -> ``[E, M, d]``
-    (into ``out`` where given)."""
+    """SwiGLU of every expert over its rows: buf ``[E, M, d]`` -> ``[E, M, d]``."""
     h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-    return torch.bmm(h, w_down, out=out)
+    return torch.bmm(h, w_down)
 
 
 def dispatch_compute_combine(cfg: ModelConfig, x, w_gate, w_up, w_down, top_w, top_e, slot):
@@ -145,15 +144,8 @@ def dispatch_compute_combine(cfg: ModelConfig, x, w_gate, w_up, w_down, top_w, t
     row = torch.where(slot < C, top_e * M + group + slot, n)
     buf = x.new_zeros(n + 1, d)
     buf[row] = x[:, :, None, :]
-    if torch.is_grad_enabled():  # training: no out= (autograd does not take it)
-        y = expert_products(buf[:n].view(E, M, d), w_gate, w_up, w_down)
-        out_rows = torch.cat([y.reshape(n, d), x.new_zeros(1, d)])
-    else:
-        out_rows = x.new_empty(n + 1, d)
-        out_rows[n] = 0
-        expert_products(
-            buf[:n].view(E, M, d), w_gate, w_up, w_down, out=out_rows[:n].view(E, M, d)
-        )
+    y = expert_products(buf[:n].view(E, M, d), w_gate, w_up, w_down)
+    out_rows = torch.cat([y.reshape(n, d), x.new_zeros(1, d)])
     weighted = out_rows[row] * top_w.to(x.dtype)[..., None]
     out = torch.zeros_like(x)
     for kk in range(cfg.moe_top_k):

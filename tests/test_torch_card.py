@@ -536,6 +536,8 @@ def test_flash_bwd_wrapper_refuses(card):
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, out, lse[:, :2], dout)  # lse's shape
     with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, out, lse.cpu(), dout)  # lse's device
+    with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, out.transpose(1, 2).contiguous().transpose(1, 2), lse, dout)
     with pytest.raises(TypeError):
         flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half())

@@ -148,5 +148,7 @@ def test_run_config_matches_reference_fields():
     ours = {f.name: f.default for f in dataclasses.fields(RunConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(RefRunConfig)}
     assert sorted(ours) == sorted(theirs)
-    assert {k for k in ours if ours[k] != theirs[k]} == {"attn_impl"}
+    # the port's kernels by default, and no fixed checkpoint directory
+    assert {k for k in ours if ours[k] != theirs[k]} == {"attn_impl", "checkpoint_dir"}
+    assert RunConfig().checkpoint_dir == ""
     assert RunConfig(attn_impl="jnp").impl == "ref" and RunConfig().impl == "kernel"
