@@ -98,7 +98,8 @@ Phases, one JSON line each; any failure exits non-zero:
   16. training  (run after 11, before 12) the training path: the flash
                  backward kernel against its plain version (stablelm-1.6b's
                  heads at S = 4096, B = 4 and at a ragged S = 517, olmoe-1b-7b's,
-                 GQA, float32), the forward's log-sum-exp, two calls bit for bit;
+                 GQA at head dims 64 and 128, windows, causal with T != S,
+                 float32), the forward's log-sum-exp, two calls bit for bit;
                  one full-width stablelm-1.6b step (B = 4 x S = 4096, AdamW,
                  remat "full", bf16 compute, float32 parameters) with the
                  kernels against the plain attention path from one state and
@@ -108,8 +109,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  ``repro_torch.launch.train`` at full width (its loss must
                  fall); crash and resume at full width with 2 of 24 layers;
                  olmoe-1b-7b with 4 of 16 layers, three steps kernel against
-                 plain; and the timing rows of the backward and of the forward
-                 with its log-sum-exp
+                 plain; and the timing rows of the backward (with its rate on
+                 its 7 products and its share of the 5-product bound) and of
+                 the forward with its log-sum-exp
 The serving phases (8, 11) also record each full-width run's KV access stream and
 hold it to a traffic-only engine's on the same prompts: the stream the
 co-sim replays.  Then the kernels line, the card's name and power limit, and as the last line
@@ -2244,6 +2246,12 @@ def _train_kernel_checks() -> dict:
         ("window64_d128_f32", 1, 300, 300, 8, 8, 128, True, 64, f32),
         ("d16_S77_f32", 2, 77, 77, 8, 2, 16, True, 0, f32),
         ("d32_T333_full", 1, 100, 333, 8, 1, 32, False, 0, bf16),
+        ("window128_d128_gqa4", 2, 600, 600, 8, 2, 128, True, 128, bf16),
+        ("window100_d32_full", 1, 400, 400, 4, 2, 32, False, 100, bf16),
+        ("gqa4_d128_S1000", 2, 1000, 1000, 16, 4, 128, True, 0, bf16),
+        ("causal_S300_T500", 1, 300, 500, 8, 2, 64, True, 0, bf16),
+        ("causal_S500_T300", 1, 500, 300, 8, 2, 64, True, 0, bf16),
+        ("causal_S500_T300_f32", 1, 500, 300, 8, 2, 64, True, 0, f32),
     ]
     rows, worst, fwd_err, repeat = [], {}, {}, {}
     for name, B, S, T, H, G, D, causal, window, dtype in cases:
@@ -2692,6 +2700,10 @@ def _train_timing(main: dict, moe: dict, errs: dict) -> list:
             path=path,
             queued=True,
         )
+        # the kernel's own work: S and dP in both passes, 7 products in all
+        work = 14 * D * H * B * S * (S + 1) // 2
+        row["tflops_7_products"] = work / (row["ms"] * 1e-3) / 1e12
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         if path.startswith("stablelm"):
             fwd = {

@@ -5,8 +5,10 @@ Each ``kernels/<name>/`` holds ``ref.py`` (the plain PyTorch version),
 ``ops.py`` (the wrapper: the kernel for CUDA tensors, the plain version for
 CPU tensors).  The flash backward's source has a package of its own
 (``flash_attention_bwd/csrc``), so that it builds apart; its wrapper and
-plain version sit beside the forward's.  ``LAUNCHES`` counts each kernel's
-launches, so a run can show that its main path went through the kernels.
+plain version sit beside the forward's.  Headers that kernel sources share
+(the flash kernels' TMA, mbarrier and ``wgmma`` helpers) live in
+``kernels/include/``.  ``LAUNCHES`` counts each kernel's launches, so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 Each kernel source ``kernels/<name>/csrc/<name>.cu`` has a plain C interface.
 ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library under
 ``kernels/_build/`` (listed in ``.gitignore``), named after a hash of every
-file under the kernel's ``csrc/`` and the flags, so an edited source or
-header is rebuilt.  Several sources build in parallel,
+file under the kernel's ``csrc/``, every shared header under
+``kernels/include/`` and the flags, so an edited source or header is
+rebuilt.  Several sources build in parallel,
 one ``nvcc`` process each.  A failed build raises with nvcc's stderr.
 """
 
@@ -19,6 +20,8 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
+#: headers that kernel sources share (``#include "../../include/<name>.cuh"``)
+INCLUDE_DIR = KERNELS_DIR / "include"
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -46,9 +49,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str, flags, build_dir: Path) -> Path:
     digest = hashlib.sha1(" ".join(flags).encode())
-    for f in sorted(source_path(name).parent.rglob("*")):
-        if f.is_file():
-            digest.update(f.name.encode() + f.read_bytes())
+    for d in (source_path(name).parent, INCLUDE_DIR):
+        for f in sorted(d.rglob("*")):
+            if f.is_file():
+                digest.update(f.name.encode() + f.read_bytes())
     return build_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

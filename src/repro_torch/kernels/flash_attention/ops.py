@@ -15,8 +15,9 @@ Training goes through ``flash_attention_train``, a ``torch.autograd.Function``
 whose forward is ``flash_attention_fwd`` (the same kernel, also writing each
 row's log-sum-exp ``[B, H, S]``, float32) and whose backward is
 ``flash_attention_bwd``: on CUDA tensors the hand-written kernel of
-``kernels/flash_attention_bwd`` (counted in ``LAUNCHES["flash_attention_bwd"]``),
-on CPU tensors the plain blockwise backward of ``ref.py``.
+``kernels/flash_attention_bwd`` (counted in ``LAUNCHES["flash_attention_bwd"]``;
+bfloat16 on the tensor cores with ``dout`` read through TMA, float32 on the
+CUDA cores), on CPU tensors the plain blockwise backward of ``ref.py``.
 """
 
 from __future__ import annotations
@@ -173,6 +174,8 @@ def flash_attention_bwd(
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if dout.data_ptr() % 16:
+        raise ValueError("dout must start on a 16-byte boundary (TMA)")
     if (
         lse.shape != (B, H, S)
         or lse.dtype != torch.float32

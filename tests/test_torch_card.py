@@ -435,7 +435,9 @@ def _serve_reduced(head_dim, arch="stablelm-1.6b"):
 #: bounds of the backward kernel against its plain version, as the largest
 #: abs difference over the largest abs entry of each of dQ, dK, dV: both
 #: compute in float32 and differ in summation order (float32), and by one
-#: rounding of each output to bfloat16 (bf16 inputs: 2^-8 of an entry)
+#: rounding of each output to bfloat16 (bf16 inputs: 2^-8 of an entry); the
+#: bf16 kernel also rounds P and dS to bf16 before the products they feed
+#: (``tests/test_torch_flash_bwd.py`` bounds those roundings by 5e-3)
 BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 BWD_CASES = [
@@ -446,6 +448,11 @@ BWD_CASES = [
     (2, 200, 200, 16, 4, 128, True, 0),  # D = 128, GQA 4:1
     (1, 517, 517, 32, 32, 64, True, 0),  # stablelm-1.6b's heads, ragged S
     (1, 1024, 1024, 16, 16, 128, True, 0),  # olmoe-1b-7b's heads
+    (2, 600, 600, 8, 2, 128, True, 128),  # window at D = 128, GQA 4:1
+    (1, 400, 400, 4, 2, 32, False, 100),  # window without the causal mask
+    (2, 1000, 1000, 16, 4, 128, True, 0),  # D = 128, GQA 4:1, S not a multiple of 64
+    (1, 300, 500, 8, 2, 64, True, 0),  # causal, T > S
+    (1, 500, 300, 8, 2, 64, True, 0),  # causal, T < S
 ]
 
 
@@ -541,6 +548,9 @@ def test_flash_bwd_wrapper_refuses(card):
         flash_attention_bwd(q, k, v, out.transpose(1, 2).contiguous().transpose(1, 2), lse, dout)
     with pytest.raises(TypeError):
         flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half())
+    buf = torch.empty(dout.numel() + 8, device="cuda", dtype=dout.dtype)
+    with pytest.raises(ValueError):  # dout 2 bytes past a 16-byte boundary (TMA)
+        flash_attention_bwd(q, k, v, out, lse, buf[1 : 1 + dout.numel()].view_as(dout))
     q48 = torch.zeros(1, 8, 4, 48, device="cuda", dtype=torch.bfloat16)
     k48 = torch.zeros(1, 8, 2, 48, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # a head dim the kernel is not built for
