@@ -62,6 +62,22 @@ Phases, one JSON line each; any failure exits non-zero:
                 profile (as 9, and one decode step's expert products against
                 their weight-read bound) and its kernels' timing rows (as 10,
                 flash at S = 1024)
+  11m. serving_mla  the MLA serving path: deepseek-v2-lite-16b at full width
+                (27 layers, d 2048, 16 heads, kv_lora_rank 512, qk 128 + 64,
+                v 128, 64 experts top-6 of 1408 plus 2 shared, 16.2 B
+                parameters) with the same request mix and checks as 8: one
+                576-wide latent row per token and layer in the pool (W =
+                15552), prefill through flash at QK width 192 / V width 128,
+                decode through the latent paged call in the absorbed form;
+                ``wq``/``w_uk`` tempered (the scores' std per layer printed
+                before and after); teacher forced in bf16 against the plain
+                absorbed path, and the plain absorbed against the plain
+                non-absorbed form, with routing agreement; then its profile
+                (as 11) and timing rows (as 10, flash at S = 128, 517, 1024).
+                Its kernels are also held to their plain versions in 2 (flash
+                (192, 128) at S = 128, 517, 1024, bf16 and float32; the
+                latent call at the first wave's mid-decode lengths with an
+                idle slot; banked_copy at the 497,664-byte tile)
   12. sweep     the scale path's main path, through the public entry points
                  with B lanes per arbiter launch: the golden ``"batch"`` entry
                  through ``simulate_batch`` and the three golden cases through
@@ -1394,6 +1410,17 @@ def _max_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
 
 
+def _mla_lengths() -> list:
+    """deepseek-v2-lite-16b's first wave at mid-decode: its 8 first prompts'
+    lengths plus 16 (``launch.serve.FULL``, seed 0, as its serving run draws
+    them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    prompts = serve.make_prompts(get_config("deepseek-v2-lite-16b"), serve.FULL, seed=0)
+    return [len(p) + serve.FULL.max_new_tokens // 2 for p in prompts[: serve.FULL.max_batch]]
+
+
 def phase_llm_kernels() -> dict:
     """Flash attention, paged attention and banked_copy against their plain
     versions on the card, then two calls of flash and paged at the path's
@@ -1520,6 +1547,7 @@ def phase_llm_kernels() -> dict:
         ("unaligned_3x5", 2, 3, 16, 3, 5, (f32, bf16)),
         ("path_64_blocks", 1, 64, 2048, 16, 24 * 2 * 32 * 64, (bf16,)),
         ("olmoe_64_blocks", 1, 64, 2048, 16, 16 * 2 * 16 * 128, (bf16,)),
+        ("mla_64_blocks", 1, 64, 2048, 16, 27 * 576, (bf16,)),  # a 497,664-byte tile
     ]
     for name, B, nblk, NB, bs, W, dtypes in copy_cases:
         for dtype in dtypes:
@@ -1537,9 +1565,43 @@ def phase_llm_kernels() -> dict:
             record("banked_copy", f"{name}_{str(dtype)[6:]}", float(not torch.equal(got, want)), 0)
             del pool, new, got, want
 
+    # MLA (deepseek-v2-lite-16b): flash at QK 192 / V 128 at its prompts'
+    # lengths, the latent paged call (16 heads, K rows of 576, V their first
+    # 512 columns) at its first wave's mid-decode lengths over a strided layer
+    # view of the all-layer latent pool, one slot idle, ragged last blocks
+    repeat = {}
+    mla_scale = 192**-0.5
+    for S in (128, 517, 1024):
+        for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
+            q, k = (_cuda_randn(gen, (1, S, 16, 192), dtype) for _ in range(2))
+            v = _cuda_randn(gen, (1, S, 16, 128), dtype)
+            got = flash_attention(q, k, v, causal=True, scale=mla_scale)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, causal=True, scale=mla_scale)
+            record("flash_attention", f"mla_S{S}_{str(dtype)[6:]}", _max_err(got, want), tol)
+            if S == 1024 and dtype == bf16:
+                again = flash_attention(q, k, v, causal=True, scale=mla_scale)
+                repeat["flash_attention_mla"] = torch.equal(got, again)
+    lens = _mla_lengths()
+    lens[3] = 0
+    for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
+        pool = _cuda_randn(gen, (2048, 16, 27, 576), dtype)
+        kv = pool[:, :, 5, None]
+        tbl = _unique_tables(gen, 8, 128, 2048, [-(-n // 16) for n in lens])
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = _cuda_randn(gen, (8, 16, 576), dtype)
+        got = paged_attention(q, kv, kv[..., :512], tbl, ln, scale=mla_scale)
+        torch.cuda.synchronize()
+        want = paged_attention_ref(q, kv, kv[..., :512], tbl, ln, scale=mla_scale)
+        record("paged_attention", f"mla_latent_{str(dtype)[6:]}", _max_err(got, want), tol)
+        check(bool((got[3] == 0).all()), "paged latent call: idle slot not 0")
+        if dtype == bf16:
+            again = paged_attention(q, kv, kv[..., :512], tbl, ln, scale=mla_scale)
+            repeat["paged_attention_mla"] = torch.equal(got, again)
+        del pool, kv
+
     # the redesigned kernels repeat to the bit at the paths' shapes
     # (stablelm-1.6b: 32 heads of 64; olmoe-1b-7b: 16 heads of 128)
-    repeat = {}
     for label, H, D in (("", 32, 64), ("_olmoe", 16, 128)):
         q, k, v = (_cuda_randn(gen, (1, 1024, H, D), bf16) for _ in range(3))
         repeat["flash_attention" + label] = torch.equal(
@@ -1671,8 +1733,9 @@ def _serving_engine_cls():
 
 
 def _tempered(model):
-    """``model`` with every layer's ``wq`` and ``wk`` scaled by 1/8 (exact in
-    bf16): attention scores of std ~1, as in a trained model.  Under the
+    """``model`` with every layer's ``wq`` and ``wk`` (MLA: ``wq`` and
+    ``w_uk``, which makes K's non-RoPE part) scaled by 1/8 (exact in bf16):
+    attention scores of std ~1, as in a trained model.  Under the
     reference's fan-in init they have std ~64 and the network is chaotic at
     any precision, so two paths that differ in the last bit of one sum give
     unrelated logits (PERF.md, Findings)."""
@@ -1681,8 +1744,37 @@ def _tempered(model):
     with torch.no_grad():
         for blk in model.layers:
             blk.attn.wq.mul_(0.125)
-            blk.attn.wk.mul_(0.125)
+            (blk.attn.w_uk if model.cfg.use_mla else blk.attn.wk).mul_(0.125)
     return model
+
+
+def _score_std(model, prompt) -> list:
+    """Per layer, the std of the prefill's attention scores (scaled, causal
+    entries, the first 256 query rows) of one prompt, read at the flash
+    call's inputs; its launches are not the main path's."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models import model as M
+
+    stds = []
+    flash, paged = attention.ATTENTION["kernel"]
+
+    def spy(q, k, v, *, causal=True, window=0, scale=None):
+        G = k.shape[2]
+        qg = q[:, :256].unflatten(2, (G, -1)).float()
+        scale_ = scale if scale is not None else q.shape[-1] ** -0.5
+        s = torch.einsum("bsgmd,btgd->bgmst", qg, k.float()) * scale_
+        ok = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        stds.append(float(s[..., ok].std()))
+        return flash(q, k, v, causal=causal, window=window, scale=scale)
+
+    attention.ATTENTION["kernel"] = (spy, paged)
+    try:
+        M.prefill(model, torch.as_tensor(prompt, device="cuda")[None])
+    finally:
+        attention.ATTENTION["kernel"] = (flash, paged)
+    return stds
 
 
 def _logits_gap(a: dict, b: dict) -> dict:
@@ -1713,12 +1805,31 @@ def _logits_gap(a: dict, b: dict) -> dict:
 FORCING_BOUNDS = {
     "stablelm-1.6b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
     "olmoe-1b-7b": {"bf16": (0.1, 0.9), "f32": (1e-4, 0.99)},
+    "deepseek-v2-lite-16b": {"bf16": (0.5, 0.9)},
 }
+#: deepseek-v2-lite-16b's plain absorbed decode against the plain
+#: non-absorbed one (the reference's two forms of one function), teacher
+#: forced, bf16: the same bounds as the kernel path against the plain one
+MLA_FORMS_BOUND = FORCING_BOUNDS["deepseek-v2-lite-16b"]["bf16"]
 #: least share of routing decisions (layer, token, k) on which the MoE
 #: path's teacher-forced plain run agrees with its kernel run (measured in
 #: that run: bf16 95.7 %, float32 99.9995 %; bf16 attention's rounding
 #: moves bf16 router logits, which tie often, across a top-8 edge)
 ROUTE_AGREEMENT = {"bf16": 0.9, "f32": 0.999}
+
+
+def _decode_form(absorbed: bool):
+    """A wrapper of ``models.model.decode_step`` that decodes MLA in the
+    given form (the engine asks for the absorbed one); GQA ignores it."""
+
+    def wrap(inner):
+        def run(*args, **kwargs):
+            kwargs["mla_absorbed"] = absorbed
+            return inner(*args, **kwargs)
+
+        return run
+
+    return wrap
 
 
 @contextlib.contextmanager
@@ -1781,10 +1892,20 @@ def phase_serving_moe() -> dict:
     return _serving_path("olmoe-1b-7b", "serving_moe", temper=False)
 
 
-def _serving_path(arch: str, phase: str, *, temper: bool) -> dict:
+def phase_serving_mla() -> dict:
+    """The MLA serving path: deepseek-v2-lite-16b at full width (27 layers,
+    16.2 B parameters), ``wq``/``w_uk`` tempered, decoding in the absorbed
+    form over the pool's latent rows; teacher forced in bf16 only (float32
+    weights, 64.8 GB beside the bf16 model's 32.4 GB, do not fit the card),
+    with the plain absorbed and non-absorbed forms also held to each other."""
+    return _serving_path("deepseek-v2-lite-16b", "serving_mla", temper=True, f32_forcing=False)
+
+
+def _serving_path(arch: str, phase: str, *, temper: bool, f32_forcing: bool = True) -> dict:
     """One serving path at full width through ``repro_torch.launch.serve``;
     returns what the later phases need (model, prompts, launch counts, host
-    time per decode step)."""
+    time per decode step).  ``f32_forcing``: also teacher force a float32
+    model through the kernels and the plain path."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1797,11 +1918,16 @@ def _serving_path(arch: str, phase: str, *, temper: bool) -> dict:
     moe = cfg.is_moe_layer(0)
     t0 = time.perf_counter()
     model = M.init_params(cfg, 0)
-    if temper:
-        model = _tempered(model)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = serve.make_prompts(cfg, spec, seed=0)
+    score_std = {}
+    if temper:
+        if cfg.use_mla:
+            score_std["untempered"] = _score_std(model, prompts[0])
+        model = _tempered(model)
+        if cfg.use_mla:
+            score_std["tempered"] = _score_std(model, prompts[0])
     engine_cls = _serving_engine_cls()
 
     # prediction: the traffic-only engine runs the same control flow
@@ -1854,13 +1980,14 @@ def _serving_path(arch: str, phase: str, *, temper: bool) -> dict:
 
     # teacher forcing: the first wave again, fed the kernel run's tokens, on
     # the same batches, blocks and GEMM shapes, through the plain attention
-    # path in bf16, and through kernels and plain path in float32
-    def forced_run(m, impl):
+    # path in bf16, and through kernels and plain path in float32; MLA also
+    # through the plain non-absorbed decode
+    def forced_run(m, impl, absorbed=True):
         m.impl = impl
         reset_launches()
         tf, _ = serve.new_engine(cfg, m, spec, prompts[: spec.max_batch], engine_cls=engine_cls)
         tf.record, tf.forced = frozenset(forced), forced
-        with _routes_logged() as routes:
+        with _routes_logged() as routes, _patched(M, "decode_step", _decode_form(absorbed)):
             tf.run()
         m.impl = "kernel"
         ran = sum(LAUNCHES.values())
@@ -1869,37 +1996,44 @@ def _serving_path(arch: str, phase: str, *, temper: bool) -> dict:
         return tf.logits, routes
 
     plain_logits, plain_routes = forced_run(model, "ref")
-    model32 = M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
-    if temper:
-        model32 = _tempered(model32)
-    kernel32, kernel32_routes = forced_run(model32, "kernel")
-    plain32, plain32_routes = forced_run(model32, "ref")
-    del model32
-    forcing = {
-        "bf16_kernel_vs_plain": _logits_gap(kernel_logits, plain_logits),
-        "f32_kernel_vs_plain": _logits_gap(kernel32, plain32),
-        "bf16_kernel_vs_f32_plain": _logits_gap(kernel_logits, plain32),
-    }
+    forcing = {"bf16_kernel_vs_plain": _logits_gap(kernel_logits, plain_logits)}
+    routes = {"bf16_kernel_vs_plain": (kernel_routes, plain_routes)}
+    if f32_forcing:
+        model32 = M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
+        if temper:
+            model32 = _tempered(model32)
+        kernel32, kernel32_routes = forced_run(model32, "kernel")
+        plain32, plain32_routes = forced_run(model32, "ref")
+        del model32
+        forcing["f32_kernel_vs_plain"] = _logits_gap(kernel32, plain32)
+        forcing["bf16_kernel_vs_f32_plain"] = _logits_gap(kernel_logits, plain32)
+        routes["f32_kernel_vs_plain"] = (kernel32_routes, plain32_routes)
+        routes["bf16_kernel_vs_f32_plain"] = (kernel_routes, plain32_routes)
+    if cfg.use_mla:
+        na_logits, na_routes = forced_run(model, "ref", absorbed=False)
+        forcing["bf16_plain_absorbed_vs_non_absorbed"] = _logits_gap(plain_logits, na_logits)
+        routes["bf16_plain_absorbed_vs_non_absorbed"] = (plain_routes, na_routes)
     if moe:
-        forcing["routes"] = {
-            "bf16_kernel_vs_plain": _route_agreement(kernel_routes, plain_routes),
-            "f32_kernel_vs_plain": _route_agreement(kernel32_routes, plain32_routes),
-            "bf16_kernel_vs_f32_plain": _route_agreement(kernel_routes, plain32_routes),
-        }
-    del kernel_routes, plain_routes, kernel32_routes, plain32_routes
+        forcing["routes"] = {k: _route_agreement(*v) for k, v in routes.items()}
+    del kernel_routes, plain_routes, routes
+    if score_std:
+        forcing["score_std_by_layer"] = score_std
     emit(phase.replace("serving", "teacher_forcing"), tokens=len(kernel_logits), **forcing)
     # tolerances and their reasons are stated in PERF.md (Findings) before their first run
-    for name, (max_gap, agreement) in FORCING_BOUNDS[arch].items():
-        gap = forcing[f"{name}_kernel_vs_plain"]
+    bounds = {f"{k}_kernel_vs_plain": (k, v) for k, v in FORCING_BOUNDS[arch].items()}
+    if cfg.use_mla:
+        bounds["bf16_plain_absorbed_vs_non_absorbed"] = ("bf16", MLA_FORMS_BOUND)
+    for key, (name, (max_gap, agreement)) in bounds.items():
+        gap = forcing[key]
         check(
             gap["max"] <= max_gap and gap["argmax_agreement"] >= agreement,
-            f"{arch} {name} teacher forcing: kernel and plain paths differ: {gap}",
+            f"{arch} {key} teacher forcing: the two paths differ: {gap}",
         )
         if moe:
-            routes = forcing["routes"][f"{name}_kernel_vs_plain"]
+            agree = forcing["routes"][key]
             check(
-                routes["agreement"] >= ROUTE_AGREEMENT[name],
-                f"{arch} {name} teacher forcing: routing decisions differ: {routes}",
+                agree["agreement"] >= ROUTE_AGREEMENT[name],
+                f"{arch} {key} teacher forcing: routing decisions differ: {agree}",
             )
     emit(
         phase,
@@ -1948,7 +2082,8 @@ def phase_serving_profile(serving: dict) -> None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    paged_us = sum(v for k, v in by_name.items() if "paged_split" in k or "paged_merge" in k)
+    paged = ("paged_split", "paged_latent_split", "paged_merge")
+    paged_us = sum(v for k, v in by_name.items() if any(n in k for n in paged))
     host_us = serving["decode_ms_per_step"] * 1e3
     del eng
     moe = _expert_products(serving, busy_us / steps) if serving["model"].cfg.moe_num_experts else {}
@@ -2017,7 +2152,8 @@ def _timing_row(
     with ``queued`` the device time of queued calls between CUDA events
     (``queued_ms``): the training path's kernels launch three kernels per
     call from ctypes, and the profiler's per-call sessions drop some of
-    them (in a profiled train step it records them all)."""
+    them (in a profiled train step it records them all); banked_copy's
+    rows too."""
     call_ms = {k: time_ms(fn, iters, warmup=2 if queued else 20) for k, fn in fns.items()}
     dev_ms = {k: device_ms(fn, max(5, iters // 5)) for k, fn in fns.items()}
     ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
@@ -2064,10 +2200,13 @@ def _timing_row(
 
 def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) -> list:
     """Timing rows of the serving kernels at a serving path's shapes (bf16;
-    stablelm-1.6b or olmoe-1b-7b): flash at the longest prompt (S = 1024;
-    shorter ``flash_lengths`` on timing lines of their own), paged attention
-    over 8 slots at the first wave's mid-decode lengths, banked_copy of a
-    64-block burst into the 2048-block pool."""
+    stablelm-1.6b, olmoe-1b-7b or deepseek-v2-lite-16b): flash at the longest
+    prompt (S = 1024; shorter ``flash_lengths`` on timing lines of their
+    own), paged attention over 8 slots at the first wave's mid-decode
+    lengths, banked_copy of a 64-block burst into the 2048-block pool.  MLA's
+    flash has QK width 192 and V width 128 at scale 192^-0.5, and its paged
+    call is the latent one (16 heads, K rows of 576, V their first 512
+    columns)."""
     import torch
     import torch.nn.functional as F
 
@@ -2078,8 +2217,13 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    cfg, spec, launches = serving["model"].cfg, serving["spec"], serving["launches"]
+    model, spec, launches = serving["model"], serving["spec"], serving["launches"]
+    cfg = model.cfg
     H, G, D, L = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    Dk, Dv, scale = D, D, None
+    if cfg.use_mla:  # prefill: one KV head per query head; decode: the latent call
+        Dk, Dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+        scale = Dk**-0.5
     NB, bs, mb = 2048, spec.block_size, spec.max_len // spec.block_size
     bf16, gen = torch.bfloat16, torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -2087,25 +2231,28 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
     # flash at the short prompts (timing lines only, where a 64-row tile
     # leaves the card underfilled) and at the longest (the kernels line)
     for S in flash_lengths:
-        q, k, v = (_cuda_randn(gen, (1, S, n, D), bf16) for n in (H, G, G))
+        q, k = _cuda_randn(gen, (1, S, H, Dk), bf16), _cuda_randn(gen, (1, S, G, Dk), bf16)
+        v = _cuda_randn(gen, (1, S, G, Dv), bf16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
-        check(_max_err(lib, flash_attention_ref(q, k, v)) <= 2e-2, "SDPA yardstick disagrees")
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+        lib = sdpa().transpose(1, 2)
+        want = flash_attention_ref(q, k, v, scale=scale)
+        check(_max_err(lib, want) <= 2e-2, "SDPA yardstick disagrees")
         fns = {
-            "kernel": lambda: flash_attention(q, k, v),
-            "plain": lambda: flash_attention_ref(q, k, v),
-            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            "kernel": lambda: flash_attention(q, k, v, scale=scale),
+            "plain": lambda: flash_attention_ref(q, k, v, scale=scale),
+            "library": sdpa,
         }
         row = _timing_row(
             "flash_attention",
             fns,
             100,
-            4 * S * H * D * 2,
-            4 * D * H * S * (S + 1) // 2,
+            S * (H + G) * (Dk + Dv) * 2,
+            (Dk + Dv) * H * S * (S + 1),
             launches["flash_attention"],
             errs["flash_attention"],
             "F.scaled_dot_product_attention(is_causal=True)",
-            shape=dict(B=1, S=S, H=H, G=G, D=D, causal=True),
+            shape=dict(B=1, S=S, H=H, G=G, D=Dk, Dv=Dv, causal=True),
             path=cfg.name,
         )
         if S == 1024:
@@ -2130,44 +2277,59 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
 
     B = spec.max_batch
     lens = [len(p) + spec.max_new_tokens // 2 for p in serving["prompts"][:B]]
-    pool = _cuda_randn(gen, (NB, bs, L, 2, G, D), bf16)
-    kp, vp = pool[:, :, 0, 0], pool[:, :, 0, 1]
     tbl = _unique_tables(gen, B, mb, NB, [-(-n // bs) for n in lens])
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    q = _cuda_randn(gen, (B, H, D), bf16)
-    # yardstick: SDPA over K/V gathered beforehand (the gather is not timed)
-    kg = kp[tbl.long().clamp(min=0)].reshape(B, mb * bs, G, D).transpose(1, 2).contiguous()
-    vg = vp[tbl.long().clamp(min=0)].reshape(B, mb * bs, G, D).transpose(1, 2).contiguous()
+    tokens = sum(lens)
+    idx = tbl.long().clamp(min=0)
+    pool = _cuda_randn(gen, (NB, bs, *model.kv_row_shape()), bf16)
+    if cfg.use_mla:  # the latent call: V is K's first kv_lora_rank columns
+        G, Dk, Dv = 1, cfg.latent_dim, cfg.kv_lora_rank
+        kp = pool[:, :, 0, None]
+        vp = kp[..., :Dv]
+        nbytes = tokens * Dk * 2  # each latent row read once
+    else:
+        kp, vp = pool[:, :, 0, 0], pool[:, :, 0, 1]
+        nbytes = tokens * G * (Dk + Dv) * 2
+    nbytes += B * H * (Dk + Dv) * 2 + B * mb * 4 + B * 4
+    q = _cuda_randn(gen, (B, H, Dk), bf16)
+    # yardstick: SDPA over K/V gathered beforehand (the gather is not timed;
+    # MLA's one latent head broadcast to the 16 query heads as a view)
+    kg = kp[idx].reshape(B, mb * bs, G, Dk).transpose(1, 2).contiguous()
+    vg = vp[idx].reshape(B, mb * bs, G, Dv).transpose(1, 2).contiguous()
+    kg, vg = kg.expand(B, H, -1, -1), vg.expand(B, H, -1, -1)
     mask = (torch.arange(mb * bs, device="cuda")[None] < ln[:, None].long())[:, None, None]
     q4 = q[:, :, None]
-    lib = F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)[:, :, 0]
-    check(_max_err(lib, paged_attention_ref(q, kp, vp, tbl, ln)) <= 3e-2, "paged yardstick")
-    tokens = sum(lens)
+    sdpa = lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, scale=scale)
+    lib = sdpa()[:, :, 0]
+    want = paged_attention_ref(q, kp, vp, tbl, ln, scale=scale)
+    check(_max_err(lib, want) <= 3e-2, "paged yardstick")
     rows.append(
         _timing_row(
             "paged_attention",
             {
-                "kernel": lambda: paged_attention(q, kp, vp, tbl, ln),
-                "plain": lambda: paged_attention_ref(q, kp, vp, tbl, ln),
-                "library": lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask),
+                "kernel": lambda: paged_attention(q, kp, vp, tbl, ln, scale=scale),
+                "plain": lambda: paged_attention_ref(q, kp, vp, tbl, ln, scale=scale),
+                "library": sdpa,
             },
             200,
-            2 * tokens * G * D * 2 + 2 * B * H * D * 2 + B * mb * 4 + B * 4,
-            4 * D * H * tokens,
+            nbytes,
+            2 * (Dk + Dv) * H * tokens,
             launches["paged_attention"],
             errs["paged_attention"],
             "F.scaled_dot_product_attention on K/V gathered beforehand",
-            shape=dict(B=B, H=H, G=G, D=D, block_size=bs, lengths=lens),
+            shape=dict(B=B, H=H, G=G, D=Dk, Dv=Dv, block_size=bs, lengths=lens),
             path=cfg.name,
         )
     )
     del pool, kp, vp, kg, vg, lib
 
-    nblk, W = 64, L * 2 * G * D
+    nblk, W = 64, model.kv_width()
     pool = _cuda_randn(gen, (NB, bs, W), bf16)
     burst = _cuda_randn(gen, (1, nblk, bs, W), bf16)
     tbl = _unique_tables(gen, 1, nblk, NB, [nblk])
     idx = tbl[0].long()
+    # queued calls: the profiler's per-call sessions dropped 6 of this
+    # kernel's 10 events at MLA's row width, below the byte bound (PERF.md)
     rows.append(
         _timing_row(
             "banked_copy",
@@ -2184,6 +2346,7 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
             "Tensor.index_copy_",
             shape=dict(blocks=nblk, block_size=bs, W=W, pool_blocks=NB),
             path=cfg.name,
+            queued=True,
         )
     )
     del pool, burst
@@ -2789,6 +2952,11 @@ def main() -> int:
     serving = phase_serving_moe()
     phase_serving_profile(serving)
     rows += phase_llm_timing(serving, llm_errs, flash_lengths=(1024,))
+    del serving
+    torch.cuda.empty_cache()
+    serving = phase_serving_mla()
+    phase_serving_profile(serving)
+    rows += phase_llm_timing(serving, llm_errs, flash_lengths=(128, 517, 1024))
     del serving
     torch.cuda.empty_cache()
     rows += phase_training()

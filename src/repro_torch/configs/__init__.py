@@ -12,6 +12,7 @@ __all__ = ["ModelConfig", "check_supported", "get_config", "list_archs", "pad_vo
 _ARCH_MODULES: Dict[str, str] = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 

@@ -103,13 +103,24 @@ class ModelConfig:
             return layer_idx % self.moe_layer_period == self.moe_layer_period - 1
         return True
 
+    @property
+    def latent_dim(self) -> int:
+        """Width of one token's MLA latent row, ``c_kv`` then ``k_pe``
+        (0 without MLA): what the cache stores per layer."""
+        return self.kv_lora_rank + self.qk_rope_dim if self.use_mla else 0
+
     def num_params(self) -> int:
         """The reference's analytic parameter count, for the uniform stacks
-        the port runs (it counts one scale vector per norm, and no QK-norm
-        scales)."""
+        the port runs (it counts one scale vector per norm, no QK-norm
+        scales and no MLA ``kv_norm``)."""
         check_supported(self)
         d, V, hd = self.d_model, self.padded_vocab, self.resolved_head_dim
-        attn = d * self.num_heads * hd * 2 + 2 * d * self.num_kv_heads * hd
+        h = self.num_heads
+        if self.use_mla:
+            dn, dr, dv, r = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim, self.kv_lora_rank
+            attn = d * h * (dn + dr) + d * (r + dr) + r * h * (dn + dv) + h * dv * d
+        else:
+            attn = d * h * hd * 2 + 2 * d * self.num_kv_heads * hd
         if self.is_moe_layer(0):
             f = self.moe_d_ff or self.d_ff
             ffn = self.moe_num_experts * 3 * d * f + d * self.moe_num_experts
@@ -121,14 +132,15 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet: it
-    carries uniform GQA stacks, dense or with an MoE FFN on every layer, with
-    or without QK-norm (ROADMAP Queue 1 item 13 lists the rest and the slice
-    that brings it)."""
+    carries uniform stacks of GQA or MLA attention, dense or with an MoE FFN
+    on every layer, with or without QK-norm (ROADMAP Queue 1 item 6 lists
+    the rest and the slice that brings it).  MLA is served only: a training
+    model refuses it (``check_trainable``)."""
     later = []
     if cfg.family not in ("dense", "moe"):
         later.append(f"family {cfg.family!r}")
-    if cfg.use_mla:
-        later.append("MLA")
+    if cfg.use_mla and cfg.q_lora_rank:
+        later.append("MLA with query compression")
     if cfg.moe_num_experts and cfg.moe_layer_period != 1:
         later.append("MoE on every k-th layer")
     if cfg.ssm_state_dim or cfg.attn_layer_period:
@@ -141,9 +153,22 @@ def check_supported(cfg: ModelConfig) -> None:
         later.append("tied embeddings")
     if later:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} not ported yet; the port runs uniform GQA "
-            "stacks (dense or MoE), and the later slices of ROADMAP Queue 1 item 13 bring "
-            "the rest"
+            f"{cfg.name}: {', '.join(later)} not ported yet; the port runs uniform GQA or "
+            "MLA stacks (dense or MoE), and the later slices of ROADMAP Queue 1 item 6 "
+            "bring the rest"
+        )
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port serves but does
+    not train yet: MLA, whose training needs the flash backward at QK width
+    192 and V width 128 (the next slice of ROADMAP Queue 1 item 6)."""
+    check_supported(cfg)
+    if cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA is served but not trained yet; MLA training (the flash "
+            "backward at QK width 192 / V width 128 and forward_train) is the next slice "
+            "of ROADMAP Queue 1 item 6"
         )
 
 
@@ -239,6 +264,8 @@ def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         changes["num_heads"] = 4
         changes["num_kv_heads"] = max(1, int(round(4 * cfg.num_kv_heads / cfg.num_heads)))
         changes["head_dim"] = 16
+    if cfg.use_mla:
+        changes.update(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16, head_dim=0)
     if cfg.moe_num_experts:
         changes.update(moe_num_experts=4, moe_top_k=min(2, cfg.moe_top_k), moe_d_ff=64)
     changes.update(overrides)

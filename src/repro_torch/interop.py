@@ -94,7 +94,11 @@ def model_from_reference(
     stack's leaves stacked ``[L, ...]``, layouts as in the reference
     (``wq [d, h, k]``, ``wo [h, k, d]``, ``embed [Vp, d]``, ``lm_head [d, Vp]``;
     an MoE layer's ``moe`` leaves ``router [d, E]``, ``w_gate``/``w_up
-    [E, d, f]``, ``w_down [E, f, d]``; QK-norm's ``q_norm``/``k_norm [k]``).
+    [E, d, f]``, ``w_down [E, f, d]`` and the shared experts' ``ws_gate``/
+    ``ws_up [d, n f]``, ``ws_down [n f, d]``; QK-norm's ``q_norm``/``k_norm
+    [k]``; an MLA layer's ``attn`` leaves ``wq [d, h, dn + dr]``, ``w_dkv
+    [d, r]``, ``w_kpe [d, dr]``, ``kv_norm [r]``, ``w_uk [r, h, dn]``,
+    ``w_uv [r, h, dv]``, ``wo [h, dv, d]``).
     Weight matrices are cast to ``compute_dtype`` once here; norm scales and
     biases stay float32.  ``device`` defaults to CUDA."""
     model = empty_model(

@@ -19,7 +19,7 @@
 // overlap this tile's math.  The consumers compute S = Q K^T with
 // `wgmma.mma_async ... .f32.bf16.bf16` on 128/64/32-byte swizzled tiles in
 // shared memory (the swizzle follows D * 2 bytes; D = 128 is two 128-byte
-// atoms), mask by the true T, the causal diagonal and the window, and run the
+// atoms, 192 three), mask by the true T, the causal diagonal and the window, and run the
 // online softmax in float32 on the accumulator fragments: each row belongs to
 // the four lanes of a quad, so its max and sum take two shuffles.  P is
 // rounded to bf16 in registers and fed to the second `wgmma` as its register
@@ -29,26 +29,38 @@
 // rules out are never loaded, and the longest causal q tiles are launched
 // first.
 //
+// Widths.  q and k have one head width DK, v its own DV, and the output DV:
+// the square GQA widths 16, 32, 64 and 128, and MLA's prefill (deepseek-v2:
+// DK = 192, the 128 up-projected dims and the 64 RoPE dims of each head, DV =
+// 128).  At (192, 128) S = Q K^T takes 12 k-steps of 16 over 192, P V has N =
+// 128, the Q and K tiles are three 128-byte swizzle atoms wide and the V tile
+// two; V is never padded to DK.
+//
 // float32: the CUDA cores (the tensor cores offer only TF32 for float32, which
 // keeps about three digits; the float32 contract is 2e-5).  One block per
 // (64-row q tile, head, batch) loops over its KV tiles through shared memory;
 // four threads share a query row, each owning D / 4 of its dims in
 // interleaved float4 groups, and the row's score is two shuffles.
 //
-// Bound.  4 * D FLOP per unmasked (row, key) pair: ~4.3 GFLOP per layer at
-// S = 1024, H = 32, D = 64 causal, 4.4 us at the card's 989 TFLOP/s bf16
-// tensor-core rate; reading Q, K, V and writing O once is ~5 us at 3.35 TB/s.
+// Bound.  2 * (DK + DV) FLOP per unmasked (row, key) pair: ~4.3 GFLOP per
+// layer at S = 1024, H = 32, D = 64 causal, 4.4 us at the card's 989 TFLOP/s
+// bf16 tensor-core rate; reading Q, K, V and writing O once is ~5 us at
+// 3.35 TB/s.  MLA's prefill at S = 1024 (H = G = 16, 192 / 128): ~5.4 GFLOP,
+// 5.4 us, against ~21 MB, 6.3 us.
 //
 // Log-sum-exp.  Where the caller passes an `lse` pointer ([B, H, S] float32),
 // each row's m + log(l) in the scaled-score domain is written beside its
 // output (-inf for a row with no key): what the training backward
 // (kernels/flash_attention_bwd) needs to recompute P.  A null pointer, as
 // serving's prefill calls pass it, writes nothing: it selects the kLse =
-// false instantiation, whose code has no lse path at all.
+// false instantiation, whose code has no lse path at all.  Only the square
+// widths build the kLse = true instantiation: MLA is served, not trained, so
+// (192, 128) refuses an lse pointer.
 //
-// Interface: plain C, loaded with ctypes.  q/out [B, S, H, D] and k/v
-// [B, T, G, D], contiguous.  The wrapper (ops.py) checks shapes, dtypes,
-// devices and alignment; each function returns the cudaError_t of its launch.
+// Interface: plain C, loaded with ctypes.  q [B, S, H, DK], k [B, T, G, DK],
+// v [B, T, G, DV] and out [B, S, H, DV], contiguous.  The wrapper (ops.py)
+// checks shapes, dtypes, devices and alignment; each function returns the
+// cudaError_t of its launch.
 // The bf16 route encodes its tensor maps on the host at every call with
 // cuTensorMapEncodeTiled from libcuda, found through dlopen and dlsym so that
 // the library needs no link against libcuda.
@@ -65,16 +77,18 @@ constexpr int kRows = 64;  // query rows per CUDA block
 constexpr int kThreadsPerRow = 4;
 constexpr int kThreads = kRows * kThreadsPerRow;
 
-// Thread c of a row owns dims 16 * j + 4 * c + e, j < D / 16, e < 4.
-template <int D, bool kLse>
+// Thread c of a row owns dims 16 * j + 4 * c + e, j < DK / 16 (of q and k) or
+// j < DV / 16 (of v and the output), e < 4.
+template <int DK, int DV, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
                   int S, int Tk, int H, int G, int causal, int window, float scale) {
-  constexpr int BK = D >= 128 ? 32 : 64;  // keys per tile: 32 KB of K + V in shared memory
-  constexpr int NJ = D / 16;
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
+  constexpr int BK = DK + DV >= 256 ? 32 : 64;  // keys per tile: 32-40 KB of K + V
+  constexpr int NJ = DK / 16;
+  constexpr int NV = DV / 16;
+  __shared__ __align__(16) float ks[BK][DK];
+  __shared__ __align__(16) float vs[BK][DV];
 
   const int q0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
@@ -84,15 +98,18 @@ __global__ void __launch_bounds__(kThreads)
   const int c = threadIdx.x % kThreadsPerRow;
   const int qi = q0 + r;
 
-  float qr[NJ][4], acc[NJ][4];
+  float qr[NJ][4], acc[NV][4];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 16 * j + 4 * c + e;
-      qr[j][e] = qi < S ? q[((static_cast<long long>(b) * S + qi) * H + h) * D + d] * scale : 0.f;
-      acc[j][e] = 0.f;
+      qr[j][e] = qi < S ? q[((static_cast<long long>(b) * S + qi) * H + h) * DK + d] * scale : 0.f;
     }
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float mx = -INFINITY, sum = 0.f;
 
   // KV tiles that can hold an unmasked key for rows q0 .. q0 + kRows - 1
@@ -106,18 +123,17 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BK;
     __syncthreads();
-    for (int idx = threadIdx.x; idx < BK * D; idx += kThreads) {
-      const int kr = idx / D;
-      const int d = idx % D;
+    for (int idx = threadIdx.x; idx < BK * DK; idx += kThreads) {
+      const int kr = idx / DK;
+      const int d = idx % DK;
       const int kj = k0 + kr;
-      float kval = 0.f, vval = 0.f;
-      if (kj < Tk) {
-        const long long off = ((static_cast<long long>(b) * Tk + kj) * G + g) * D + d;
-        kval = k[off];
-        vval = v[off];
-      }
-      ks[kr][d] = kval;
-      vs[kr][d] = vval;
+      ks[kr][d] = kj < Tk ? k[((static_cast<long long>(b) * Tk + kj) * G + g) * DK + d] : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < BK * DV; idx += kThreads) {
+      const int kr = idx / DV;
+      const int d = idx % DV;
+      const int kj = k0 + kr;
+      vs[kr][d] = kj < Tk ? v[((static_cast<long long>(b) * Tk + kj) * G + g) * DV + d] : 0.f;
     }
     __syncthreads();
 
@@ -145,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
     const float alpha = __expf(mx - m_new);
     sum *= alpha;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NV; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha;
 #pragma unroll
@@ -153,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
       const float p = __expf(s[kr] - m_new);
       sum += p;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
+      for (int j = 0; j < NV; ++j) {
         const float4 vv = *reinterpret_cast<const float4*>(&vs[kr][16 * j + 4 * c]);
         acc[j][0] += p * vv.x;
         acc[j][1] += p * vv.y;
@@ -171,19 +187,26 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float inv = sum > 0.f ? 1.f / sum : 0.f;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+  for (int j = 0; j < NV; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 16 * j + 4 * c + e;
-      out[((static_cast<long long>(b) * S + qi) * H + h) * D + d] = acc[j][e] * inv;
+      out[((static_cast<long long>(b) * S + qi) * H + h) * DV + d] = acc[j][e] * inv;
     }
 }
 
-template <int D>
+// The kLse = true instantiation exists only at the square widths (training):
+// (192, 128) refuses an lse pointer.
+template <int DK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
                int Tk, int H, int G, int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  const auto kernel = lse != nullptr ? flash_fwd_f32<D, true> : flash_fwd_f32<D, false>;
+  auto kernel = flash_fwd_f32<DK, DV, false>;
+  if constexpr (DK == DV) {
+    if (lse != nullptr) kernel = flash_fwd_f32<DK, DV, true>;
+  } else if (lse != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), static_cast<float*>(lse), S, Tk, H, G, causal, window, scale);
@@ -198,11 +221,15 @@ constexpr int kStages = 2;
 constexpr int kConsumers = 128;                // one warpgroup
 constexpr int kThreadsTC = kConsumers + 32;    // + the producer warp
 
-template <int D>
-struct Tile : Swizzle<D> {
-  static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kKVBytes = kBN * D * 2;
-  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+// Shared memory: the Q tile, kStages K tiles, kStages V tiles, then the
+// barriers; every tile a multiple of 1024 bytes.  (192, 128): 24 + 2 x (24 +
+// 16) KB = 104 KB.
+template <int DK, int DV>
+struct Tile {
+  static constexpr int kQBytes = kBM * DK * 2;
+  static constexpr int kKBytes = kBN * DK * 2;
+  static constexpr int kVBytes = kBN * DV * 2;
+  static constexpr int kBarOffset = kQBytes + kStages * (kKBytes + kVBytes);
   static constexpr int kSmem = kBarOffset + 8 * (2 * kStages + 1) + 1024;  // + alignment slack
 };
 
@@ -267,14 +294,14 @@ __device__ __forceinline__ void scale_rows(float (&o)[N], const float (&alpha)[2
 
 // One CTA per (q tile, head, batch); the accumulator fragments are those of
 // include/hopper.cuh.
-template <int D, bool kLse>
+template <int DK, int DV, bool kLse>
 __global__ void __launch_bounds__(kThreadsTC)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
                    float* __restrict__ lse, int S, int Tk, int H, int G, int causal, int window,
                    float scale_log2) {
-  using TS = Tile<D>;
+  using TS = Tile<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms want 1024-byte alignment
@@ -284,8 +311,10 @@ __global__ void __launch_bounds__(kThreadsTC)
   const uint32_t q_bar = bars + 16 * kStages;
   auto full_bar = [&](int s) { return bars + 8 * s; };
   auto empty_bar = [&](int s) { return bars + 8 * (kStages + s); };
-  auto k_tile = [&](int i) { return kv_s + (i % kStages) * TS::kKVBytes; };  // KV tile i
-  auto v_tile = [&](int i) { return kv_s + (kStages + i % kStages) * TS::kKVBytes; };
+  auto k_tile = [&](int i) { return kv_s + (i % kStages) * TS::kKBytes; };  // KV tile i
+  auto v_tile = [&](int i) {
+    return kv_s + kStages * TS::kKBytes + (i % kStages) * TS::kVBytes;
+  };
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // longest causal tiles first
   const int h = blockIdx.y;
@@ -311,14 +340,14 @@ __global__ void __launch_bounds__(kThreadsTC)
   if (tid >= kConsumers) {  // the producer warp: lane 0 issues every load
     if (tid == kConsumers) {
       mbar_expect_tx(q_bar, TS::kQBytes);
-      tma_tile<D>(q_s, &qmap, q_bar, h, q0, b);
+      tma_tile<DK>(q_s, &qmap, q_bar, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const int k0 = (t_lo + i) * kBN;
         mbar_wait(empty_bar(s), ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(full_bar(s), 2 * TS::kKVBytes);
-        tma_tile<D>(k_tile(i), &kmap, full_bar(s), g, k0, b);
-        tma_tile<D>(v_tile(i), &vmap, full_bar(s), g, k0, b);
+        mbar_expect_tx(full_bar(s), TS::kKBytes + TS::kVBytes);
+        tma_tile<DK>(k_tile(i), &kmap, full_bar(s), g, k0, b);
+        tma_tile<DV>(v_tile(i), &vmap, full_bar(s), g, k0, b);
       }
     }
     return;
@@ -326,9 +355,9 @@ __global__ void __launch_bounds__(kThreadsTC)
 
   const int r0 = (tid / 32) * 16 + (tid % 32) / 4;  // this thread's rows: r0 and r0 + 8
   const int c0 = 2 * (tid % 4);
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   mbar_wait(q_bar, 0);
 
@@ -343,7 +372,7 @@ __global__ void __launch_bounds__(kThreadsTC)
     for (int j = 0; j < kBN / 2; ++j) sc[j] = 0.f;
     mbar_wait(full_bar(0), 0);
     wgmma_fence();
-    issue_scores<D>(sc, q_s, k_tile(0));
+    issue_scores<DK>(sc, q_s, k_tile(0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -353,13 +382,13 @@ __global__ void __launch_bounds__(kThreadsTC)
       mbar_wait(full_bar((i + 1) % kStages), ((i + 1) / kStages) & 1);
       fence_regs(sc);
       wgmma_fence();
-      issue_scores<D>(sc, q_s, k_tile(i + 1));
+      issue_scores<DK>(sc, q_s, k_tile(i + 1));
       wgmma_commit();
       fence_regs(sc);
       scale_rows(o, alpha);
       fence_regs(o);
       wgmma_fence();
-      issue_pv<D>(o, pa, v_tile(i));
+      issue_pv<DV>(o, pa, v_tile(i));
       wgmma_commit();
       fence_regs(o);
       wgmma_wait<1>();  // the scores of tile i + 1; P V of tile i may still run
@@ -375,7 +404,7 @@ __global__ void __launch_bounds__(kThreadsTC)
     scale_rows(o, alpha);
     fence_regs(o);
     wgmma_fence();
-    issue_pv<D>(o, pa, v_tile(n_tiles - 1));
+    issue_pv<DV>(o, pa, v_tile(n_tiles - 1));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -399,9 +428,9 @@ __global__ void __launch_bounds__(kThreadsTC)
   for (int rr = 0; rr < 2; ++rr) {
     const int row = q0 + r0 + 8 * rr;
     if (row >= S) continue;
-    __nv_bfloat16* dst = out + ((static_cast<long long>(b) * S + row) * H + h) * D + c0;
+    __nv_bfloat16* dst = out + ((static_cast<long long>(b) * S + row) * H + h) * DV + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
           pack_bf16(o[4 * j + 2 * rr] * inv[rr], o[4 * j + 2 * rr + 1] * inv[rr]);
   }
@@ -412,12 +441,13 @@ __global__ void fill_f32(float* __restrict__ x, long long n, float value) {
   if (i < n) x[i] = value;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
                 int Tk, int H, int G, int causal, int window, float scale, cudaStream_t stream) {
-  using TS = Tile<D>;
+  using TS = Tile<DK, DV>;
+  if (DK != DV && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {  // no key: every row gets 0, and lse -inf
-    const size_t bytes = static_cast<size_t>(B) * S * H * D * 2;
+    const size_t bytes = static_cast<size_t>(B) * S * H * DV * 2;
     if (lse != nullptr) {
       const long long n = static_cast<long long>(B) * H * S;
       fill_f32<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
@@ -428,21 +458,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
     return static_cast<int>(cudaMemsetAsync(out, 0, bytes, stream));
   }
   CUtensorMap qm, km, vm;
-  if (!encode_tile_map<D>(&qm, q, B, S, H) || !encode_tile_map<D>(&km, k, B, Tk, G) ||
-      !encode_tile_map<D>(&vm, v, B, Tk, G))
+  if (!encode_tile_map<DK>(&qm, q, B, S, H) || !encode_tile_map<DK>(&km, k, B, Tk, G) ||
+      !encode_tile_map<DV>(&vm, v, B, Tk, G))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_bf16<DK, DV, false>;
+  if constexpr (DK == DV) {
+    if (lse != nullptr) kernel = flash_fwd_bf16<DK, DV, true>;
+  }
   static bool smem_set = false;
   if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_fwd_bf16<D, true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DK, DV, false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
+    if constexpr (DK == DV) {
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(flash_fwd_bf16<DK, DV, true>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
   const dim3 grid((S + kBM - 1) / kBM, H, B);
-  const auto kernel = lse != nullptr ? flash_fwd_bf16<D, true> : flash_fwd_bf16<D, false>;
   kernel<<<grid, kThreadsTC, TS::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, Tk, H, G, causal,
       window, scale * 1.4426950408889634f);
@@ -451,24 +486,33 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
 
 }  // namespace
 
-#define FLASH_DISPATCH(fn)                                                            \
-  switch (D) {                                                                        \
-    case 16:                                                                          \
-      return fn<16>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);      \
-    case 32:                                                                          \
-      return fn<32>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);      \
-    case 64:                                                                          \
-      return fn<64>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);      \
-    case 128:                                                                         \
-      return fn<128>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);     \
-    default:                                                                          \
-      return static_cast<int>(cudaErrorInvalidValue);                                 \
-  }
+// The widths the kernels are built for: (D, D) for D in 16, 32, 64, 128, and
+// MLA's (192, 128).
+#define FLASH_DISPATCH(fn)                                                              \
+  if (D == Dv) {                                                                        \
+    switch (D) {                                                                        \
+      case 16:                                                                          \
+        return fn<16, 16>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);  \
+      case 32:                                                                          \
+        return fn<32, 32>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);  \
+      case 64:                                                                          \
+        return fn<64, 64>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);  \
+      case 128:                                                                         \
+        return fn<128, 128>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s); \
+      default:                                                                          \
+        return static_cast<int>(cudaErrorInvalidValue);                                 \
+    }                                                                                   \
+  }                                                                                     \
+  if (D == 192 && Dv == 128)                                                            \
+    return fn<192, 128>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);    \
+  return static_cast<int>(cudaErrorInvalidValue);
 
-// float32 inputs: the CUDA-core kernel.
+// float32 inputs: the CUDA-core kernel.  D is the width of q and k, Dv that of
+// v and the output.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* out,
-                                       int B, int S, int T, int H, int G, int D, int causal,
-                                       int window, float scale, void* lse, void* stream) {
+                                       int B, int S, int T, int H, int G, int D, int Dv,
+                                       int causal, int window, float scale, void* lse,
+                                       void* stream) {
   if (B == 0 || S == 0) return 0;
   if (G <= 0 || H % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -477,8 +521,9 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
 
 // bfloat16 inputs: the wgmma + TMA kernel.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                                        int B, int S, int T, int H, int G, int D, int causal,
-                                        int window, float scale, void* lse, void* stream) {
+                                        int B, int S, int T, int H, int G, int D, int Dv,
+                                        int causal, int window, float scale, void* lse,
+                                        void* stream) {
   if (B == 0 || S == 0) return 0;
   if (G <= 0 || H % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);

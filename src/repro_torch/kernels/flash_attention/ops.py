@@ -9,7 +9,9 @@ the tensor-core kernel (``wgmma`` fed by TMA), float32 inputs to the
 CUDA-core kernel, which keeps float32's digits where the tensor cores would
 round to TF32.  The split is by type; a launch that fails raises.  On CPU
 tensors it runs the plain version (``ref.py``).  There is no fallback
-between any two of these.
+between any two of these.  V may have a width of its own: MLA's prefill
+(deepseek-v2) attends with q/k heads of 192 and v heads of 128
+(``WIDTHS``).
 
 Training goes through ``flash_attention_train``, a ``torch.autograd.Function``
 whose forward is ``flash_attention_fwd`` (the same kernel, also writing each
@@ -18,6 +20,8 @@ row's log-sum-exp ``[B, H, S]``, float32) and whose backward is
 ``kernels/flash_attention_bwd`` (counted in ``LAUNCHES["flash_attention_bwd"]``;
 bfloat16 on the tensor cores with ``dout`` read through TMA, float32 on the
 CUDA cores), on CPU tensors the plain blockwise backward of ``ref.py``.
+Training takes the square widths only (``HEAD_DIMS``): MLA training is the
+next slice, and the kernels refuse its widths there.
 """
 
 from __future__ import annotations
@@ -34,8 +38,13 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref,
 )
 
-#: head dims the kernel is built for
+#: head dims the kernel is built for where q, k and v share one
 HEAD_DIMS = (16, 32, 64, 128)
+#: (q/k width, v width) pairs of the log-sum-exp and the backward (training)
+_SQUARE = tuple((d, d) for d in HEAD_DIMS)
+#: (q/k width, v width) pairs the forward is built for: the square ones and
+#: MLA's prefill (deepseek-v2: 128 + 64 RoPE dims, v 128)
+WIDTHS = _SQUARE + ((192, 128),)
 #: the kernel's C entry point per input dtype
 _ENTRY = {torch.float32: "flash_attention_fwd_f32", torch.bfloat16: "flash_attention_fwd_bf16"}
 
@@ -48,7 +57,7 @@ _fns: dict = {}
 def _kernel_fn(dtype: torch.dtype):
     if dtype not in _fns:
         fn = getattr(_build.load("flash_attention"), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
         fn.argtypes += [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
@@ -66,17 +75,19 @@ def _bwd_fn(dtype: torch.dtype):
     return _fns[key]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, widths=WIDTHS) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
-            f"q must be [B, S, H, D] and k/v one [B, T, G, D] shape; got "
+            f"q must be [B, S, H, D], k [B, T, G, D] and v [B, T, G, Dv]; got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     B, S, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not fit as GQA")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel is built for {HEAD_DIMS}")
+    if (D, v.shape[3]) not in widths:
+        raise ValueError(
+            f"q/k width {D}, v width {v.shape[3]}: the kernel is built for (q/k, v) in {widths}"
+        )
     if q.dtype not in _ENTRY or {k.dtype, v.dtype} != {q.dtype}:
         raise TypeError(f"q/k/v must share float32 or bfloat16; got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.device.type != "cuda" or {k.device, v.device} != {q.device}:
@@ -91,7 +102,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> No
 
 def _launch_fwd(q, k, v, out, lse, causal: bool, window: int, scale: float) -> None:
     B, S, H, D = q.shape
-    T, G = k.shape[1], k.shape[2]
+    T, G, Dv = k.shape[1], k.shape[2], v.shape[3]
     err = _kernel_fn(q.dtype)(
         q.data_ptr(),
         k.data_ptr(),
@@ -103,6 +114,7 @@ def _launch_fwd(q, k, v, out, lse, causal: bool, window: int, scale: float) -> N
         H,
         G,
         D,
+        Dv,
         int(causal),
         int(window),
         float(scale),
@@ -123,13 +135,14 @@ def flash_attention(
     window: int = 0,
     scale=None,
 ) -> torch.Tensor:
-    """q ``[B, S, H, D]``, k/v ``[B, T, G, D]`` -> ``[B, S, H, D]``: causal
-    and/or windowed GQA attention, keys masked by their true length ``T``."""
+    """q ``[B, S, H, D]``, k ``[B, T, G, D]``, v ``[B, T, G, Dv]`` -> ``[B, S,
+    H, Dv]``: causal and/or windowed GQA attention, keys masked by their true
+    length ``T``; ``scale`` defaults to ``D ** -0.5``."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     _check(q, k, v, window)
     scale = scale if scale is not None else q.shape[3] ** -0.5
-    out = torch.empty_like(q)
+    out = q.new_empty((*q.shape[:3], v.shape[3]))
     if q.shape[0] == 0 or q.shape[1] == 0:
         return out
     _launch_fwd(q, k, v, out, None, causal, window, scale)
@@ -142,7 +155,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, scale=
     key): the forward of training attention."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal, window=window, scale=scale)
-    _check(q, k, v, window)
+    _check(q, k, v, window, _SQUARE)
     B, S, H, D = q.shape
     scale = scale if scale is not None else D**-0.5
     out = torch.empty_like(q)
@@ -163,7 +176,7 @@ def flash_attention_bwd(
         return flash_attention_bwd_ref(
             q, k, v, out, lse, dout, causal=causal, window=window, scale=scale
         )
-    _check(q, k, v, window)
+    _check(q, k, v, window, _SQUARE)
     B, S, H, D = q.shape
     T, G = k.shape[1], k.shape[2]
     for name, t in (("out", out), ("dout", dout)):

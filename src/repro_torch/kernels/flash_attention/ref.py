@@ -1,8 +1,9 @@
 """Plain PyTorch version of the flash-attention forward.
 
 The contract shared with the CUDA kernel (``csrc/flash_attention.cu``): for
-``q [B, S, H, D]`` and ``k/v [B, T, G, D]`` (GQA: query head ``h`` reads KV
-group ``h // (H // G)``), row ``i`` attends to keys ``j < T`` with ``j <= i``
+``q [B, S, H, D]``, ``k [B, T, G, D]`` and ``v [B, T, G, Dv]`` (GQA: query
+head ``h`` reads KV group ``h // (H // G)``; v may be narrower than q and k,
+as MLA's), row ``i`` attends to keys ``j < T`` with ``j <= i``
 where causal and ``i - j < window`` where ``window > 0``.  Softmax in float32;
 a row with no key gets 0.  There is no padding: keys past ``T`` do not exist,
 so they cannot leak in (the fault of the reference's ``ops.py`` recorded in
@@ -37,16 +38,17 @@ def flash_attention_ref(
     window: int = 0,
     scale=None,
 ) -> torch.Tensor:
-    """q ``[B, S, H, D]``, k/v ``[B, T, G, D]`` -> ``[B, S, H, D]`` in q's dtype."""
+    """q ``[B, S, H, D]``, k ``[B, T, G, D]``, v ``[B, T, G, Dv]`` -> ``[B, S,
+    H, Dv]`` in q's dtype."""
     B, S, H, D = q.shape
-    T, G = k.shape[1], k.shape[2]
+    T, G, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else D**-0.5
     qg = q.reshape(B, S, G, H // G, D).float()
     s = torch.einsum("bsgmd,btgd->bgmst", qg, k.float()) * scale
     ok = attention_mask(S, T, causal=causal, window=window, device=q.device)
     p = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1) * ok
     out = torch.einsum("bgmst,btgd->bsgmd", p, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return out.reshape(B, S, H, Dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -81,24 +83,24 @@ def _live(i0, sq, j0, tk, *, causal: bool, window: int) -> bool:
 def flash_attention_fwd_ref(
     q, k, v, *, causal=True, window=0, scale=None, q_block=Q_BLOCK, kv_block=KV_BLOCK
 ):
-    """q ``[B, S, H, D]``, k/v ``[B, T, G, D]`` -> ``(out [B, S, H, D]`` in
-    q's dtype, ``lse [B, H, S]`` float32``)``: the online softmax over KV
+    """q ``[B, S, H, D]``, k ``[B, T, G, D]``, v ``[B, T, G, Dv]`` -> ``(out
+    [B, S, H, Dv]`` in q's dtype, ``lse [B, H, S]`` float32``)``: the online softmax over KV
     blocks in float32.  ``lse`` is ``m + log(l)`` in the scaled-score domain,
     as the reference's forward returns it; a row with no key gets out 0 and
     lse -inf."""
     B, S, H, D = q.shape
-    T, G = k.shape[1], k.shape[2]
+    T, G, Dv = k.shape[1], k.shape[2], v.shape[3]
     M = H // G
     scale = scale if scale is not None else D**-0.5
     qg = q.reshape(B, S, G, M, D)
-    out = torch.empty((B, S, G, M, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, G, M, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, G, M, S), dtype=torch.float32, device=q.device)
     for i0 in range(0, S, q_block):
         qi = qg[:, i0 : i0 + q_block].float()
         sq = qi.shape[1]
         m = torch.full((B, G, M, sq), float("-inf"), device=q.device)
         l = torch.zeros((B, G, M, sq), device=q.device)
-        acc = torch.zeros((B, sq, G, M, D), device=q.device)
+        acc = torch.zeros((B, sq, G, M, Dv), device=q.device)
         for j0 in range(0, T, kv_block):
             tk = min(kv_block, T - j0)
             if not _live(i0, sq, j0, tk, causal=causal, window=window):
@@ -117,7 +119,7 @@ def flash_attention_fwd_ref(
         inv = torch.where(l > 0, 1.0 / l.clamp_min(1e-20), 0.0)
         out[:, i0 : i0 + sq] = (acc * inv.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
         lse[..., i0 : i0 + sq] = m + torch.log(l)
-    return out.reshape(B, S, H, D), lse.reshape(B, H, S)
+    return out.reshape(B, S, H, Dv), lse.reshape(B, H, S)
 
 
 def flash_attention_bwd_ref(
@@ -140,16 +142,16 @@ def flash_attention_bwd_ref(
     ``dQ = dS K``, ``dK = dS^T Q``; dK and dV sum over the query heads of
     their KV group.  Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
     B, S, H, D = q.shape
-    T, G = k.shape[1], k.shape[2]
+    T, G, Dv = k.shape[1], k.shape[2], v.shape[3]
     M = H // G
     scale = scale if scale is not None else D**-0.5
     qg = q.reshape(B, S, G, M, D)
-    do = dout.reshape(B, S, G, M, D).float()
-    drow = (do * out.reshape(B, S, G, M, D).float()).sum(-1).permute(0, 2, 3, 1)  # [B,G,M,S]
+    do = dout.reshape(B, S, G, M, Dv).float()
+    drow = (do * out.reshape(B, S, G, M, Dv).float()).sum(-1).permute(0, 2, 3, 1)  # [B,G,M,S]
     lse = lse.reshape(B, G, M, S)
     dq = torch.zeros((B, S, G, M, D), device=q.device)
     dk = torch.zeros((B, T, G, D), device=q.device)
-    dv = torch.zeros((B, T, G, D), device=q.device)
+    dv = torch.zeros((B, T, G, Dv), device=q.device)
     for j0 in range(0, T, kv_block):
         tk = min(kv_block, T - j0)
         kj, vj = k[:, j0 : j0 + tk].float(), v[:, j0 : j0 + tk].float()

@@ -9,6 +9,13 @@ merge pass, counted under ``"paged_attention_merge"``.  The number of splits
 comes from the block table's width, so the wrapper reads no device tensor on
 the host.  On CPU tensors it runs the plain version (``ref.py``).  There is
 no fallback between the two.
+
+MLA's absorbed decode (deepseek-v2) makes a call of its own shape
+(``LATENT``): one KV group of 16 query heads, K the layer's latent rows of
+576 and V the first 512 columns of the same rows, passed as a view of K's
+first columns (same storage, same strides).  The wrapper sees V's narrower
+width and launches ``paged_latent_split``, which reads each row once, then
+the merge at V's width; the launches count under the same two names.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ MAX_HEADS_PER_GROUP = 8
 MAX_SPLITS = 6144
 #: tokens a split covers at least: whole pool blocks, ceil(SPLIT_TOKENS / bs) of them
 SPLIT_TOKENS = 256
+#: MLA's latent call: (query heads, K width, V width), one KV group
+LATENT = (16, 576, 512)
+#: tokens a split of the latent call covers at least: one batch of its kernel's rows
+LATENT_SPLIT_TOKENS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fns: dict = {}
@@ -39,17 +50,52 @@ def _kernel_fns():
         split = lib.paged_attention_split
         split.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
         split.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        latent = lib.paged_attention_latent_split
+        latent.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+        latent.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         merge = lib.paged_attention_merge
         merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        for fn in (split, merge):
+        for fn in (split, latent, merge):
             fn.restype = ctypes.c_int
-        _fns.update(split=split, merge=merge)
-    return _fns["split"], _fns["merge"]
+        _fns.update(split=split, latent=latent, merge=merge)
+    return _fns
 
 
-def blocks_per_split(block_size: int) -> int:
-    """Pool blocks per split: the fewest whole blocks covering ``SPLIT_TOKENS``."""
-    return -(-SPLIT_TOKENS // block_size)
+def blocks_per_split(block_size: int, *, latent: bool = False) -> int:
+    """Pool blocks per split: the fewest whole blocks covering
+    ``SPLIT_TOKENS`` (``LATENT_SPLIT_TOKENS`` for the latent call)."""
+    return -(-(LATENT_SPLIT_TOKENS if latent else SPLIT_TOKENS) // block_size)
+
+
+def _is_prefix_view(k_pool: torch.Tensor, v_pool: torch.Tensor) -> bool:
+    """Whether ``v_pool`` is ``k_pool[..., :Dv]``: the same rows, fewer columns."""
+    return (
+        v_pool.data_ptr() == k_pool.data_ptr()
+        and v_pool.stride() == k_pool.stride()
+        and v_pool.shape[:3] == k_pool.shape[:3]
+        and v_pool.shape[3] <= k_pool.shape[3]
+    )
+
+
+def _check_latent(q, k_pool, v_pool, block_table, lengths) -> None:
+    """The latent call's shapes (``LATENT``); the rest as ``_check``."""
+    H, Dk, Dv = LATENT
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.dim() != 4:
+        raise ValueError(
+            f"q must be [B, H, D] and the pools [NB, bs, G, D]; got {tuple(q.shape)}, "
+            f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}"
+        )
+    if (q.shape[1:], k_pool.shape[2:], v_pool.shape[2:]) != ((H, Dk), (1, Dk), (1, Dv)):
+        raise ValueError(
+            f"a V width of its own is the latent call: q [B, {H}, {Dk}], K [NB, bs, 1, {Dk}] "
+            f"and V [NB, bs, 1, {Dv}]; got {tuple(q.shape)}, {tuple(k_pool.shape)}, "
+            f"{tuple(v_pool.shape)}"
+        )
+    if not _is_prefix_view(k_pool, v_pool):
+        raise ValueError("the latent call's V must be a view of K's first columns")
+    if k_pool.stride(3) != 1:
+        raise ValueError(f"latent rows must be contiguous; strides {k_pool.stride()}")
+    _check_common(q, k_pool, v_pool, block_table, lengths, latent=True)
 
 
 def _check(q, k_pool, v_pool, block_table, lengths) -> None:
@@ -65,6 +111,17 @@ def _check(q, k_pool, v_pool, block_table, lengths) -> None:
             f"H={H}, G={G}, D={D}: the kernel takes D in {HEAD_DIMS} and at most "
             f"{MAX_HEADS_PER_GROUP} query heads per KV group"
         )
+    for pool in (k_pool, v_pool):
+        if pool.stride()[2:] != (D, 1):
+            raise ValueError(f"pool views need contiguous [G, D] rows; strides {pool.stride()}")
+    if k_pool.stride() != v_pool.stride():
+        raise ValueError(f"k/v pool strides differ: {k_pool.stride()} vs {v_pool.stride()}")
+    _check_common(q, k_pool, v_pool, block_table, lengths, latent=False)
+
+
+def _check_common(q, k_pool, v_pool, block_table, lengths, *, latent: bool) -> None:
+    B = q.shape[0]
+    bs, G = k_pool.shape[1], k_pool.shape[2]
     if block_table.dim() != 2 or block_table.shape[0] != B or lengths.shape != (B,):
         raise ValueError(
             f"block_table must be [B, mb] and lengths [B]; got {tuple(block_table.shape)}, "
@@ -79,17 +136,12 @@ def _check(q, k_pool, v_pool, block_table, lengths) -> None:
         raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")
     if not (q.is_contiguous() and block_table.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("q, block_table and lengths must be contiguous")
-    for pool in (k_pool, v_pool):
-        if pool.stride()[2:] != (D, 1):
-            raise ValueError(f"pool views need contiguous [G, D] rows; strides {pool.stride()}")
-    if k_pool.stride() != v_pool.stride():
-        raise ValueError(f"k/v pool strides differ: {k_pool.stride()} vs {v_pool.stride()}")
     vec = 16 // q.element_size()
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)) or k_pool.stride(0) % vec or (
         k_pool.stride(1) % vec
     ):
         raise ValueError("q and the pools must start on 16 bytes and step by 16-byte rows")
-    nsplit = -(-block_table.shape[1] // blocks_per_split(bs))
+    nsplit = -(-block_table.shape[1] // blocks_per_split(bs, latent=latent))
     if B >= 2**16 or G >= 2**31 or nsplit > MAX_SPLITS:
         raise ValueError(f"grid too large: B={B}, G={G}, splits={nsplit}")
 
@@ -103,27 +155,51 @@ def paged_attention(
     *,
     scale=None,
 ) -> torch.Tensor:
-    """q ``[B, H, D]``; k/v pools ``[NB, bs, G, D]`` (strided views allowed,
-    ``[G, D]`` contiguous); block_table ``[B, mb]`` int32 (-1 = unused);
-    lengths ``[B]`` int32.  Returns ``[B, H, D]`` in q's dtype."""
+    """q ``[B, H, D]``; k pool ``[NB, bs, G, D]``, v pool ``[NB, bs, G, Dv]``
+    (strided views allowed, ``[G, D]`` contiguous; ``Dv == D``, or the
+    latent call, ``LATENT``, with V a view of K's first columns);
+    block_table ``[B, mb]`` int32 (-1 = unused); lengths ``[B]`` int32.
+    Returns ``[B, H, Dv]`` in q's dtype; ``scale`` defaults to ``D ** -0.5``."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_table, lengths, scale=scale)
-    _check(q, k_pool, v_pool, block_table, lengths)
+    latent = v_pool.dim() == 4 and v_pool.shape[3] != q.shape[-1]
+    if latent:
+        _check_latent(q, k_pool, v_pool, block_table, lengths)
+    else:
+        _check(q, k_pool, v_pool, block_table, lengths)
     B, H, D = q.shape
-    _, bs, G, _ = k_pool.shape
+    _, bs, G, Dv = v_pool.shape
     mb = block_table.shape[1]
-    bps = blocks_per_split(bs)
+    bps = blocks_per_split(bs, latent=latent)
     nsplit = -(-mb // bps)
     scale = scale if scale is not None else D**-0.5
-    out = torch.empty_like(q)
+    out = q.new_empty((B, H, Dv))
     if B == 0:
         return out
-    part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, H, nsplit, Dv), dtype=torch.float32, device=q.device)
     part_ms = torch.empty((B, H, nsplit, 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    split, merge = _kernel_fns()
-    if nsplit:
-        err = split(
+    fns = _kernel_fns()
+    if nsplit and latent:
+        err = fns["latent"](
+            q.data_ptr(),
+            k_pool.data_ptr(),
+            block_table.data_ptr(),
+            lengths.data_ptr(),
+            part_acc.data_ptr(),
+            part_ms.data_ptr(),
+            B,
+            mb,
+            bs,
+            bps,
+            k_pool.stride(0),
+            k_pool.stride(1),
+            float(scale),
+            _DTYPES[q.dtype],
+            stream,
+        )
+    elif nsplit:
+        err = fns["split"](
             q.data_ptr(),
             k_pool.data_ptr(),
             v_pool.data_ptr(),
@@ -144,17 +220,18 @@ def paged_attention(
             _DTYPES[q.dtype],
             stream,
         )
+    if nsplit:
         if err != 0:
             raise RuntimeError(f"paged_attention split kernel launch failed: cudaError_t {err}")
         LAUNCHES["paged_attention"] += 1
-    err = merge(
+    err = fns["merge"](
         part_acc.data_ptr(),
         part_ms.data_ptr(),
         lengths.data_ptr(),
         out.data_ptr(),
         B,
         H,
-        D,
+        Dv,
         mb,
         bs,
         bps,

@@ -5,7 +5,9 @@ The contract shared with the CUDA kernel (``csrc/paged_attention.cu``): the
 ``g`` attends to the tokens ``t < lengths[b]`` whose block
 ``block_table[b, t // bs]`` is not -1, reading token ``t`` of K and V at pool
 block ``block_table[b, t // bs]``, row ``t % bs``, group ``g``.  Softmax in
-float32; a request with no valid token gets 0.  (The reference's
+float32; a request with no valid token gets 0.  V may be narrower than K:
+MLA's latent call passes the latent rows of 576 as K and their first 512
+columns as V.  (The reference's
 ``paged_attention_ref`` returns the mean of V over pool block 0 there, a
 fault recorded in ROADMAP Queue 3 and not carried over.)
 ``paged_attention_split_ref`` spells out the kernel's split-and-merge
@@ -28,15 +30,17 @@ def paged_attention_ref(
     *,
     scale=None,
 ) -> torch.Tensor:
-    """q ``[B, H, D]``; pools ``[NB, bs, G, D]`` (views allowed); block_table
-    ``[B, mb]`` int32 (-1 = unused); lengths ``[B]``.  Returns ``[B, H, D]``."""
+    """q ``[B, H, D]``; k pool ``[NB, bs, G, D]``, v pool ``[NB, bs, G, Dv]``
+    (views allowed); block_table ``[B, mb]`` int32 (-1 = unused); lengths
+    ``[B]``.  Returns ``[B, H, Dv]``."""
     B, H, D = q.shape
     NB, bs, G, _ = k_pool.shape
+    Dv = v_pool.shape[3]
     mb = block_table.shape[1]
     scale = scale if scale is not None else D**-0.5
     tbl = block_table.long().clamp(min=0)
     k = k_pool[tbl].reshape(B, mb * bs, G, D).float()
-    v = v_pool[tbl].reshape(B, mb * bs, G, D).float()
+    v = v_pool[tbl].reshape(B, mb * bs, G, Dv).float()
     tok = torch.arange(mb * bs, device=q.device)
     valid = (tok[None, :] < lengths[:, None].long()) & (block_table >= 0).repeat_interleave(
         bs, dim=1
@@ -47,7 +51,7 @@ def paged_attention_ref(
     p = torch.softmax(s, dim=-1) * valid[:, None, None, :]
     v = v.masked_fill(~valid[:, :, None, None], 0.0)  # rows past the end may hold anything
     out = torch.einsum("bgmt,btgd->bgmd", p, v)
-    return out.reshape(B, H, D).to(q.dtype)
+    return out.reshape(B, H, Dv).to(q.dtype)
 
 
 def paged_attention_split_ref(
@@ -67,13 +71,14 @@ def paged_attention_split_ref(
     ``paged_attention_ref`` up to float32 rounding."""
     B, H, D = q.shape
     NB, bs, G, _ = k_pool.shape
+    Dv = v_pool.shape[3]
     mb = block_table.shape[1]
     scale = scale if scale is not None else D**-0.5
     span = blocks_per_split * bs
     nsplit = -(-mb // blocks_per_split)
     tbl = block_table.long().clamp(min=0)
     k = k_pool[tbl].reshape(B, mb * bs, G, D).float()
-    v = v_pool[tbl].reshape(B, mb * bs, G, D).float()
+    v = v_pool[tbl].reshape(B, mb * bs, G, Dv).float()
     length = lengths.long().clamp(0, mb * bs)
     valid = torch.arange(mb * bs, device=q.device)[None, :] < length[:, None]
     valid &= (block_table >= 0).repeat_interleave(bs, dim=1)
@@ -86,7 +91,7 @@ def paged_attention_split_ref(
     s = s.reshape(B, G, H // G, nsplit, span)
     mx = s.amax(-1)  # [B, G, m, nsplit]
     p = torch.where(mx[..., None] > -torch.inf, torch.exp(s - mx[..., None]), 0.0)
-    acc = torch.einsum("bgmst,bstgd->bgmsd", p, v.reshape(B, nsplit, span, G, D))
+    acc = torch.einsum("bgmst,bstgd->bgmsd", p, v.reshape(B, nsplit, span, G, Dv))
     ssum = p.sum(-1)
     # merge: live splits with a valid token, weighted against their largest max
     live = (torch.arange(nsplit, device=q.device)[None, :] * span < length[:, None])[:, None, None]
@@ -96,4 +101,4 @@ def paged_attention_split_ref(
     total = (ssum * w).sum(-1)
     out = (acc * w[..., None]).sum(-2) / torch.where(total > 0, total, 1.0)[..., None]
     out = torch.where((total > 0)[..., None], out, 0.0)
-    return out.reshape(B, H, D).to(q.dtype)
+    return out.reshape(B, H, Dv).to(q.dtype)

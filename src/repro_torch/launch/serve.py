@@ -2,14 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve                  # full width, CUDA
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 By default it serves stablelm-1.6b at full width on the CUDA card (random
 weights from ``--seed``); ``--arch`` names another of the port's configs
-(``repro_torch.configs.list_archs()``: olmoe-1b-7b, MoE with QK-norm).  The
-request mix: 16 requests with prompts of 128..1024 tokens, 32 new tokens
-each, 8 slots, 2048-token contexts, 16-token blocks.  ``--smoke``
-takes the reduced config and the reference launcher's sizes (8 requests of
+(``repro_torch.configs.list_archs()``: olmoe-1b-7b, MoE with QK-norm;
+deepseek-v2-lite-16b, MLA with one 576-wide latent row per token and layer
+in the pool, decoded in the absorbed form, and MoE with shared experts,
+32.4 GB of bf16 weights).  The request mix: 16 requests with prompts of
+128..1024 tokens, 32 new tokens each, 8 slots, 2048-token contexts,
+16-token blocks.  ``--smoke`` takes the reduced config and the reference launcher's sizes (8 requests of
 4..15 prompt tokens, 8 new tokens, 4 slots, 64-token contexts, 8-token
 blocks); ``--device cpu`` runs the plain PyTorch path on the host.
 """
@@ -100,7 +103,11 @@ def summarize(eng: ServingEngine, reqs, wall: float) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", default="stablelm-1.6b", help="stablelm-1.6b or olmoe-1b-7b")
+    ap.add_argument(
+        "--arch",
+        default="stablelm-1.6b",
+        help="stablelm-1.6b, olmoe-1b-7b or deepseek-v2-lite-16b",
+    )
     ap.add_argument("--smoke", action="store_true", help="reduced config and sizes")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--seed", type=int, default=0)

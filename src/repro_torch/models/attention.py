@@ -1,8 +1,10 @@
-"""Grouped-query attention (+ partial RoPE, optional QK-norm) over the banked KV pool.
+"""Grouped-query attention (+ partial RoPE, optional QK-norm) and Multi-head
+Latent Attention (DeepSeek-V2) over the banked KV pool.
 
-The GQA part of the reference's ``models/attention.py``, with its layouts at
-the public functions (``wq [d, h, k]``, ``wo [h, k, d]``, K/V ``[.., T, G, D]``).
-Two regimes, computing the reference's function in each:
+The reference's ``models/attention.py``, with its layouts at the public
+functions (``wq [d, h, k]``, ``wo [h, k, d]``, K/V ``[.., T, G, D]``).
+Two regimes, computing the reference's function in each (GQA here; MLA in
+``MLAAttention``, below):
 
   prefill : causal attention over the prompt's fresh K/V through the
             flash-attention kernel (the reference: ``chunked_attention``);
@@ -66,6 +68,20 @@ def gqa_specs(cfg: ModelConfig) -> dict:
     return spec
 
 
+def mla_specs(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq": ParamSpec((d, h, dn + dr), ("embed", "heads", "head_dim"), init="fan_in"),
+        "w_dkv": ParamSpec((d, r), ("embed", None), init="fan_in"),
+        "w_kpe": ParamSpec((d, dr), ("embed", None), init="fan_in"),
+        "kv_norm": ParamSpec((r,), (None,), init="ones"),
+        "w_uk": ParamSpec((r, h, dn), (None, "heads", "head_dim"), init="fan_in"),
+        "w_uv": ParamSpec((r, h, dv), (None, "heads", "head_dim"), init="fan_in"),
+        "wo": ParamSpec((h, dv, d), ("heads", "head_dim", "embed"), init="fan_in"),
+    }
+
+
 def mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool, window: int):
     """Additive mask ``[..., Sq, Tk]`` from absolute positions (-1 kv slot =
     empty), the reference's ``_mask_bias`` (``[..., 1, Tk]`` when neither
@@ -84,10 +100,12 @@ def mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool, window
 class PagedKV:
     """What one decode step needs of the pool.
 
-    ``pool`` is the engine's KV store viewed ``[NB, bs, L, 2, G, D]`` (K at
-    index 0, V at 1); ``block_table [B, mb]`` and ``lengths [B]`` (int32) give
+    ``pool`` is the engine's KV store viewed by the model's row layout
+    (``Transformer.kv_row_shape``): ``[NB, bs, L, 2, G, D]`` for GQA (K at
+    index 0, V at 1), ``[NB, bs, L, kv_lora_rank + qk_rope_dim]`` for MLA's
+    latent rows; ``block_table [B, mb]`` and ``lengths [B]`` (int32) give
     each slot's blocks and the tokens it attends to (``pos + 1``; 0 and an
-    all -1 row for an idle slot).  The step writes its new K/V row for slot
+    all -1 row for an idle slot).  The step writes its new row for slot
     ``write_slot[i]`` at block ``write_blk[i]``, row ``write_row[i]``."""
 
     pool: torch.Tensor
@@ -160,3 +178,121 @@ class GQAAttention(torch.nn.Module):
             cache.lengths,
         )
         return self._out(o[:, None])
+
+
+class MLAAttention(torch.nn.Module):
+    """Multi-head Latent Attention (DeepSeek-V2), the reference's
+    ``mla_attention``.  The cache holds one latent row per token and layer,
+    ``[c_kv | k_pe]`` (``kv_lora_rank + qk_rope_dim``: 576 at full width),
+    stored in the KV dtype; attention reads it back from there, as the
+    reference reads its cache.  Projections in the compute dtype,
+    ``kv_norm`` float32.
+
+      prefill : the reference's non-absorbed ("paper") form: the latent rows
+                are up-projected to per-head K (``w_uk``, then ``k_pe``
+                broadcast to every head) and V (``w_uv``), and the flash
+                kernel attends at QK width ``qk_nope + qk_rope`` and V width
+                ``v_head_dim`` with scale ``(qk_nope + qk_rope) ** -0.5``.
+      decode  : ``absorbed=True``: ``w_uk`` folds into q and ``w_uv`` into
+                the output, and the paged kernel attends in latent space,
+                ``[q_nope w_uk | q_pe] . [c_kv | k_pe]``, with the layer's
+                latent rows as K and their first ``kv_lora_rank`` columns as
+                V: one KV group of all heads, each row read once.
+                ``absorbed=False``: the reference's default form in plain
+                PyTorch: the slot's rows gathered through the block table,
+                up-projected and attended directly (tests and cross-checks).
+    """
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        for name, spec in mla_specs(cfg).items():
+            dt = dtype if len(spec.shape) > 1 else torch.float32
+            self.register_parameter(
+                name, torch.nn.Parameter(torch.empty(spec.shape, dtype=dt), requires_grad=False)
+            )
+
+    @property
+    def scale(self) -> float:
+        return (self.cfg.qk_nope_dim + self.cfg.qk_rope_dim) ** -0.5
+
+    def _project(self, x: torch.Tensor, positions: torch.Tensor):
+        """``(q_nope [B, S, h, dn], q_pe [B, S, h, dr]`` roped, the latent
+        rows ``[c_kv | k_pe] [B, S, r + dr])`` in x's dtype."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        dn = cfg.qk_nope_dim
+        q = (x @ self.wq.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_heads, -1)
+        q_pe = apply_rope(q[..., dn:], positions, theta=cfg.rope_theta)
+        c_kv = rmsnorm(x @ self.w_dkv.to(x.dtype), self.kv_norm, cfg.norm_eps)
+        k_pe = apply_rope((x @ self.w_kpe.to(x.dtype))[:, :, None], positions, theta=cfg.rope_theta)
+        return q[..., :dn], q_pe, torch.cat([c_kv, k_pe[:, :, 0]], dim=-1)
+
+    def _out(self, o: torch.Tensor) -> torch.Tensor:
+        B, S = o.shape[:2]
+        return o.reshape(B, S, -1) @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model)
+
+    def _up(self, rows: torch.Tensor):
+        """Latent rows ``[B, T, r + dr]`` -> per-head ``(k [B, T, h, dn + dr],
+        v [B, T, h, dv])``: ``c_kv`` up-projected, ``k_pe`` on every head."""
+        cfg = self.cfg
+        B, T, _ = rows.shape
+        r, h = cfg.kv_lora_rank, cfg.num_heads
+        c_all, pe_all = rows[..., :r], rows[..., r:]
+        k_nope = (c_all @ self.w_uk.to(rows.dtype).reshape(r, -1)).view(B, T, h, -1)
+        v = (c_all @ self.w_uv.to(rows.dtype).reshape(r, -1)).view(B, T, h, -1)
+        k = torch.cat([k_nope, pe_all[:, :, None].expand(B, T, h, cfg.qk_rope_dim)], dim=-1)
+        return k, v
+
+    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str) -> torch.Tensor:
+        """x ``[B, S, d]``, positions ``[B, S]``; ``kv_out`` (``[B, S, r + dr]``
+        or None) receives the latent rows in ``kv_dtype``."""
+        q_nope, q_pe, rows = self._project(x, positions)
+        rows = rows.to(kv_dtype)
+        if kv_out is not None:
+            kv_out.copy_(rows)
+        k, v = self._up(rows.to(x.dtype))
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        flash = ATTENTION[impl][0]
+        return self._out(flash(q, k.contiguous(), v.contiguous(), causal=True, scale=self.scale))
+
+    def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
+        raise NotImplementedError(
+            "MLA is served but not trained yet: its training forward and the flash backward "
+            "at QK width 192 / V width 128 are the next slice (ROADMAP Queue 1 item 6)"
+        )
+
+    def decode(
+        self, x, positions, cache: PagedKV, layer: int, *, impl: str, absorbed: bool = True
+    ) -> torch.Tensor:
+        """x ``[B, 1, d]``, positions ``[B, 1]``; ``cache.pool`` the latent
+        view ``[NB, bs, L, r + dr]``."""
+        r = self.cfg.kv_lora_rank
+        q_nope, q_pe, rows = self._project(x, positions)
+        pool, i = cache.pool, cache.write_slot
+        pool[cache.write_blk, cache.write_row, layer] = rows[i, 0].to(pool.dtype)
+        lat = pool[:, :, layer]
+        if not absorbed:
+            return self._out(self._decode_up(q_nope, q_pe, lat, cache)[:, None])
+        q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], self.w_uk.to(x.dtype))
+        q = torch.cat([q_lat, q_pe[:, 0]], dim=-1).contiguous()
+        kv = lat[:, :, None]  # [NB, bs, 1, r + dr]: one KV group of all the heads
+        paged = ATTENTION[impl][1]
+        o_lat = paged(q, kv, kv[..., :r], cache.block_table, cache.lengths, scale=self.scale)
+        o = torch.einsum("bhr,rhk->bhk", o_lat, self.w_uv.to(x.dtype))
+        return self._out(o[:, None])
+
+    def _decode_up(self, q_nope, q_pe, lat, cache: PagedKV) -> torch.Tensor:
+        """The reference's non-absorbed decode over each slot's rows,
+        gathered through the block table: ``[B, h, dv]`` in q's dtype."""
+        B, mb = cache.block_table.shape
+        bs = lat.shape[1]
+        tbl = cache.block_table.long()
+        rows = lat[tbl.clamp(min=0)].reshape(B, mb * bs, -1).to(q_nope.dtype)
+        tok = torch.arange(mb * bs, device=rows.device)
+        valid = (tok[None] < cache.lengths[:, None].long()) & (tbl >= 0).repeat_interleave(bs, 1)
+        k, v = self._up(rows)
+        q = torch.cat([q_nope, q_pe], dim=-1)[:, 0]  # [B, h, dn + dr]
+        s = torch.einsum("bhk,bthk->bht", q.float(), k.float()) * self.scale
+        w = torch.softmax(s.masked_fill(~valid[:, None], NEG_INF), dim=-1)
+        return torch.einsum("bht,bthk->bhk", w.to(v.dtype).float(), v.float()).to(q.dtype)

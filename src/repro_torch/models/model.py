@@ -1,11 +1,11 @@
 """Decoder stack of the port: the reference's ``models/model.py`` for
-uniform GQA architectures, dense or with an MoE FFN on every layer.
+uniform GQA or MLA architectures, dense or with an MoE FFN on every layer.
 
 Public API (each mirrors the reference's function of the same name):
   param_specs(cfg)                         -> ParamSpec tree (layers stacked [L, ...])
   init_params(cfg, seed, device=...)       -> Transformer with seeded random weights
   prefill(model, tokens, kv_out)           -> logits [B, 1, Vp] of the last position
-  decode_step(model, tokens, pos, cache)   -> logits [B, 1, Vp]
+  decode_step(model, tokens, pos, cache, mla_absorbed=False) -> logits [B, 1, Vp]
   forward_train(model, tokens, remat_policy=...) -> (logits [B, S, Vp], aux)
 
 The stack is a ``ModuleList`` of blocks run in a Python loop (the reference
@@ -15,7 +15,11 @@ scales and biases stay float32, as the reference's norms read them.  The KV
 dtype is bfloat16 by default, the reference's cache dtype.  A layer holds
 ``"moe"`` in place of ``"ffn"`` where ``cfg.is_moe_layer(0)``, as the
 reference's ``_ffn_layer_specs``; its ``aux`` loss is dropped (serving).
-Families, MLA, SSM and sliding windows this slice does not carry raise
+An MLA config (``cfg.use_mla``, deepseek-v2) holds ``mla_specs`` under
+``"attn"`` and stores one latent row per token and layer in the pool
+(``kv_row_shape``); it is served, and a training model of it raises
+``NotImplementedError`` (``configs.base.check_trainable``: the next slice).
+Families, SSM and sliding windows this slice does not carry raise
 ``NotImplementedError`` (``configs.base.check_supported``).
 
 Training takes a model built with ``param_dtype`` (float32, the reference's
@@ -35,14 +39,22 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.utils.checkpoint as ckpt
 
-from repro_torch.configs.base import ModelConfig, check_supported
-from repro_torch.models.attention import ATTENTION, GQAAttention, PagedKV, gqa_specs
+from repro_torch.configs.base import ModelConfig, check_supported, check_trainable
+from repro_torch.models.attention import (
+    ATTENTION,
+    GQAAttention,
+    MLAAttention,
+    PagedKV,
+    gqa_specs,
+    mla_specs,
+)
 from repro_torch.models.layers import Norm, ParamSpec, init_leaf, iter_specs, leaf_seed, norm_spec
 from repro_torch.models.mlp import MLP, mlp_specs
 from repro_torch.models.moe import MoE, moe_specs
@@ -53,7 +65,7 @@ def param_specs(cfg: ModelConfig) -> dict:
     d, Vp = cfg.d_model, cfg.padded_vocab
     layer = {
         "attn_norm": norm_spec(cfg, d),
-        "attn": gqa_specs(cfg),
+        "attn": mla_specs(cfg) if cfg.use_mla else gqa_specs(cfg),
         "ffn_norm": norm_spec(cfg, d),
     }
     if cfg.is_moe_layer(0):
@@ -78,7 +90,7 @@ class Block(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
         self.attn_norm = Norm(cfg, cfg.d_model)
-        self.attn = GQAAttention(cfg, dtype)
+        self.attn = (MLAAttention if cfg.use_mla else GQAAttention)(cfg, dtype)
         self.ffn_norm = Norm(cfg, cfg.d_model)
         self.is_moe = cfg.is_moe_layer(0)
         if self.is_moe:
@@ -108,7 +120,8 @@ class Transformer(torch.nn.Module):
     (the wrappers: the Hopper kernels on CUDA tensors, their plain versions
     on CPU tensors) or ``"ref"`` (the plain versions on any device).
     ``param_dtype`` (None: serving) makes a training model: parameters in
-    that dtype with ``requires_grad``, cast to ``compute_dtype`` per use."""
+    that dtype with ``requires_grad``, cast to ``compute_dtype`` per use
+    (not for MLA yet: ``check_trainable``)."""
 
     def __init__(
         self,
@@ -121,6 +134,8 @@ class Transformer(torch.nn.Module):
     ):
         super().__init__()
         check_supported(cfg)
+        if param_dtype is not None:
+            check_trainable(cfg)
         if impl not in ATTENTION:
             raise ValueError(f"impl must be one of {sorted(ATTENTION)}; got {impl!r}")
         self.cfg = cfg
@@ -141,10 +156,18 @@ class Transformer(torch.nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def kv_width(self) -> int:
-        """Elements of one token's K and V across every layer (a pool row)."""
+    def kv_row_shape(self) -> tuple:
+        """How the engine views one token's pool row: ``(L, 2, G, D)``, every
+        layer's K and V, for GQA; ``(L, kv_lora_rank + qk_rope_dim)``, every
+        layer's latent row, for MLA."""
         cfg = self.cfg
-        return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.resolved_head_dim
+        if cfg.use_mla:
+            return (cfg.num_layers, cfg.latent_dim)
+        return (cfg.num_layers, 2, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def kv_width(self) -> int:
+        """Elements of one token's cache across every layer (a pool row)."""
+        return math.prod(self.kv_row_shape())
 
     def load_tree(self, tree: Mapping[str, Any]) -> "Transformer":
         """Copy a parameter tree laid out as ``param_specs`` (the reference's
@@ -246,9 +269,9 @@ def init_params(
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, kv_out=None) -> torch.Tensor:
-    """Run the prompt ``tokens [B, S]``.  ``kv_out`` (``[B, S, L, 2, G, D]``,
-    or None) receives every layer's fresh K/V.  Returns the last position's
-    logits ``[B, 1, Vp]`` in the compute dtype."""
+    """Run the prompt ``tokens [B, S]``.  ``kv_out`` (``[B, S, *kv_row_shape]``,
+    or None) receives every layer's fresh K/V (MLA: latent rows).  Returns
+    the last position's logits ``[B, 1, Vp]`` in the compute dtype."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = model._embed(tokens)
@@ -263,14 +286,22 @@ def prefill(model: Transformer, tokens: torch.Tensor, kv_out=None) -> torch.Tens
 
 @torch.no_grad()
 def decode_step(
-    model: Transformer, tokens: torch.Tensor, pos: torch.Tensor, cache: PagedKV
+    model: Transformer,
+    tokens: torch.Tensor,
+    pos: torch.Tensor,
+    cache: PagedKV,
+    *,
+    mla_absorbed: bool = False,
 ) -> torch.Tensor:
     """One token per sequence: tokens ``[B, 1]``, pos ``[B]`` absolute index.
-    Writes each active slot's K/V into the pool and returns ``[B, 1, Vp]``."""
+    Writes each active slot's K/V into the pool and returns ``[B, 1, Vp]``.
+    ``mla_absorbed`` picks MLA's decode form, as the reference's does
+    (default: the non-absorbed form); GQA ignores it."""
     positions = pos.reshape(-1, 1)
     x = model._embed(tokens)
+    kw = {"absorbed": mla_absorbed} if model.cfg.use_mla else {}
     for layer, blk in enumerate(model.layers):
-        x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl)
+        x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl, **kw)
         x = x + blk.feed_forward(x)
     return model._logits(x)
 
@@ -334,6 +365,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str
     ``aux`` float32 scalar, the layers' summed MoE load-balancing loss``)``:
     the reference's ``forward_train`` for a decoder-only stack, with
     gradients to every parameter of a training model."""
+    check_trainable(model.cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_lookup(model.embed, tokens).to(model.compute_dtype)

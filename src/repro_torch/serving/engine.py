@@ -8,10 +8,14 @@ layout that the reference's ``paged_attention`` and ``banked_copy`` kernels
 define.
 
 Device KV store: one tensor ``kv [NB, bs, W]`` holding, for each pool block
-and each of its ``bs`` token rows, every layer's K and V of that token
-(``W = L * 2 * G * D``, viewed ``[NB, bs, L, 2, G, D]``).  A block is thus one
-contiguous tile, the unit ``banked_copy`` moves, and one layer's K (or V) of
-the pool is a strided ``[NB, bs, G, D]`` view that paged attention reads.
+and each of its ``bs`` token rows, every layer's cache of that token, laid
+out as the model says (``Transformer.kv_row_shape``): for GQA every layer's K
+and V (``W = L * 2 * G * D``, viewed ``[NB, bs, L, 2, G, D]``), for MLA every
+layer's latent row ``[c_kv | k_pe]`` (``W = L * (kv_lora_rank +
+qk_rope_dim)``, viewed ``[NB, bs, L, 576]`` at deepseek-v2's width).  A block
+is thus one contiguous tile, the unit ``banked_copy`` moves, and one layer's
+K (or V, or latent rows) of the pool is a strided view that paged attention
+reads.
 
   * admission: prefill at B=1 writes the prompt's fresh K/V into a staging
     burst ``[1, nblk, bs, W]`` (the reference's temporary cache), and one
@@ -20,7 +24,13 @@ the pool is a strided ``[NB, bs, G, D]`` view that paged attention reads.
   * decode: each active slot's new K/V row goes to block ``tbl[pos // bs]``,
     row ``pos % bs``, by an indexed write; paged attention then reads tokens
     ``0 .. pos`` through the table.  Idle slots have an all -1 table row and
-    length 0.
+    length 0.  MLA decodes in the absorbed form (``decode_step(...,
+    mla_absorbed=True)``), where the reference's engine takes the
+    non-absorbed one: only the absorbed form reads the pool's latent rows as
+    they are stored (``w_uk`` folded into q, ``w_uv`` into the output), where
+    the other would up-project every slot's whole cache to per-head K and V
+    at every step.  Both forms are the reference's and compute the same
+    function; ``tests/test_torch_model_mla.py`` holds each to it.
 
 Tokens, slot assignment, block placement and step count equal the
 reference's.  Greedy argmax runs over the padded vocabulary, as there.
@@ -119,9 +129,7 @@ class ServingEngine:
         self.kv = torch.zeros(
             (nblocks, block_size, params.kv_width()), dtype=params.kv_dtype, device=params.device
         )
-        self.kv_layers = self.kv.view(
-            nblocks, block_size, cfg.num_layers, 2, cfg.num_kv_heads, cfg.resolved_head_dim
-        )
+        self.kv_layers = self.kv.view(nblocks, block_size, *params.kv_row_shape())
 
     # ---- API ----
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16) -> Request:
@@ -206,7 +214,9 @@ class ServingEngine:
         cache = M.PagedKV(
             self.kv_layers, self._device(table), self._device(lengths), w[0], w[1], w[2]
         )
-        logits = M.decode_step(model, self._device(toks), self._device(self.slot_pos), cache)
+        logits = M.decode_step(
+            model, self._device(toks), self._device(self.slot_pos), cache, mla_absorbed=True
+        )
         return self._pick([self.slot_req[i] for i in active], logits[active, 0])
 
     def step(self) -> int:

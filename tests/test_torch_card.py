@@ -602,3 +602,165 @@ def test_short_training_run_through_the_kernels(card):
         want = (3 * 2 * cfg.num_layers, 3 * cfg.num_layers) if impl == "pallas" else (0, 0)
         assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
     np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# MLA serving (deepseek-v2): flash at QK width 192 / V width 128, the latent
+# paged call over rows of 576, banked_copy at the 27 x 576-wide pool row
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "B,S,T,H,G,causal",
+    [
+        (1, 128, 128, 16, 16, True),  # deepseek-v2-lite-16b's shortest prompts
+        (1, 517, 517, 16, 16, True),  # ragged S
+        (1, 1024, 1024, 16, 16, True),  # its longest prompt
+        (2, 77, 77, 4, 2, True),  # GQA 2:1, a partial tile
+        (1, 100, 333, 8, 1, False),  # ragged T, GQA 8:1, no mask
+        (1, 1, 1, 16, 16, True),
+    ],
+)
+def test_flash_attention_mla_widths_match_plain(card, B, S, T, H, G, causal, dtype, tol):
+    """q/k heads of 192 and v heads of 128 at the caller's scale, 192^-0.5."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(S + T + 7)
+    q = _randn(gen, (B, S, H, 192), dtype)
+    k, v = _randn(gen, (B, T, G, 192), dtype), _randn(gen, (B, T, G, 128), dtype)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, scale=192**-0.5)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1 and got.shape == (B, S, H, 128)
+    want = flash_attention_ref(q, k, v, causal=causal, scale=192**-0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal, scale=192**-0.5))
+
+
+def test_flash_attention_mla_widths_refuse_training_and_other_widths(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_fwd
+
+    q = torch.zeros(1, 64, 16, 192, device="cuda", dtype=torch.bfloat16)
+    k, v = q.clone(), torch.zeros(1, 64, 16, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # MLA's training (the lse) is the next slice
+        flash_attention_fwd(q, k, v)
+    q128, k128, v64 = (t.contiguous() for t in (q[..., :128], k[..., :128], v[..., :64]))
+    with pytest.raises(ValueError):  # a pair of widths the kernel is not built for
+        flash_attention(q128, k128, v64)
+
+
+def _latent_inputs(gen, dtype, lens, *, bs=16, mb=None, layers=3):
+    """q ``[B, 16, 576]`` and a strided layer view of an all-layer latent pool
+    (``[NB, bs, L, 576]``), tables of distinct blocks, int32 lengths."""
+    mb = mb or max(-(-n // bs) for n in lens) + 1
+    NB = len(lens) * mb + 3
+    pool = _randn(gen, (NB, bs, layers, 576), dtype)
+    kv = pool[:, :, 1, None]  # [NB, bs, 1, 576]
+    tbl = _tables(gen, len(lens), mb, NB, [min(-(-n // bs), mb) for n in lens])
+    q = _randn(gen, (len(lens), 16, 576), dtype) * 0.3
+    return q, kv, tbl, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize(
+    "lens,bs",
+    [
+        ([585, 1061, 0, 700, 1024, 128, 845, 990], 16),  # the serving path's, one idle slot
+        ([1, 64, 65, 128, 200, 0], 16),  # one row, a split exactly, one past, a ragged block
+        ([37, 9, 0, 64], 8),
+        ([300, 1, 129], 128),  # one 128-row block per split: two batches in a split
+    ],
+)
+def test_paged_latent_call_matches_plain(card, lens, bs, dtype, tol):
+    """The latent call (16 heads, K rows of 576, V their first 512 columns)
+    against the plain version; the idle slot gets 0; launches count under
+    the paged names; two calls agree bit for bit."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(len(lens) * bs)
+    q, kv, tbl, ln = _latent_inputs(gen, dtype, lens, bs=bs)
+    before = (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"])
+    got = paged_attention(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5)
+    torch.cuda.synchronize()
+    after = (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"])
+    assert after == (before[0] + 1, before[1] + 1) and got.shape == (len(lens), 16, 512)
+    want = paged_attention_ref(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert (got[b] == 0).all()
+    assert torch.equal(got, paged_attention(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5))
+
+
+def test_paged_latent_call_refuses(card):
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, kv, tbl, ln = _latent_inputs(gen, torch.bfloat16, [40, 9])
+    with pytest.raises(ValueError):  # V not a view of K's first columns
+        paged_attention(q, kv, kv[..., :512].clone(), tbl, ln)
+    with pytest.raises(ValueError):  # another head count
+        paged_attention(q[:, :8].contiguous(), kv, kv[..., :512], tbl, ln)
+    with pytest.raises(ValueError):  # another V width
+        paged_attention(q, kv, kv[..., :256], tbl, ln)
+
+
+def test_banked_copy_at_the_mla_pool_row(card):
+    """A 64-block burst into deepseek-v2-lite-16b's pool rows: W = 27 x 576 =
+    15552 bf16, a 16-row tile of 497,664 bytes."""
+    from repro_torch.kernels.banked_copy.ops import banked_copy
+    from repro_torch.kernels.banked_copy.ref import banked_copy_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    W, bs, NB, nblk = 27 * 576, 16, 160, 64
+    pool = _randn(gen, (NB, bs, W), torch.bfloat16)
+    new = _randn(gen, (1, nblk, bs, W), torch.bfloat16)
+    tbl = _tables(gen, 1, nblk, NB, [nblk - 1])  # ends with a -1 entry
+    got = banked_copy(pool.clone(), new, tbl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, banked_copy_ref(pool, new, tbl))
+
+
+def test_short_mla_serving_run(card):
+    """deepseek-v2-lite-16b's attention widths (16 heads, kv_lora_rank 512,
+    qk 128 + 64, v 128) on a narrow 2-layer stack with 4 experts, served on
+    the card: launches as the traffic-only run predicts, and the same tokens
+    as the plain attention path (float32 compute and KV)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = smoke(
+        get_config("deepseek-v2-lite-16b"),
+        num_heads=16,
+        num_kv_heads=16,
+        d_model=256,
+        kv_lora_rank=512,
+        qk_nope_dim=128,
+        qk_rope_dim=64,
+        v_head_dim=128,
+    )
+    spec = serve.SMOKE
+    prompts = serve.make_prompts(cfg, spec, seed=1)
+    plan, _ = serve.new_engine(None, None, spec, prompts)
+    plan.run()
+    model = M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
+    tokens = {}
+    for impl in ("kernel", "ref"):
+        model.impl = impl
+        reset_launches()
+        eng, reqs = serve.new_engine(cfg, model, spec, prompts)
+        eng.run()
+        tokens[impl] = [r.out_tokens for r in reqs]
+        if impl == "kernel":
+            L = cfg.num_layers
+            assert LAUNCHES["flash_attention"] == L * plan.stats.admissions
+            assert LAUNCHES["banked_copy"] == plan.stats.admissions
+            assert LAUNCHES["paged_attention"] == L * plan.stats.decode_steps
+            assert LAUNCHES["paged_attention_merge"] == L * plan.stats.decode_steps
+        else:
+            assert sum(LAUNCHES.values()) == 0
+    assert tokens["kernel"] == tokens["ref"]

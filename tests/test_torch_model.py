@@ -63,24 +63,33 @@ def test_prefill_and_decode_match_reference(overrides, dtype):
     prefill_and_decode_gap(ARCH, overrides, dtype)
 
 
-def prefill_and_decode_gap(arch: str, overrides: dict, dtype: str) -> float:
+def prefill_and_decode_gap(
+    arch: str, overrides: dict, dtype: str, *, mla_absorbed: bool = False, ref_absorbed=None
+) -> float:
     """Two prompts prefilled and decoded for 4 steps on both sides of
     ``smoke(arch)``; each step's logits held to ``TOL[dtype]``.  Returns the
-    largest gap seen (``tests/test_torch_model_moe.py`` runs it on its arch)."""
+    largest gap seen (``tests/test_torch_model_moe.py`` and
+    ``tests/test_torch_model_mla.py`` run it on their archs).  The pool rows
+    take the model's layout (``kv_row_shape``: K and V, or MLA's latent
+    rows); ``mla_absorbed`` picks the port's MLA decode form and
+    ``ref_absorbed`` the reference's (default: the same)."""
     ref_cfg, ref_params, cfg, model = _pair(arch, overrides, dtype)
     jdt = DTYPES[dtype][1]
+    ref_absorbed = mla_absorbed if ref_absorbed is None else ref_absorbed
     ref_prefill = jax.jit(functools.partial(RM.prefill, ref_cfg, compute_dtype=jdt))
-    ref_decode = jax.jit(functools.partial(RM.decode_step, ref_cfg, compute_dtype=jdt))
+    ref_decode = jax.jit(
+        functools.partial(RM.decode_step, ref_cfg, compute_dtype=jdt, mla_absorbed=ref_absorbed)
+    )
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (11, 6)]
     T, bs, NB = 24, 4, 16
-    L, G, D = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    row = model.kv_row_shape()
     worst = 0.0
 
     # reference: B=1 prefills into their own caches, spliced into a B=2 cache
     cache = RM.init_cache(ref_cfg, 2, T, dtype=jdt)
     # port: the same prompts' K/V bursts scattered into the pool
-    pool = torch.zeros(NB, bs, L * 2 * G * D, dtype=model.kv_dtype)
+    pool = torch.zeros(NB, bs, model.kv_width(), dtype=model.kv_dtype)
     perm = rng.permutation(NB)
     tables = np.stack([perm[:6], perm[6:12]]).astype(np.int32)
     for b, p in enumerate(prompts):
@@ -89,7 +98,7 @@ def prefill_and_decode_gap(arch: str, overrides: dict, dtype: str) -> float:
         cache = jax.tree_util.tree_map(lambda d, s, b=b: d.at[:, b : b + 1].set(s), cache, tmp)
         nblk = -(-len(p) // bs)
         burst = torch.zeros(1, nblk, bs, pool.shape[2], dtype=pool.dtype)
-        kv_out = burst.view(1, nblk * bs, L, 2, G, D)[:, : len(p)]
+        kv_out = burst.view(1, nblk * bs, *row)[:, : len(p)]
         got = M.prefill(model, torch.from_numpy(p)[None], kv_out)
         np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=TOL[dtype], err_msg="prefill")
         worst = max(worst, float(np.abs(_np(got) - _np(want)).max()))
@@ -105,9 +114,11 @@ def prefill_and_decode_gap(arch: str, overrides: dict, dtype: str) -> float:
         w = torch.from_numpy(np.stack([[0, 1], blk, pos % bs]).astype(np.int64))
         lengths = torch.from_numpy((pos + 1).astype(np.int32))
         paged = M.PagedKV(
-            pool.view(NB, bs, L, 2, G, D), torch.from_numpy(tables), lengths, w[0], w[1], w[2]
+            pool.view(NB, bs, *row), torch.from_numpy(tables), lengths, w[0], w[1], w[2]
         )
-        got = M.decode_step(model, torch.from_numpy(toks), torch.from_numpy(pos), paged)
+        got = M.decode_step(
+            model, torch.from_numpy(toks), torch.from_numpy(pos), paged, mla_absorbed=mla_absorbed
+        )
         np.testing.assert_allclose(
             _np(got), _np(want), rtol=0, atol=TOL[dtype], err_msg=f"decode step {step}"
         )
