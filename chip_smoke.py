@@ -53,7 +53,9 @@ Phases, one JSON line each; any failure exits non-zero:
   9. serving_profile  device kernels, busy time and idle share per decode step
   10. llm_timing the three serving kernels' timing rows at the path's shapes
                 (and flash at the short prompts, S = 128 and 517); flash
-                against SDPA at S = 1024 in alternating rounds of queued calls
+                against SDPA at S = 1024 in alternating rounds of queued calls;
+                paged attention and banked_copy as queued calls, the
+                profiler's reading beside
   11. serving_moe  the MoE serving path: olmoe-1b-7b at full width (64
                 experts, top-8, QK-norm) with the same request mix and
                 checks as 8 (no tempering: QK-norm keeps the scores of unit
@@ -73,7 +75,11 @@ Phases, one JSON line each; any failure exits non-zero:
                 before and after); teacher forced in bf16 against the plain
                 absorbed path, and the plain absorbed against the plain
                 non-absorbed form, with routing agreement; then its profile
-                (as 11) and timing rows (as 10, flash at S = 128, 517, 1024).
+                (as 11) and timing rows (as 10, flash at S = 128, 517, 1024),
+                and the ``latent_timing`` line: the bf16 latent call (one
+                launch) as queued calls, its split and merge per CTA from the
+                build with phase marks, live CTAs and stages, and the float32
+                route's split and merge apart.
                 Its kernels are also held to their plain versions in 2 (flash
                 (192, 128) at S = 128, 517, 1024, bf16 and float32; the
                 latent call at the first wave's mid-decode lengths with an
@@ -165,6 +171,10 @@ FLASH_ROUNDS = 5
 LLM_KERNELS = ("banked_copy", "paged_attention", "flash_attention")
 #: the kernel only the training path runs
 TRAIN_KERNELS = ("flash_attention_bwd",)
+#: the flag that compiles the bf16 latent kernel's phase marks in (its timing line)
+LATENT_MARK_FLAGS = ("-DLATENT_MARKS",)
+#: library paths of the builds with marks, filled by ``phase_build``
+MARKED: dict = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -292,11 +302,33 @@ def _offset_view(t, offset: int):
 
 
 def phase_build() -> None:
+    """Every kernel, and the paged kernels again with the latent kernel's
+    phase marks, all nvcc processes at once."""
+    import threading
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
+    failed = []
+
+    def build_marked():
+        try:
+            MARKED.update(_build.build(["paged_attention"], extra_flags=LATENT_MARK_FLAGS))
+        except RuntimeError as err:
+            failed.append(err)
+
+    marked = threading.Thread(target=build_marked)
+    marked.start()
     paths = _build.build(["bank_arbiter", *LLM_KERNELS, *TRAIN_KERNELS])
-    emit("build", seconds=time.perf_counter() - t0, libraries={k: str(v) for k, v in paths.items()})
+    marked.join()
+    if failed:
+        raise failed[0]
+    emit(
+        "build",
+        seconds=time.perf_counter() - t0,
+        libraries={k: str(v) for k, v in paths.items()},
+        marked={k: str(v) for k, v in MARKED.items()},
+    )
 
 
 def phase_kernels() -> int:
@@ -1939,7 +1971,8 @@ def _serving_path(arch: str, phase: str, *, temper: bool, f32_forcing: bool = Tr
         "flash_attention": L * plan.stats.admissions,
         "banked_copy": plan.stats.admissions,
         "paged_attention": L * plan.stats.decode_steps,
-        "paged_attention_merge": L * plan.stats.decode_steps,
+        # the bf16 latent call merges inside its one launch
+        "paged_attention_merge": 0 if cfg.use_mla else L * plan.stats.decode_steps,
         "bank_arbiter": 0,
     }
 
@@ -2082,7 +2115,7 @@ def phase_serving_profile(serving: dict) -> None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    paged = ("paged_split", "paged_latent_split", "paged_merge")
+    paged = ("paged_split", "paged_latent", "paged_merge")
     paged_us = sum(v for k, v in by_name.items() if any(n in k for n in paged))
     host_us = serving["decode_ms_per_step"] * 1e3
     del eng
@@ -2196,6 +2229,107 @@ def _timing_row(
         "call_ms": call_ms["kernel"],
         "library": library,
     }
+
+
+#: phase marks of the bf16 latent kernel (``LAT_MARK`` in paged_attention.cu)
+#: read by ``_latent_timing``: (name, from mark, to mark)
+LATENT_PHASES = (
+    ("start: length, table, cluster barrier", 0, 1),
+    ("q multicast in", 1, 2),
+    ("stage 0 in", 2, 3),
+    ("S, stage 0", 3, 4),
+    ("softmax, stage 0", 4, 5),
+    ("P V, stage 0", 5, 6),
+    ("the rest of the stages", 6, 8),
+    ("merge: cluster barrier", 8, 9),
+    ("merge: weights", 9, 10),
+    ("merge: loads from the cluster", 10, 11),
+    ("merge: stores and the last barrier", 11, 12),
+)
+
+
+def _latent_timing(q, kp, tbl, ln, scale) -> None:
+    """Row 3m apart: the bf16 latent call (one launch) as queued calls; its
+    work (the split: start to the last stage) and its merge per CTA from the
+    build with phase marks, with the stages and live CTAs; and the float32
+    route's split and merge, each as queued calls."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.paged_attention import ops
+
+    B, mb, bs = q.shape[0], tbl.shape[1], kp.shape[1]
+    lens = ln.tolist()
+    C = ops.LATENT_CLUSTER
+    chunks = [-(-n // C) for n in lens]
+    live = sum(-(-n // c) for n, c in zip(lens, chunks) if c)
+    stages = max(-(-c // ops.LATENT_STAGE_ROWS) for c in chunks)
+    call = lambda: ops.paged_attention(q, kp, kp[..., :512], tbl, ln, scale=scale)  # noqa: E731
+    call_us = queued_ms(call, 200) * 1e3
+
+    lib = ctypes.CDLL(MARKED["paged_attention"])
+    fn = lib.paged_attention_latent
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+    fn.argtypes += [ctypes.c_float, ctypes.c_void_p]
+    lib.paged_attention_latent_marks.argtypes = [ctypes.c_void_p]
+    out = torch.empty((B, 16, 512), dtype=q.dtype, device="cuda")
+    args = (q.data_ptr(), kp.data_ptr(), tbl.data_ptr(), ln.data_ptr(), out.data_ptr(), B, mb, bs)
+    args += (kp.stride(0), kp.stride(1), scale, torch.cuda.current_stream().cuda_stream)
+    marked = lambda: check(fn(*args) == 0, "marked latent launch")  # noqa: E731
+    marks = torch.zeros((B * C, 16), dtype=torch.int64, device="cuda")
+    marked_us = queued_ms(marked, 200) * 1e3  # marks off
+    check(lib.paged_attention_latent_marks(marks.data_ptr()) == 0, "latent marks buffer")
+    for _ in range(3):
+        marked()
+    torch.cuda.synchronize()
+    check(lib.paged_attention_latent_marks(None) == 0, "latent marks buffer")
+    check(torch.equal(out, call()), "the marked build's output differs from the kernel's")
+    m = marks.cpu().double()
+    t0 = m[:, 0].min()
+
+    def median_us(a, b):
+        return float((m[:, b] - m[:, a]).median()) / 1e3
+
+    work = m[:, 8] - t0  # each CTA's split done, from the first CTA's start
+    end = m[:, 12] - t0
+
+    # the float32 route (the check path): split and merge apart
+    q32, kv32 = q.float(), kp.float()
+    fns = ops._kernel_fns()
+    bps = ops.blocks_per_split(bs, latent=True)
+    nsplit = -(-mb // bps)
+    part_acc = torch.empty((B, 16, nsplit, 512), dtype=torch.float32, device="cuda")
+    part_ms = torch.empty((B, 16, nsplit, 2), dtype=torch.float32, device="cuda")
+    out32 = torch.empty((B, 16, 512), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = (part_acc.data_ptr(), part_ms.data_ptr())
+    split_args = (q32.data_ptr(), kv32.data_ptr(), tbl.data_ptr(), ln.data_ptr(), *parts, B, mb)
+    split_args += (bs, bps, kv32.stride(0), kv32.stride(1), scale, stream)
+    merge_args = (*parts, ln.data_ptr(), out32.data_ptr(), B, 16, 512, mb, bs, bps, 0, stream)
+    split32 = lambda: check(fns["latent_split"](*split_args) == 0, "f32 split")  # noqa: E731
+    merge32 = lambda: check(fns["merge"](*merge_args) == 0, "f32 merge")  # noqa: E731
+    split32()
+    emit(
+        "latent_timing",
+        lengths=lens,
+        cluster=C,
+        live_ctas=live,
+        stages_per_cta_at_most=stages,
+        row_bytes=sum(lens) * kp.shape[-1] * kp.element_size(),
+        partial_bytes_in_device_memory=0,
+        partial_bytes_through_the_cluster=B * C * (16 * 512 * 4 + 16 * 8),
+        bf16_call_queued_us=call_us,
+        bf16_marked_build_queued_us=marked_us,
+        bf16_split_us={"median": float(work.median()) / 1e3, "max": float(work.max()) / 1e3},
+        bf16_merge_us=median_us(8, 12),
+        bf16_end_us={"median": float(end.median()) / 1e3, "max": float(end.max()) / 1e3},
+        bf16_phase_median_us={name: median_us(a, b) for name, a, b in LATENT_PHASES},
+        bf16_sms=len({int(x) for x in m[:, 15].tolist()}),
+        f32_split_queued_us=queued_ms(split32, 200) * 1e3,
+        f32_merge_queued_us=queued_ms(merge32, 200) * 1e3,
+        f32_splits_live=sum(-(-n // (bps * bs)) for n in lens),
+    )
 
 
 def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) -> list:
@@ -2319,8 +2453,11 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
             "F.scaled_dot_product_attention on K/V gathered beforehand",
             shape=dict(B=B, H=H, G=G, D=Dk, Dv=Dv, block_size=bs, lengths=lens),
             path=cfg.name,
+            queued=True,
         )
     )
+    if cfg.use_mla:
+        _latent_timing(q, kp, tbl, ln, scale)
     del pool, kp, vp, kg, vg, lib
 
     nblk, W = 64, model.kv_width()

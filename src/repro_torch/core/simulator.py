@@ -1452,8 +1452,9 @@ def simulate_batch(
       last point, and the result is sliced back to B.
     * ``shard`` keeps the reference's signature.  With one visible device it
       changes nothing, as in the reference; splitting lanes across several
-      CUDA devices is not ported (ROADMAP.md Queue 1 item 6), so there it
-      raises rather than use one card silently (pass ``shard=False``)."""
+      CUDA devices is not ported (ROADMAP.md Queue 1, "the multi-device
+      layer"), so there it raises rather than use one card silently (pass
+      ``shard=False``)."""
     if not prms:
         raise ValueError("empty parameter batch")
     dev = _resolve_device(device)
@@ -1467,7 +1468,8 @@ def simulate_batch(
     if shard and dev.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "simulate_batch(shard=True) with several visible CUDA devices: splitting the batch "
-            "across devices is not ported yet (ROADMAP.md Queue 1 item 6); pass shard=False"
+            "across devices is not ported yet (ROADMAP.md Queue 1, the multi-device layer); "
+            "pass shard=False"
         )
     env = batch_envelope(prms)
     use_sched = env.uses_schedule()

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward and
 // backward kernels: mbarriers, TMA tile loads through 4-D tensor maps,
 // wgmma shared-memory descriptors and instructions, and the tile products of
-// the two kernels.  Header-only, in an anonymous namespace: each kernel source
-// that includes it is a library of its own.  `_build.py` hashes this
+// the two kernels; the paged kernel's latent call uses its mbarriers.
+// Header-only, in an anonymous namespace: each kernel source that includes
+// it is a library of its own.  `_build.py` hashes this
 // directory into every kernel's library name, so an edit here rebuilds them.
 //
 // Tiles.  A [64 rows, D] bf16 tile of a [B, rows, heads, D] tensor lands in

@@ -14,8 +14,12 @@ MLA's absorbed decode (deepseek-v2) makes a call of its own shape
 (``LATENT``): one KV group of 16 query heads, K the layer's latent rows of
 576 and V the first 512 columns of the same rows, passed as a view of K's
 first columns (same storage, same strides).  The wrapper sees V's narrower
-width and launches ``paged_latent_split``, which reads each row once, then
-the merge at V's width; the launches count under the same two names.
+width.  In bf16 it launches ``paged_latent_bf16``, one kernel that reads
+each row once on the tensor cores and merges through a thread-block
+cluster per request (``LATENT_CLUSTER`` CTAs), counted under
+``"paged_attention"`` alone; in float32 (the check path) the split pass
+``paged_latent_split_f32`` and the merge at V's width, counted under the
+same two names as the GQA call.
 """
 
 from __future__ import annotations
@@ -37,7 +41,14 @@ MAX_SPLITS = 6144
 SPLIT_TOKENS = 256
 #: MLA's latent call: (query heads, K width, V width), one KV group
 LATENT = (16, 576, 512)
-#: tokens a split of the latent call covers at least: one batch of its kernel's rows
+#: CTAs per request of the bf16 latent call: one thread-block cluster, each
+#: CTA ceil(length / LATENT_CLUSTER) of the request's tokens
+LATENT_CLUSTER = 16
+#: token rows of a stage of the bf16 latent kernel (``stage_rows`` of the plain replay)
+LATENT_STAGE_ROWS = 32
+#: block table entries of a request that the bf16 latent call stages (the kernel's ``kMaxTbl``)
+LATENT_MAX_TABLE = 1024
+#: tokens a split of the float32 latent call covers at least: one batch of its kernel's rows
 LATENT_SPLIT_TOKENS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,14 +61,17 @@ def _kernel_fns():
         split = lib.paged_attention_split
         split.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
         split.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        latent = lib.paged_attention_latent_split
-        latent.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
-        latent.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        latent = lib.paged_attention_latent
+        latent.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+        latent.argtypes += [ctypes.c_float, ctypes.c_void_p]
+        latent_split = lib.paged_attention_latent_split
+        latent_split.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        latent_split.argtypes += [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]
         merge = lib.paged_attention_merge
         merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        for fn in (split, latent, merge):
+        for fn in (split, latent, latent_split, merge):
             fn.restype = ctypes.c_int
-        _fns.update(split=split, latent=latent, merge=merge)
+        _fns.update(split=split, latent=latent, latent_split=latent_split, merge=merge)
     return _fns
 
 
@@ -95,6 +109,11 @@ def _check_latent(q, k_pool, v_pool, block_table, lengths) -> None:
         raise ValueError("the latent call's V must be a view of K's first columns")
     if k_pool.stride(3) != 1:
         raise ValueError(f"latent rows must be contiguous; strides {k_pool.stride()}")
+    if block_table.dim() == 2 and block_table.shape[1] > LATENT_MAX_TABLE:
+        raise ValueError(
+            f"the latent call takes block tables of at most {LATENT_MAX_TABLE} entries; "
+            f"got {block_table.shape[1]}"
+        )
     _check_common(q, k_pool, v_pool, block_table, lengths, latent=True)
 
 
@@ -170,43 +189,48 @@ def paged_attention(
     B, H, D = q.shape
     _, bs, G, Dv = v_pool.shape
     mb = block_table.shape[1]
-    bps = blocks_per_split(bs, latent=latent)
-    nsplit = -(-mb // bps)
-    scale = scale if scale is not None else D**-0.5
+    scale = float(scale if scale is not None else D**-0.5)
     out = q.new_empty((B, H, Dv))
     if B == 0:
         return out
-    part_acc = torch.empty((B, H, nsplit, Dv), dtype=torch.float32, device=q.device)
-    part_ms = torch.empty((B, H, nsplit, 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fns = _kernel_fns()
-    if nsplit and latent:
+    ptrs = (q.data_ptr(), k_pool.data_ptr())
+    if latent and q.dtype == torch.bfloat16:
         err = fns["latent"](
-            q.data_ptr(),
-            k_pool.data_ptr(),
+            *ptrs,
             block_table.data_ptr(),
             lengths.data_ptr(),
-            part_acc.data_ptr(),
-            part_ms.data_ptr(),
+            out.data_ptr(),
             B,
             mb,
             bs,
-            bps,
             k_pool.stride(0),
             k_pool.stride(1),
-            float(scale),
-            _DTYPES[q.dtype],
+            scale,
             stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"paged_attention latent kernel launch failed: cudaError_t {err}")
+        LAUNCHES["paged_attention"] += 1
+        return out
+    bps = blocks_per_split(bs, latent=latent)
+    nsplit = -(-mb // bps)
+    part_acc = torch.empty((B, H, nsplit, Dv), dtype=torch.float32, device=q.device)
+    part_ms = torch.empty((B, H, nsplit, 2), dtype=torch.float32, device=q.device)
+    parts = (part_acc.data_ptr(), part_ms.data_ptr())
+    tail = (k_pool.stride(0), k_pool.stride(1), scale)
+    if nsplit and latent:
+        err = fns["latent_split"](
+            *ptrs, block_table.data_ptr(), lengths.data_ptr(), *parts, B, mb, bs, bps, *tail, stream
         )
     elif nsplit:
         err = fns["split"](
-            q.data_ptr(),
-            k_pool.data_ptr(),
+            *ptrs,
             v_pool.data_ptr(),
             block_table.data_ptr(),
             lengths.data_ptr(),
-            part_acc.data_ptr(),
-            part_ms.data_ptr(),
+            *parts,
             B,
             H,
             G,
@@ -214,9 +238,7 @@ def paged_attention(
             mb,
             bs,
             bps,
-            k_pool.stride(0),
-            k_pool.stride(1),
-            float(scale),
+            *tail,
             _DTYPES[q.dtype],
             stream,
         )
@@ -225,18 +247,7 @@ def paged_attention(
             raise RuntimeError(f"paged_attention split kernel launch failed: cudaError_t {err}")
         LAUNCHES["paged_attention"] += 1
     err = fns["merge"](
-        part_acc.data_ptr(),
-        part_ms.data_ptr(),
-        lengths.data_ptr(),
-        out.data_ptr(),
-        B,
-        H,
-        Dv,
-        mb,
-        bs,
-        bps,
-        _DTYPES[q.dtype],
-        stream,
+        *parts, lengths.data_ptr(), out.data_ptr(), B, H, Dv, mb, bs, bps, _DTYPES[q.dtype], stream
     )
     if err != 0:
         raise RuntimeError(f"paged_attention merge kernel launch failed: cudaError_t {err}")

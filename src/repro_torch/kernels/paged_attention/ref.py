@@ -17,6 +17,7 @@ arithmetic for the tests.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e9
 
@@ -61,44 +62,71 @@ def paged_attention_split_ref(
     block_table: torch.Tensor,
     lengths: torch.Tensor,
     *,
-    blocks_per_split: int,
+    blocks_per_split: int | None = None,
+    splits: int | None = None,
+    stage_rows: int | None = None,
     scale=None,
 ) -> torch.Tensor:
-    """The CUDA kernel's split-and-merge arithmetic in plain PyTorch (tests
-    only): the KV length cut into splits of ``blocks_per_split`` pool blocks,
-    one float32 partial (max, sum, acc) per (request, head, split), the live
-    splits (those starting before the length) merged in split order.  Equals
-    ``paged_attention_ref`` up to float32 rounding."""
+    """The CUDA kernels' split-and-merge arithmetic in plain PyTorch (tests
+    only).  Each request's tokens are cut into splits: of ``blocks_per_split``
+    pool blocks (the GQA kernel, the float32 latent kernel), or into
+    ``splits`` chunks of ceil(length / splits) tokens (the bf16 latent
+    kernel's cluster of CTAs).  Each split gives a float32 partial (max,
+    sum, acc) per head, and the splits are merged in order against their
+    largest max.  Scores are float32 products of q and the rows as they are
+    stored, scaled after the product (the GQA kernel scales q first: a
+    float32 rounding apart).  With ``stage_rows`` it also replays the latent
+    kernels' stages: each split's rows in stages of that many, P taken
+    against the running max after each stage and rounded to q's dtype (bf16:
+    the tensor cores' A operand, as the reference's absorbed form rounds its
+    softmax weights) before P V and before its sum.  Equals
+    ``paged_attention_ref`` up to float32 rounding, and up to that rounding
+    of P in bf16."""
     B, H, D = q.shape
     NB, bs, G, _ = k_pool.shape
     Dv = v_pool.shape[3]
     mb = block_table.shape[1]
+    m = H // G
     scale = scale if scale is not None else D**-0.5
-    span = blocks_per_split * bs
-    nsplit = -(-mb // blocks_per_split)
-    tbl = block_table.long().clamp(min=0)
-    k = k_pool[tbl].reshape(B, mb * bs, G, D).float()
-    v = v_pool[tbl].reshape(B, mb * bs, G, Dv).float()
     length = lengths.long().clamp(0, mb * bs)
-    valid = torch.arange(mb * bs, device=q.device)[None, :] < length[:, None]
-    valid &= (block_table >= 0).repeat_interleave(bs, dim=1)
-    v = v.masked_fill(~valid[:, :, None, None], 0.0)  # rows past the end may hold anything
-    pad = nsplit * span - mb * bs  # the last split's blocks past the table
-    valid = torch.nn.functional.pad(valid, (0, pad))
-    k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
-    qg = q.reshape(B, G, H // G, D).float() * scale
-    s = torch.einsum("bgmd,btgd->bgmt", qg, k).masked_fill(~valid[:, None, None, :], -torch.inf)
-    s = s.reshape(B, G, H // G, nsplit, span)
-    mx = s.amax(-1)  # [B, G, m, nsplit]
-    p = torch.where(mx[..., None] > -torch.inf, torch.exp(s - mx[..., None]), 0.0)
-    acc = torch.einsum("bgmst,bstgd->bgmsd", p, v.reshape(B, nsplit, span, G, Dv))
-    ssum = p.sum(-1)
-    # merge: live splits with a valid token, weighted against their largest max
-    live = (torch.arange(nsplit, device=q.device)[None, :] * span < length[:, None])[:, None, None]
-    used = live & (ssum > 0)
-    big = mx.masked_fill(~used, -torch.inf).amax(-1, keepdim=True)
-    w = torch.where(used, torch.exp(mx - big), 0.0)
-    total = (ssum * w).sum(-1)
-    out = (acc * w[..., None]).sum(-2) / torch.where(total > 0, total, 1.0)[..., None]
-    out = torch.where((total > 0)[..., None], out, 0.0)
+    tbl = block_table.long()
+    out = torch.zeros(B, G, m, Dv, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        n = int(length[b])
+        span = blocks_per_split * bs if blocks_per_split else -(-n // splits)
+        tok = torch.arange(n, device=q.device)
+        blk = tbl[b, tok // bs]
+        rows_k = k_pool[blk.clamp(min=0), tok % bs].float()  # [n, G, D]
+        rows_v = v_pool[blk.clamp(min=0), tok % bs].float()
+        valid = blk >= 0
+        # rows of -1 blocks may hold anything
+        rows_v = rows_v.masked_fill(~valid[:, None, None], 0.0)
+        qg = q[b].reshape(G, m, D).float()
+        parts = []  # (max, sum, acc) per split, in split order
+        for t0 in range(0, n, span or 1):
+            t1 = min(t0 + span, n)
+            rows = stage_rows or (t1 - t0)
+            nst = -(-(t1 - t0) // rows)
+            pad = nst * rows - (t1 - t0)
+            sc = torch.einsum("gmd,tgd->gmt", qg, rows_k[t0:t1]) * scale
+            sc = sc.masked_fill(~valid[None, None, t0:t1], -torch.inf)
+            sc = F.pad(sc, (0, pad), value=-torch.inf).reshape(G, m, nst, rows)
+            vs = F.pad(rows_v[t0:t1], (0, 0, 0, 0, 0, pad)).reshape(nst, rows, G, Dv)
+            run = sc.amax(-1).cummax(-1).values  # running max after each stage
+            p = torch.where(run[..., None] > -torch.inf, torch.exp(sc - run[..., None]), 0.0)
+            if stage_rows:
+                p = p.to(q.dtype).float()
+            mx = run[..., -1]
+            rescale = torch.where(run > -torch.inf, torch.exp(run - mx[..., None]), 0.0)
+            acc = torch.einsum("gmst,stgd,gms->gmd", p, vs, rescale)
+            parts.append((mx, (p.sum(-1) * rescale).sum(-1), acc))
+        if not parts:
+            continue
+        mx, ssum, acc = (torch.stack(t, -1) for t in zip(*parts))  # acc [G, m, Dv, splits]
+        used = ssum > 0
+        big = mx.masked_fill(~used, -torch.inf).amax(-1, keepdim=True)
+        w = torch.where(used, torch.exp(mx - big), 0.0)
+        total = (ssum * w).sum(-1)
+        o = (acc * w[..., None, :]).sum(-1) / torch.where(total > 0, total, 1.0)[..., None]
+        out[b] = torch.where((total > 0)[..., None], o, 0.0)
     return out.reshape(B, H, Dv).to(q.dtype)

@@ -259,7 +259,8 @@ class MLAAttention(torch.nn.Module):
     def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
         raise NotImplementedError(
             "MLA is served but not trained yet: its training forward and the flash backward "
-            "at QK width 192 / V width 128 are the next slice (ROADMAP Queue 1 item 6)"
+            "at QK width 192 / V width 128 are the next slice (ROADMAP Queue 1, "
+            "\"MLA training\")"
         )
 
     def decode(

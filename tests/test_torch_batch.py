@@ -134,5 +134,5 @@ def test_batch_entry_points_are_loud(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsim.simulate_batch([trace], [prm, prm])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="the multi-device layer"):
         tsim.simulate_batch([trace], [prm, prm], device="cuda")

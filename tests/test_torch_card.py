@@ -665,34 +665,64 @@ def _latent_inputs(gen, dtype, lens, *, bs=16, mb=None, layers=3):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize(
-    "lens,bs",
+    "lens,bs,mb",
     [
-        ([585, 1061, 0, 700, 1024, 128, 845, 990], 16),  # the serving path's, one idle slot
-        ([1, 64, 65, 128, 200, 0], 16),  # one row, a split exactly, one past, a ragged block
-        ([37, 9, 0, 64], 8),
-        ([300, 1, 129], 128),  # one 128-row block per split: two batches in a split
+        ([585, 1061, 0, 700, 1024, 128, 845, 990], 16, None),  # the serving path's, one idle slot
+        ([1, 64, 65, 128, 200, 0], 16, None),  # one row, a split exactly, one past, a ragged block
+        ([37, 9, 0, 64], 8, None),
+        ([300, 1, 129], 128, None),  # one 128-row block per split: two batches in a split
+        # bf16: 16 CTAs a request, chunks of ceil(length / 16) in stages of 32 rows:
+        # 3 stages (1100: 69 a CTA), 2 full stages (1024), exactly one stage (512),
+        # one past it (528: 33), one short of it (496: 31), CTAs with no token (17)
+        ([1100, 1024, 512, 528, 496, 17, 0, 33], 16, None),
+        ([2048], 16, 128),  # one request at the serving table's full width
+        ([16384], 16, 1024),  # the longest table the call takes: 32 stages a CTA
+        ([0, 0, 0], 16, None),  # every slot idle
     ],
 )
-def test_paged_latent_call_matches_plain(card, lens, bs, dtype, tol):
+def test_paged_latent_call_matches_plain(card, lens, bs, mb, dtype, tol):
     """The latent call (16 heads, K rows of 576, V their first 512 columns)
-    against the plain version; the idle slot gets 0; launches count under
-    the paged names; two calls agree bit for bit."""
+    against the plain version; idle slots get 0; launches count under the
+    paged names (bf16: one launch, the merge inside it; float32: the split
+    and the merge); two calls agree bit for bit."""
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(len(lens) * bs)
-    q, kv, tbl, ln = _latent_inputs(gen, dtype, lens, bs=bs)
+    q, kv, tbl, ln = _latent_inputs(gen, dtype, lens, bs=bs, mb=mb)
     before = (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"])
     got = paged_attention(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5)
     torch.cuda.synchronize()
     after = (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"])
-    assert after == (before[0] + 1, before[1] + 1) and got.shape == (len(lens), 16, 512)
+    merges = int(dtype == torch.float32)
+    assert after == (before[0] + 1, before[1] + merges) and got.shape == (len(lens), 16, 512)
     want = paged_attention_ref(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     for b, n in enumerate(lens):
         if n == 0:
             assert (got[b] == 0).all()
     assert torch.equal(got, paged_attention(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+def test_paged_latent_call_masks_unused_blocks(card, dtype, tol):
+    """-1 table entries inside the length: at a request's start, in its
+    middle and at its last block; a request whose every block is -1 gets 0."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    lens = [700, 300, 1000, 40]
+    q, kv, tbl, ln = _latent_inputs(gen, dtype, lens, bs=16)
+    tbl[0, 0] = -1
+    tbl[1, 5:9] = -1
+    tbl[2, 62] = -1  # the last block of 1000 tokens
+    tbl[3, :3] = -1
+    got = paged_attention(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, kv, kv[..., :512], tbl, ln, scale=192**-0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert (got[3] == 0).all()
 
 
 def test_paged_latent_call_refuses(card):
@@ -706,6 +736,9 @@ def test_paged_latent_call_refuses(card):
         paged_attention(q[:, :8].contiguous(), kv, kv[..., :512], tbl, ln)
     with pytest.raises(ValueError):  # another V width
         paged_attention(q, kv, kv[..., :256], tbl, ln)
+    wide = torch.full((2, 1025), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):  # a block table past the 1024 entries it stages
+        paged_attention(q, kv, kv[..., :512], wide, ln)
 
 
 def test_banked_copy_at_the_mla_pool_row(card):

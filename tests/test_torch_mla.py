@@ -23,6 +23,10 @@ of the reference's output (magnitudes up to ~15 here):
   where the other form rounds the up-projected K and V.
 The plain kernels' versions: abs 2e-5 in float32, 2e-2 (flash) and 3e-2
 (paged) in bf16 on outputs of magnitude ~1, ``tests/test_kernels.py``'s.
+The latent kernels' arithmetic replayed (``paged_attention_split_ref``):
+abs 2e-5 against the reference in float32 (summation order); in bf16,
+1.5e-2 against the plain version, half the card's 3e-2 bound (P rounded to
+bf16 before P V, as the bf16 kernel does and the plain version does not).
 """
 
 import dataclasses
@@ -45,7 +49,12 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_fwd_ref,
     flash_attention_ref,
 )
-from repro_torch.kernels.paged_attention.ops import LATENT, blocks_per_split  # noqa: E402
+from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
+    LATENT,
+    LATENT_CLUSTER,
+    LATENT_STAGE_ROWS,
+    blocks_per_split,
+)
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref,
     paged_attention_split_ref,
@@ -249,3 +258,61 @@ def test_plain_latent_paged_call_matches_reference(dtype):
         qt, kv, kv[..., :Dv], tt, lt, blocks_per_split=bps, scale=scale
     )
     np.testing.assert_allclose(_np(split), _np(got), rtol=0, atol=tol)
+
+
+def _latent_case(dtype, lens, *, bs=8, layers=3, seed=7):
+    """q, a strided layer view of an all-layer latent pool, tables and
+    lengths for the latent call, as numpy and as the port's tensors."""
+    H, Dk, _ = LATENT
+    rng = np.random.default_rng(seed)
+    mb = max(-(-n // bs) for n in lens) + 1
+    NB = sum(-(-n // bs) for n in lens) + 4
+    pool = rng.standard_normal((NB, bs, layers, Dk)).astype(np.float32)
+    q = rng.standard_normal((len(lens), H, Dk)).astype(np.float32) * 0.3
+    perm = rng.permutation(NB)
+    tables = np.full((len(lens), mb), -1, np.int32)
+    used = 0
+    for b, n in enumerate(lens):
+        nb = -(-n // bs)
+        tables[b, :nb] = perm[used : used + nb]
+        used += nb
+    lens = np.asarray(lens, np.int32)
+    kv = _port(pool, dtype)[:, :, 1, None]
+    tt, lt = torch.from_numpy(tables), torch.from_numpy(lens)
+    port = (_port(q, dtype), kv, kv[..., : LATENT[2]], tt, lt)
+    return (q, pool[:, :, 1], tables, lens), port
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_latent_kernels_arithmetic_replayed(dtype):
+    """``paged_attention_split_ref`` replaying the latent kernels (the bf16
+    kernel's 16 chunks a request in stages of 32 rows with P rounded to
+    bf16; the float32 kernel's 64-token splits) at lengths 65 / 9 / 0 / 72
+    and 700 (16 chunks of 44 tokens: two stages each; 11 float32 splits):
+    in float32 against the reference's ``paged_attention_ref``, in bf16
+    against the plain version (tolerances in the module docstring)."""
+    Dv = LATENT[2]
+    scale = 192**-0.5
+    (q, lat, tables, lens), port = _latent_case(dtype, [65, 9, 0, 72, 700])
+    kernel = paged_attention_split_ref(
+        *port, splits=LATENT_CLUSTER, stage_rows=LATENT_STAGE_ROWS, scale=scale
+    )
+    f32_kernel = paged_attention_split_ref(
+        *port, blocks_per_split=blocks_per_split(8, latent=True), stage_rows=64, scale=scale
+    )
+    live = lens > 0  # the reference returns V's mean over block 0 for an idle slot
+    for got in (kernel, f32_kernel):
+        assert got.shape == (len(lens), LATENT[0], Dv)
+        assert (got[~torch.from_numpy(live)] == 0).all()
+    if dtype == "float32":
+        lat_j = jnp.asarray(lat)[:, :, None]
+        want = ref_paged(
+            jnp.asarray(q), lat_j, lat_j, jnp.asarray(tables), jnp.asarray(lens), scale=scale
+        )[..., :Dv]
+        for got in (kernel, f32_kernel):
+            np.testing.assert_allclose(_np(got)[live], _np(want)[live], rtol=0, atol=2e-5)
+    else:
+        plain = paged_attention_ref(*port, scale=scale)
+        np.testing.assert_allclose(_np(kernel), _np(plain), rtol=0, atol=1.5e-2)
+        # the rounding of P is there: the replay is not the plain version
+        assert not torch.equal(kernel, plain)
