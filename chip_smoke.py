@@ -129,11 +129,19 @@ Phases, one JSON line each; any failure exits non-zero:
                  (the main path: launches counted), step time, tokens/s, peak
                  memory, model-FLOPs share and a profiled step; the launcher
                  ``repro_torch.launch.train`` at full width (its loss must
-                 fall); crash and resume at full width with 2 of 24 layers;
+                 fall; stablelm-1.6b, and deepseek-v2-lite-16b with
+                 ``--layers 4``); crash and resume at full width with 2 of 24 layers;
                  olmoe-1b-7b with 4 of 16 layers, three steps kernel against
-                 plain; and the timing rows of the backward (with its rate on
-                 its 7 products and its share of the 5-product bound) and of
-                 the forward with its log-sum-exp
+                 plain; deepseek-v2-lite-16b (MLA: the forward's lse and the
+                 backward at q/k 192, v 128) with 4 of 27 layers at B 2 x S
+                 4096, three steps kernel against plain, launches 24 / 12,
+                 step time, tokens/s, peak memory and model-FLOPs share; and
+                 the timing rows of the backward (with its rate on its own
+                 products and its share of the 5-product bound) and of the
+                 forward with its log-sum-exp, MLA's against SDPA's backend
+                 that takes V narrower than Q and K (rows 4tm, 5m).  The MLA
+                 widths are also among the kernel checks (B 2 x S 4096 bf16,
+                 S 517, S 300 / T 500 float32, a repeat at the main shape)
 The serving phases (8, 11) also record each full-width run's KV access stream and
 hold it to a traffic-only engine's on the same prompts: the stream the
 co-sim replays.  Then the kernels line, the card's name and power limit, and as the last line
@@ -154,12 +162,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM device memory rate (NVIDIA data sheet), bytes per second
-HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM device memory rate and dense bf16 tensor-core rate, bytes and
+#: FLOP per second: the port's cost model's (``repro_torch.analysis.costs``
+#: ``HBM_BW`` and ``PEAK_FLOPS``, NVIDIA's data sheet), set by ``main``
+#: once the port is importable
+HBM_BYTES_PER_S = BF16_OPS_PER_S = None
 #: H100 SXM non-tensor-core float32 rate, used as the int32 ALU peak
 ALU_OPS_PER_S = 67e12
-#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
-BF16_OPS_PER_S = 989e12
 #: clock cycles of the spin kernel ``queued_ms`` puts ahead of its calls:
 #: 50 ms or more at the H100's top clock (1.98 GHz)
 SPIN_CYCLES = 100_000_000
@@ -2510,6 +2519,10 @@ TRAIN_MOE_BOUNDS = {"loss_abs": 0.05, "route_agreement": 0.9}
 #: (``train_4k``, 4096), its global batch of 256 cut to the 4 sequences one
 #: card holds
 TRAIN_B, TRAIN_S = 4, 4096
+#: deepseek-v2-lite-16b's training run: 4 of its 27 layers (AdamW's float32
+#: parameters, gradients and moments take ~260 GB at 27, ~44 GB at 4) and
+#: train_4k's batch cut to 2 sequences of 4096
+MLA_TRAIN_LAYERS, MLA_TRAIN_B = 4, 2
 
 
 def _rel_err(got, want) -> float:
@@ -2520,8 +2533,9 @@ def _rel_err(got, want) -> float:
 
 def _train_kernel_checks() -> dict:
     """The flash backward kernel and the forward's output and log-sum-exp
-    against their plain versions on the card; two calls at the main path's
-    shape bit for bit.  Returns ``{"bwd": {case: largest abs difference of
+    against their plain versions on the card, at the square widths and at
+    MLA's (q/k 192, v 128); two calls at each main path's shape bit for
+    bit.  Returns ``{"bwd": {case: largest abs difference of
     dQ, dK, dV}, "fwd": {case: the output's}}``."""
     import torch
 
@@ -2537,27 +2551,30 @@ def _train_kernel_checks() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # name, B, S, T, H, G, D, causal, window, dtype
-        ("stablelm_B4_S4096", TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 64, True, 0, bf16),
-        ("stablelm_S517", 1, 517, 517, 32, 32, 64, True, 0, bf16),
-        ("olmoe_B2_S2048", 2, 2048, 2048, 16, 16, 128, True, 0, bf16),
-        ("gqa4_S1000", 2, 1000, 1000, 16, 4, 64, True, 0, bf16),
-        ("gqa4_S1000_f32", 2, 1000, 1000, 16, 4, 64, True, 0, f32),
-        ("window64_d128_f32", 1, 300, 300, 8, 8, 128, True, 64, f32),
-        ("d16_S77_f32", 2, 77, 77, 8, 2, 16, True, 0, f32),
-        ("d32_T333_full", 1, 100, 333, 8, 1, 32, False, 0, bf16),
-        ("window128_d128_gqa4", 2, 600, 600, 8, 2, 128, True, 128, bf16),
-        ("window100_d32_full", 1, 400, 400, 4, 2, 32, False, 100, bf16),
-        ("gqa4_d128_S1000", 2, 1000, 1000, 16, 4, 128, True, 0, bf16),
-        ("causal_S300_T500", 1, 300, 500, 8, 2, 64, True, 0, bf16),
-        ("causal_S500_T300", 1, 500, 300, 8, 2, 64, True, 0, bf16),
-        ("causal_S500_T300_f32", 1, 500, 300, 8, 2, 64, True, 0, f32),
+    cases = [  # name, B, S, T, H, G, D (q/k), Dv, causal, window, dtype
+        ("stablelm_B4_S4096", TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 64, 64, True, 0, bf16),
+        ("stablelm_S517", 1, 517, 517, 32, 32, 64, 64, True, 0, bf16),
+        ("olmoe_B2_S2048", 2, 2048, 2048, 16, 16, 128, 128, True, 0, bf16),
+        ("mla_B2_S4096", MLA_TRAIN_B, TRAIN_S, TRAIN_S, 16, 16, 192, 128, True, 0, bf16),
+        ("mla_S517", 1, 517, 517, 16, 16, 192, 128, True, 0, bf16),
+        ("mla_S300_T500_f32", 1, 300, 500, 16, 16, 192, 128, True, 0, f32),
+        ("gqa4_S1000", 2, 1000, 1000, 16, 4, 64, 64, True, 0, bf16),
+        ("gqa4_S1000_f32", 2, 1000, 1000, 16, 4, 64, 64, True, 0, f32),
+        ("window64_d128_f32", 1, 300, 300, 8, 8, 128, 128, True, 64, f32),
+        ("d16_S77_f32", 2, 77, 77, 8, 2, 16, 16, True, 0, f32),
+        ("d32_T333_full", 1, 100, 333, 8, 1, 32, 32, False, 0, bf16),
+        ("window128_d128_gqa4", 2, 600, 600, 8, 2, 128, 128, True, 128, bf16),
+        ("window100_d32_full", 1, 400, 400, 4, 2, 32, 32, False, 100, bf16),
+        ("gqa4_d128_S1000", 2, 1000, 1000, 16, 4, 128, 128, True, 0, bf16),
+        ("causal_S300_T500", 1, 300, 500, 8, 2, 64, 64, True, 0, bf16),
+        ("causal_S500_T300", 1, 500, 300, 8, 2, 64, 64, True, 0, bf16),
+        ("causal_S500_T300_f32", 1, 500, 300, 8, 2, 64, 64, True, 0, f32),
     ]
     rows, worst, fwd_err, repeat = [], {}, {}, {}
-    for name, B, S, T, H, G, D, causal, window, dtype in cases:
+    for name, B, S, T, H, G, D, Dv, causal, window, dtype in cases:
         q = _cuda_randn(gen, (B, S, H, D), dtype)
-        k, v = (_cuda_randn(gen, (B, T, G, D), dtype) for _ in range(2))
-        dout = _cuda_randn(gen, (B, S, H, D), dtype)
+        k, v = _cuda_randn(gen, (B, T, G, D), dtype), _cuda_randn(gen, (B, T, G, Dv), dtype)
+        dout = _cuda_randn(gen, (B, S, H, Dv), dtype)
         kw = dict(causal=causal, window=window)
         out, lse = flash_attention_fwd(q, k, v, **kw)
         got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -2568,6 +2585,7 @@ def _train_kernel_checks() -> dict:
         row = dict(
             case=name,
             dtype=key,
+            widths=[D, Dv],
             out_max_abs_err=_max_err(out, out_ref),
             out_rel_err=_rel_err(out, out_ref),
             lse_max_abs_err=float((lse - lse_ref).abs().max()),
@@ -2586,7 +2604,7 @@ def _train_kernel_checks() -> dict:
         check(row["lse_max_abs_err"] <= TRAIN_LSE_TOL[key], f"flash lse {name}: {row}")
         worst[name] = max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
         fwd_err[name] = row["out_max_abs_err"]
-        if name in ("stablelm_B4_S4096", "olmoe_B2_S2048"):
+        if name in ("stablelm_B4_S4096", "olmoe_B2_S2048", "mla_B2_S4096"):
             again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
             repeat[name + "_fwd_lse_vs_serving_fwd"] = torch.equal(out, flash_attention(q, k, v))
@@ -2602,12 +2620,26 @@ def _train_kernel_checks() -> dict:
     return {"bwd": worst, "fwd": fwd_err}
 
 
+#: how ``_flops_per_step`` counts, for the lines that report the share
+FLOPS_SHARE_FORMULA = (
+    "(6 * (costs.active_params - Vp * d) + 3 * L * H * (Dqk + Dv) * S) * tokens / step_s / 989e12"
+)
+
+
 def _flops_per_step(cfg, tokens: int, seq: int) -> float:
     """Model FLOPs of one training step (no remat recompute): 6 N per token
-    for the N parameters of the matrix products (all but the embedding
-    table), and 6 L H D S per token for causal attention's two products."""
-    n = cfg.num_params() - cfg.padded_vocab * cfg.d_model
-    attn = 6 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * seq
+    for the N active parameters of the matrix products (``analysis.costs.
+    active_params``: MoE's top-k experts; all but the embedding table), and
+    3 L H (Dqk + Dv) S per token for causal attention's two products (S T
+    causal pairs are S^2 / 2; at square widths 6 L H D S)."""
+    from repro_torch.analysis.costs import active_params
+
+    n = active_params(cfg) - cfg.padded_vocab * cfg.d_model
+    if cfg.use_mla:
+        dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    else:
+        dqk = dv = cfg.resolved_head_dim
+    attn = 3 * cfg.num_layers * cfg.num_heads * (dqk + dv) * seq
     return float((6 * n + attn) * tokens)
 
 
@@ -2714,9 +2746,7 @@ def _train_step_check() -> dict:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "model_flops_per_step": flops,
         "model_flops_share": flops / step_s / BF16_OPS_PER_S,
-        "model_flops_share_formula": (
-            "(6 * (num_params - Vp * d) + 6 * L * H * D * S) * tokens / step_s / 989e12"
-        ),
+        "model_flops_share_formula": FLOPS_SHARE_FORMULA,
         "metrics": metrics,
         "launches": launches,
         "predicted": want,
@@ -2796,15 +2826,15 @@ def _train_profile(t: dict) -> None:
     )
 
 
-def _train_launcher() -> dict:
-    """``python -m repro_torch.launch.train --arch stablelm-1.6b --steps 16``
+def _train_launcher(arch: str = "stablelm-1.6b", *args: str) -> dict:
+    """``python -m repro_torch.launch.train --arch ARCH --steps 16 [args]``
     at full width on the card, in a process of its own; it asserts that the
     loss fell, as the reference launcher does."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm-1.6b"]
-    cmd += ["--steps", "16"]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch]
+    cmd += ["--steps", "16", *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
@@ -2874,76 +2904,140 @@ def _train_crash_resume() -> dict:
     return out
 
 
+def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool) -> dict:
+    """Three AdamW steps (remat "full") of ``cfg`` through the kernels and
+    three through the plain attention path, each from the same seeded init
+    (``wq`` and ``wk``/``w_uk`` x 1/8 where ``temper``) and the same batches
+    of B x S tokens; per run the metrics, step seconds, routing decisions
+    (call for call), launches and peak memory."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train import step as S_
+
+    pipe = TokenPipeline(cfg.vocab_size, batch=B, seq_len=S, seed=0)
+    batches = [next(pipe) for _ in range(3)]
+    runs = {}
+    run = RunConfig(remat_policy="full")
+    for impl in ("kernel", "ref"):
+        t0 = time.perf_counter()
+        state = S_.init_train_state(cfg, run, seed=0)
+        if temper:
+            _tempered(state.model)
+        state.model.impl = impl
+        step = S_.make_train_step(cfg, run, total_steps=run.steps)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        times, metrics = [], []
+        with _routes_logged() as routes:
+            for b in batches:
+                t = time.perf_counter()
+                state, m = step(state, b)
+                metrics.append({k: float(x) for k, x in m.items()})
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+        runs[impl] = dict(
+            metrics=metrics,
+            routes=routes,
+            init_s=init_s,
+            step_s=times,
+            wall_s=time.perf_counter() - t0,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches={k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")},
+        )
+        del state, step
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> dict:
+    """The two runs of ``_steps_kernel_vs_plain`` side by side, checked:
+    launches (3 steps x 2 forward and 1 backward per layer through the
+    kernels, none through the plain path), finite metrics, a positive aux
+    loss, the losses and routing decisions within ``TRAIN_MOE_BOUNDS``."""
+    k, p = runs["kernel"], runs["ref"]
+    L = cfg.num_layers
+    want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
+    loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(k["metrics"], p["metrics"])]
+    agreement = _route_agreement(k["routes"], p["routes"])
+    step_s = statistics.median(k["step_s"])
+    flops = _flops_per_step(cfg, B * S, S)
+    out = {
+        "arch": cfg.name,
+        "layers": L,
+        "params": cfg.num_params(),
+        "reduced": reduced,
+        "batch": B,
+        "seq": S,
+        "metrics_kernel": k["metrics"],
+        "metrics_plain": p["metrics"],
+        "loss_abs_diff": loss_diff,
+        "routes": agreement,
+        "init_s": {"kernel": k["init_s"], "plain": p["init_s"]},
+        "wall_s": {"kernel": k["wall_s"], "plain": p["wall_s"]},
+        "step_s": {"kernel": k["step_s"], "plain": p["step_s"]},
+        "step_s_median": step_s,
+        "tokens_per_s": B * S / step_s,
+        "peak_memory_gb": {"kernel": k["peak_memory_gb"], "plain": p["peak_memory_gb"]},
+        "model_flops_per_step": flops,
+        "model_flops_share": flops / step_s / BF16_OPS_PER_S,
+        "model_flops_share_formula": FLOPS_SHARE_FORMULA,
+        "launches": k["launches"],
+        "predicted": want,
+        "bounds": TRAIN_MOE_BOUNDS,
+    }
+    check(k["launches"] == want, f"{cfg.name} train launches {k['launches']}, due {want}")
+    check(sum(p["launches"].values()) == 0, f"the plain {cfg.name} run launched {p['launches']}")
+    check(
+        all(math.isfinite(v) for m in k["metrics"] + p["metrics"] for v in m.values()),
+        f"{cfg.name} train metrics not finite",
+    )
+    check(all(m["aux_loss"] > 0 for m in k["metrics"]), f"{cfg.name} aux loss is not positive")
+    check(max(loss_diff) <= TRAIN_MOE_BOUNDS["loss_abs"], f"{cfg.name} losses differ: {loss_diff}")
+    check(
+        agreement["agreement"] >= TRAIN_MOE_BOUNDS["route_agreement"],
+        f"{cfg.name} routing differs: {agreement}",
+    )
+    return out
+
+
 def _train_moe() -> dict:
     """olmoe-1b-7b at full width with 4 of 16 layers (AdamW's float32 state
     of all 16 is 111 GB), B = 2 x S = 2048: three steps through the kernels
     and three through the plain attention path from one state (the same
     seeded init) and batches; routing decisions compared call for call."""
-    import torch
-
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.train import step as S
 
     cfg = replace(get_config("olmoe-1b-7b"), num_layers=4)
-    pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=2048, seed=0)
-    batches = [next(pipe) for _ in range(3)]
-    runs = {}
-    run = RunConfig(remat_policy="full")
-    for impl in ("kernel", "ref"):
-        state = S.init_train_state(cfg, run, seed=0)
-        state.model.impl = impl
-        step = S.make_train_step(cfg, run, total_steps=run.steps)
-        reset_launches()
-        t0 = time.perf_counter()
-        with _routes_logged() as routes:
-            metrics = []
-            for b in batches:
-                state, m = step(state, b)
-                metrics.append({k: float(x) for k, x in m.items()})
-        torch.cuda.synchronize()
-        runs[impl] = dict(
-            metrics=metrics,
-            routes=routes,
-            wall_s=time.perf_counter() - t0,
-            launches={k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")},
-        )
-        del state, step
-        torch.cuda.empty_cache()
-    k, p = runs["kernel"], runs["ref"]
-    L = cfg.num_layers
-    want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
-    check(k["launches"] == want, f"MoE train launches {k['launches']}, due {want}")
-    check(sum(p["launches"].values()) == 0, f"the plain MoE run launched {p['launches']}")
-    loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(k["metrics"], p["metrics"])]
-    agreement = _route_agreement(k["routes"], p["routes"])
-    out = {
-        "arch": cfg.name,
-        "layers": L,
-        "reduced": "4 of 16 layers: AdamW's float32 state of all 16 is 111 GB",
-        "batch": 2,
-        "seq": 2048,
-        "metrics_kernel": k["metrics"],
-        "metrics_plain": p["metrics"],
-        "loss_abs_diff": loss_diff,
-        "routes": agreement,
-        "wall_s": {"kernel": k["wall_s"], "plain": p["wall_s"]},
-        "launches": k["launches"],
-        "bounds": TRAIN_MOE_BOUNDS,
-    }
+    runs = _steps_kernel_vs_plain(cfg, 2, 2048, temper=False)
+    reduced = "4 of 16 layers: AdamW's float32 state of all 16 is 111 GB"
+    out = _kernel_vs_plain_summary(cfg, runs, 2, 2048, reduced)
     emit("train_moe", **out)
-    check(
-        all(math.isfinite(v) for m in k["metrics"] + p["metrics"] for v in m.values()),
-        "MoE train metrics not finite",
+    return out
+
+
+def _train_mla() -> dict:
+    """deepseek-v2-lite-16b at full width (MLA at QK 192 / V 128, 64 experts
+    top-6 plus 2 shared) with ``MLA_TRAIN_LAYERS`` of its 27 layers, B =
+    ``MLA_TRAIN_B`` x S = 4096 (train_4k's sequence length), ``wq`` and
+    ``w_uk`` tempered as ``serving_mla`` tempers them: three steps through
+    the kernels and three through the plain attention path from one state
+    and batches; routing decisions compared call for call."""
+    from repro_torch.configs import get_config
+
+    cfg = replace(get_config("deepseek-v2-lite-16b"), num_layers=MLA_TRAIN_LAYERS)
+    runs = _steps_kernel_vs_plain(cfg, MLA_TRAIN_B, TRAIN_S, temper=True)
+    reduced = (
+        f"{MLA_TRAIN_LAYERS} of 27 layers (AdamW's float32 parameters, gradients and moments: "
+        f"~260 GB at 27, ~44 GB at 4); train_4k's batch of 256 cut to {MLA_TRAIN_B}"
     )
-    check(all(m["aux_loss"] > 0 for m in k["metrics"]), "MoE aux loss is not positive")
-    check(max(loss_diff) <= TRAIN_MOE_BOUNDS["loss_abs"], f"MoE losses differ: {loss_diff}")
-    check(
-        agreement["agreement"] >= TRAIN_MOE_BOUNDS["route_agreement"],
-        f"MoE routing differs: {agreement}",
-    )
+    out = _kernel_vs_plain_summary(cfg, runs, MLA_TRAIN_B, TRAIN_S, reduced)
+    emit("train_mla", **out)
     return out
 
 
@@ -3044,6 +3138,122 @@ def _train_timing(main: dict, moe: dict, errs: dict) -> list:
     return rows
 
 
+def _sdpa_for_mla(qt, kt, vt, dot, scale):
+    """The first of SDPA's backends that runs forward and backward with V
+    narrower than Q and K (``[B, H, S, D]`` operands): ``(its name, the
+    forward, the output under autograd, V as SDPA takes it)``.  Where none
+    does, V padded with zeros to Q's width, the output cut back to V's,
+    under PyTorch's own choice of backend."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+    for name in names:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+
+        def fwd(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+
+        try:
+            o = fwd()
+            torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return name, fwd, o, vt
+    pad = qt.shape[-1] - vt.shape[-1]
+    vp = F.pad(vt.detach(), (0, pad)).requires_grad_(True)
+
+    def padded():
+        o = F.scaled_dot_product_attention(qt, kt, vp, is_causal=True, scale=scale)
+        return o[..., : vt.shape[-1]]
+
+    return f"none takes Dv != Dk: V padded with zeros to {qt.shape[-1]}", padded, padded(), vp
+
+
+def _train_timing_mla(mla: dict, errs: dict) -> list:
+    """Rows 4tm and 5m: the forward with its log-sum-exp and the backward at
+    deepseek-v2-lite-16b's training shape (``MLA_TRAIN_B`` x 4096, 16 heads,
+    q/k 192, v 128, causal, bf16) against their plain versions and SDPA
+    (forward; backward under autograd) on the same tensors, bounded by
+    operations: 2 (Dqk + Dv) FLOP per unmasked pair forward, 2 (3 Dqk +
+    2 Dv) backward (five products)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf16 = torch.bfloat16
+    B, S, H, Dk, Dv = MLA_TRAIN_B, TRAIN_S, 16, 192, 128
+    q, k = (_cuda_randn(gen, (B, S, H, Dk), bf16) for _ in range(2))
+    v, dout = (_cuda_randn(gen, (B, S, H, Dv), bf16) for _ in range(2))
+    scale = Dk**-0.5
+    out, lse = flash_attention_fwd(q, k, v, scale=scale)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    backend, lib_fwd, o, v_lib = _sdpa_for_mla(qt, kt, vt, dot, scale)
+    lib = torch.autograd.grad(o, (qt, kt, v_lib), dot, retain_graph=True)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, scale=scale)
+    check(_rel_err(o.transpose(1, 2), out) <= 2e-2, "SDPA forward yardstick at (192, 128)")
+    for a, b in zip(lib, want):
+        a = a[..., : b.shape[-1]]  # a padded V's gradient: its first Dv columns
+        check(_rel_err(a.transpose(1, 2), b) <= 2e-2, "SDPA backward yardstick at (192, 128)")
+    pairs = B * H * S * (S + 1) // 2
+    shape = dict(B=B, S=S, H=H, G=H, D=Dk, Dv=Dv, causal=True)
+    path, case = "deepseek-v2-lite-16b-train", "mla_B2_S4096"
+    fwd = {
+        "kernel": lambda: flash_attention_fwd(q, k, v, scale=scale),
+        "plain": lambda: flash_attention_fwd_ref(q, k, v, scale=scale),
+        "library": lib_fwd,
+    }
+    row_f = _timing_row(
+        "flash_attention",
+        fwd,
+        10,
+        2 * B * S * H * (2 * Dk + 2 * Dv) + 4 * B * H * S,
+        2 * (Dk + Dv) * pairs,
+        mla["launches"]["flash_attention"],
+        errs["fwd"][case],
+        f"F.scaled_dot_product_attention(is_causal=True), backend {backend}",
+        shape=dict(shape, lse=True),
+        path=path,
+        queued=True,
+    )
+    bwd = {
+        "kernel": lambda: flash_attention_bwd(q, k, v, out, lse, dout, scale=scale),
+        "plain": lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout, scale=scale),
+        "library": lambda: torch.autograd.grad(o, (qt, kt, v_lib), dot, retain_graph=True),
+    }
+    row_b = _timing_row(
+        "flash_attention_bwd",
+        bwd,
+        10,
+        2 * B * S * H * (4 * Dk + 4 * Dv) + 4 * B * H * S,
+        2 * (3 * Dk + 2 * Dv) * pairs,
+        mla["launches"]["flash_attention_bwd"],
+        errs["bwd"][case],
+        f"torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True), backend {backend}",
+        shape=shape,
+        path=path,
+        queued=True,
+    )
+    # the kernel's own work: dQ pass S, dP, dQ; dK/dV pass S^T twice, dP^T, dV, dK
+    row_b["tflops_8_products"] = 2 * (5 * Dk + 3 * Dv) * pairs / (row_b["ms"] * 1e-3) / 1e12
+    row_b["bound_share"] = row_b["bound_ms"] / row_b["ms"]
+    row_f["bound_share"] = row_f["bound_ms"] / row_f["ms"]
+    del q, k, v, dout, out, lse, qt, kt, vt, o, dot, lib, want, v_lib
+    torch.cuda.empty_cache()
+    return [row_f, row_b]
+
+
 def phase_training() -> list:
     """The training path on the card; returns its kernels-line rows."""
     import torch
@@ -3055,9 +3265,11 @@ def phase_training() -> list:
     del main["state"], main["step"]
     torch.cuda.empty_cache()
     _train_launcher()
+    _train_launcher("deepseek-v2-lite-16b", "--layers", str(MLA_TRAIN_LAYERS))
     _train_crash_resume()
     moe = _train_moe()
-    rows = _train_timing(main, moe, errs)
+    mla = _train_mla()
+    rows = _train_timing(main, moe, errs) + _train_timing_mla(mla, errs)
     emit("training", seconds=time.perf_counter() - t0)
     return rows
 
@@ -3071,6 +3283,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
+    from repro_torch.analysis import costs
+
+    global HBM_BYTES_PER_S, BF16_OPS_PER_S
+    HBM_BYTES_PER_S, BF16_OPS_PER_S = costs.HBM_BW, costs.PEAK_FLOPS
 
     t_start = time.perf_counter()
     phase_build()

@@ -135,7 +135,7 @@ def check_supported(cfg: ModelConfig) -> None:
     carries uniform stacks of GQA or MLA attention, dense or with an MoE FFN
     on every layer, with or without QK-norm (ROADMAP Queue 1 lists the rest
     under "the remaining model families", with the slice that brings each).
-    MLA is served only: a training model refuses it (``check_trainable``)."""
+    What it runs it also trains: GQA and MLA, dense or MoE."""
     later = []
     if cfg.family not in ("dense", "moe"):
         later.append(f"family {cfg.family!r}")
@@ -156,19 +156,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: {', '.join(later)} not ported yet; the port runs uniform GQA or "
             "MLA stacks (dense or MoE), and the later slices of ROADMAP Queue 1 (the "
             "remaining model families) bring the rest"
-        )
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port serves but does
-    not train yet: MLA, whose training needs the flash backward at QK width
-    192 and V width 128 (the next slice: ROADMAP Queue 1, "MLA training")."""
-    check_supported(cfg)
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA is served but not trained yet; MLA training (the flash "
-            "backward at QK width 192 / V width 128 and forward_train) is the next slice: "
-            "ROADMAP Queue 1, \"MLA training\""
         )
 
 

@@ -53,9 +53,9 @@
 // output (-inf for a row with no key): what the training backward
 // (kernels/flash_attention_bwd) needs to recompute P.  A null pointer, as
 // serving's prefill calls pass it, writes nothing: it selects the kLse =
-// false instantiation, whose code has no lse path at all.  Only the square
-// widths build the kLse = true instantiation: MLA is served, not trained, so
-// (192, 128) refuses an lse pointer.
+// false instantiation, whose code has no lse path at all.  Every width pair
+// builds both instantiations: the square ones train GQA, (192, 128) trains
+// MLA.
 //
 // Interface: plain C, loaded with ctypes.  q [B, S, H, DK], k [B, T, G, DK],
 // v [B, T, G, DV] and out [B, S, H, DV], contiguous.  The wrapper (ops.py)
@@ -195,18 +195,12 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// The kLse = true instantiation exists only at the square widths (training):
-// (192, 128) refuses an lse pointer.
 template <int DK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
                int Tk, int H, int G, int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  auto kernel = flash_fwd_f32<DK, DV, false>;
-  if constexpr (DK == DV) {
-    if (lse != nullptr) kernel = flash_fwd_f32<DK, DV, true>;
-  } else if (lse != nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const auto kernel =
+      lse != nullptr ? flash_fwd_f32<DK, DV, true> : flash_fwd_f32<DK, DV, false>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), static_cast<float*>(lse), S, Tk, H, G, causal, window, scale);
@@ -445,7 +439,6 @@ template <int DK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
                 int Tk, int H, int G, int causal, int window, float scale, cudaStream_t stream) {
   using TS = Tile<DK, DV>;
-  if (DK != DV && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (Tk == 0) {  // no key: every row gets 0, and lse -inf
     const size_t bytes = static_cast<size_t>(B) * S * H * DV * 2;
     if (lse != nullptr) {
@@ -461,19 +454,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
   if (!encode_tile_map<DK>(&qm, q, B, S, H) || !encode_tile_map<DK>(&km, k, B, Tk, G) ||
       !encode_tile_map<DV>(&vm, v, B, Tk, G))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_fwd_bf16<DK, DV, false>;
-  if constexpr (DK == DV) {
-    if (lse != nullptr) kernel = flash_fwd_bf16<DK, DV, true>;
-  }
+  const auto kernel =
+      lse != nullptr ? flash_fwd_bf16<DK, DV, true> : flash_fwd_bf16<DK, DV, false>;
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DK, DV, false>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
-    if constexpr (DK == DV) {
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(flash_fwd_bf16<DK, DV, true>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
-    }
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_fwd_bf16<DK, DV, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, TS::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }

@@ -9,9 +9,8 @@ the tensor-core kernel (``wgmma`` fed by TMA), float32 inputs to the
 CUDA-core kernel, which keeps float32's digits where the tensor cores would
 round to TF32.  The split is by type; a launch that fails raises.  On CPU
 tensors it runs the plain version (``ref.py``).  There is no fallback
-between any two of these.  V may have a width of its own: MLA's prefill
-(deepseek-v2) attends with q/k heads of 192 and v heads of 128
-(``WIDTHS``).
+between any two of these.  V may have a width of its own: MLA (deepseek-v2)
+attends with q/k heads of 192 and v heads of 128 (``WIDTHS``).
 
 Training goes through ``flash_attention_train``, a ``torch.autograd.Function``
 whose forward is ``flash_attention_fwd`` (the same kernel, also writing each
@@ -20,8 +19,8 @@ row's log-sum-exp ``[B, H, S]``, float32) and whose backward is
 ``kernels/flash_attention_bwd`` (counted in ``LAUNCHES["flash_attention_bwd"]``;
 bfloat16 on the tensor cores with ``dout`` read through TMA, float32 on the
 CUDA cores), on CPU tensors the plain blockwise backward of ``ref.py``.
-Training takes the square widths only (``HEAD_DIMS``): MLA training is the
-next slice, and the kernels refuse its widths there.
+Training takes the widths of ``WIDTHS`` too: the square ones (GQA) and MLA's
+(192, 128), where out, dout and dV are v's width and dQ, dK q's.
 """
 
 from __future__ import annotations
@@ -38,13 +37,12 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref,
 )
 
-#: head dims the kernel is built for where q, k and v share one
+#: head dims the kernels are built for where q, k and v share one
 HEAD_DIMS = (16, 32, 64, 128)
-#: (q/k width, v width) pairs of the log-sum-exp and the backward (training)
-_SQUARE = tuple((d, d) for d in HEAD_DIMS)
-#: (q/k width, v width) pairs the forward is built for: the square ones and
-#: MLA's prefill (deepseek-v2: 128 + 64 RoPE dims, v 128)
-WIDTHS = _SQUARE + ((192, 128),)
+#: (q/k width, v width) pairs the forward, its log-sum-exp and the backward
+#: are built for: the square ones and MLA's (deepseek-v2: 128 + 64 RoPE
+#: dims, v 128)
+WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 #: the kernel's C entry point per input dtype
 _ENTRY = {torch.float32: "flash_attention_fwd_f32", torch.bfloat16: "flash_attention_fwd_bf16"}
 
@@ -68,14 +66,14 @@ def _bwd_fn(dtype: torch.dtype):
     key = ("bwd", dtype)
     if key not in _fns:
         fn = getattr(_build.load("flash_attention_bwd"), _ENTRY_BWD[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
         fn.argtypes += [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return _fns[key]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, widths=WIDTHS) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
             f"q must be [B, S, H, D], k [B, T, G, D] and v [B, T, G, Dv]; got "
@@ -84,9 +82,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, width
     B, S, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not fit as GQA")
-    if (D, v.shape[3]) not in widths:
+    if (D, v.shape[3]) not in WIDTHS:
         raise ValueError(
-            f"q/k width {D}, v width {v.shape[3]}: the kernel is built for (q/k, v) in {widths}"
+            f"q/k width {D}, v width {v.shape[3]}: the kernel is built for (q/k, v) in {WIDTHS}"
         )
     if q.dtype not in _ENTRY or {k.dtype, v.dtype} != {q.dtype}:
         raise TypeError(f"q/k/v must share float32 or bfloat16; got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -155,10 +153,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, scale=
     key): the forward of training attention."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal, window=window, scale=scale)
-    _check(q, k, v, window, _SQUARE)
+    _check(q, k, v, window)
     B, S, H, D = q.shape
     scale = scale if scale is not None else D**-0.5
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, v.shape[3]))
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B and S:
         _launch_fwd(q, k, v, out, lse, causal, window, scale)
@@ -169,20 +167,20 @@ def flash_attention_bwd(
     q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0, scale=None
 ):
     """dQ, dK, dV of :func:`flash_attention_fwd` for the output gradient
-    ``dout`` (the shape and dtype of ``out``); see ``ref.flash_attention_bwd_ref``
+    ``dout`` (the shape and dtype of ``out``, ``[B, S, H, Dv]``); see ``ref.flash_attention_bwd_ref``
     for the function.  One launch of the backward kernel on CUDA tensors
     (deterministic: no atomics), the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(
             q, k, v, out, lse, dout, causal=causal, window=window, scale=scale
         )
-    _check(q, k, v, window, _SQUARE)
+    _check(q, k, v, window)
     B, S, H, D = q.shape
-    T, G = k.shape[1], k.shape[2]
+    T, G, Dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+        if t.shape != (B, S, H, Dv) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(
-                f"{name} must match q ({tuple(q.shape)}, {q.dtype}); got "
+                f"{name} must be [B, S, H, Dv] = {(B, S, H, Dv)}, {q.dtype} on {q.device}; got "
                 f"{tuple(t.shape)}, {t.dtype} on {t.device}"
             )
         if not t.is_contiguous():
@@ -221,6 +219,7 @@ def flash_attention_bwd(
         H,
         G,
         D,
+        Dv,
         int(causal),
         int(window),
         float(scale),

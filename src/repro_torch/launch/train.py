@@ -2,11 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --layers 4
 
 ``--smoke`` trains the reduced config; without it the full config trains on
 the one CUDA card (stablelm-1.6b: 1.64 B float32 parameters with their AdamW
 moments, 26.3 GB), where the reference launcher refuses for lack of a TPU
-runtime.  The loop is the reference's: sequences of 64 tokens, batches of
+runtime.  ``--layers N`` cuts the stack to its first N layers at full width:
+deepseek-v2-lite-16b's float32 parameters, gradients and AdamW moments
+take ~260 GB at its 27 layers, ~44 GB at 4.  The loop is the reference's: sequences of 64 tokens, batches of
 ``max(2, 2 * microbatches)``, checkpoints every ``max(10, steps // 4)``
 steps into ``--ckpt-dir`` (none without it), auto-resume.  Attention runs
 through the hand-written kernels (on the CPU, their plain versions).  It
@@ -16,6 +19,7 @@ asserts that the loss fell, as the reference launcher does.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -29,6 +33,7 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0, help="cut the stack to N layers (0: all)")
     ap.add_argument("--ckpt-dir", default=RunConfig.checkpoint_dir)
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--grad-compression", default="none")
@@ -48,6 +53,8 @@ def main(argv=None) -> None:
     cfg = get_config(run.arch)
     if args.smoke:
         cfg = smoke(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     ckpt = CheckpointManager(run.checkpoint_dir) if run.checkpoint_dir else None
     t0 = time.time()
     res = train_loop(cfg, run, steps=args.steps, ckpt=ckpt, device=args.device)

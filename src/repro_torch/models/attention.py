@@ -186,7 +186,8 @@ class MLAAttention(torch.nn.Module):
     ``[c_kv | k_pe]`` (``kv_lora_rank + qk_rope_dim``: 576 at full width),
     stored in the KV dtype; attention reads it back from there, as the
     reference reads its cache.  Projections in the compute dtype,
-    ``kv_norm`` float32.
+    ``kv_norm`` float32.  ``forward_train`` is the training form: the
+    prefill's below over the sequence's fresh rows, with no cache.
 
       prefill : the reference's non-absorbed ("paper") form: the latent rows
                 are up-projected to per-head K (``w_uk``, then ``k_pe``
@@ -257,10 +258,17 @@ class MLAAttention(torch.nn.Module):
         return self._out(flash(q, k.contiguous(), v.contiguous(), causal=True, scale=self.scale))
 
     def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
-        raise NotImplementedError(
-            "MLA is served but not trained yet: its training forward and the flash backward "
-            "at QK width 192 / V width 128 are the next slice (ROADMAP Queue 1, "
-            "\"MLA training\")"
+        """Causal self-attention over ``x [B, S, d]``, differentiable: the
+        reference's non-absorbed form with no cache, the fresh latent rows
+        up-projected in x's dtype (``k_pe`` reaches every head through
+        ``expand``, so its gradient sums over the heads) and attended at QK
+        width ``qk_nope + qk_rope``, V width ``v_head_dim``."""
+        q_nope, q_pe, rows = self._project(x, positions)
+        k, v = self._up(rows)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        flash = TRAIN_ATTENTION[impl]
+        return self._out(
+            flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, scale=self.scale)
         )
 
     def decode(

@@ -17,8 +17,7 @@ dtype is bfloat16 by default, the reference's cache dtype.  A layer holds
 reference's ``_ffn_layer_specs``; its ``aux`` loss is dropped (serving).
 An MLA config (``cfg.use_mla``, deepseek-v2) holds ``mla_specs`` under
 ``"attn"`` and stores one latent row per token and layer in the pool
-(``kv_row_shape``); it is served, and a training model of it raises
-``NotImplementedError`` (``configs.base.check_trainable``: the next slice).
+(``kv_row_shape``); it trains as GQA does, through ``MLAAttention.forward_train``.
 Families, SSM and sliding windows this slice does not carry raise
 ``NotImplementedError`` (``configs.base.check_supported``).
 
@@ -46,7 +45,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint as ckpt
 
-from repro_torch.configs.base import ModelConfig, check_supported, check_trainable
+from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.models.attention import (
     ATTENTION,
     GQAAttention,
@@ -120,8 +119,7 @@ class Transformer(torch.nn.Module):
     (the wrappers: the Hopper kernels on CUDA tensors, their plain versions
     on CPU tensors) or ``"ref"`` (the plain versions on any device).
     ``param_dtype`` (None: serving) makes a training model: parameters in
-    that dtype with ``requires_grad``, cast to ``compute_dtype`` per use
-    (not for MLA yet: ``check_trainable``)."""
+    that dtype with ``requires_grad``, cast to ``compute_dtype`` per use."""
 
     def __init__(
         self,
@@ -134,8 +132,6 @@ class Transformer(torch.nn.Module):
     ):
         super().__init__()
         check_supported(cfg)
-        if param_dtype is not None:
-            check_trainable(cfg)
         if impl not in ATTENTION:
             raise ValueError(f"impl must be one of {sorted(ATTENTION)}; got {impl!r}")
         self.cfg = cfg
@@ -365,7 +361,6 @@ def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str
     ``aux`` float32 scalar, the layers' summed MoE load-balancing loss``)``:
     the reference's ``forward_train`` for a decoder-only stack, with
     gradients to every parameter of a training model."""
-    check_trainable(model.cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_lookup(model.embed, tokens).to(model.compute_dtype)

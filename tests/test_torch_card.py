@@ -639,16 +639,118 @@ def test_flash_attention_mla_widths_match_plain(card, B, S, T, H, G, causal, dty
     assert torch.equal(got, flash_attention(q, k, v, causal=causal, scale=192**-0.5))
 
 
-def test_flash_attention_mla_widths_refuse_training_and_other_widths(card):
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_fwd
+def test_flash_attention_mla_widths_train_and_other_widths_refuse(card):
+    """(192, 128) takes the lse and the backward; (128, 64) and (192, 192)
+    raise in the forward, the forward with lse and the backward."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
 
     q = torch.zeros(1, 64, 16, 192, device="cuda", dtype=torch.bfloat16)
     k, v = q.clone(), torch.zeros(1, 64, 16, 128, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # MLA's training (the lse) is the next slice
-        flash_attention_fwd(q, k, v)
+    before = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"])
+    out, lse = flash_attention_fwd(q, k, v)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, out.clone())
+    torch.cuda.synchronize()
+    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == (
+        before[0] + 1,
+        before[1] + 1,
+    )
+    assert out.shape == dv.shape == v.shape and dq.shape == dk.shape == q.shape
     q128, k128, v64 = (t.contiguous() for t in (q[..., :128], k[..., :128], v[..., :64]))
-    with pytest.raises(ValueError):  # a pair of widths the kernel is not built for
-        flash_attention(q128, k128, v64)
+    for qq, kk, vv in ((q128, k128, v64), (q, k, q)):  # pairs the kernels are not built for
+        with pytest.raises(ValueError):
+            flash_attention(qq, kk, vv)
+        with pytest.raises(ValueError):
+            flash_attention_fwd(qq, kk, vv)
+        o = torch.zeros(*qq.shape[:3], vv.shape[3], device="cuda", dtype=qq.dtype)
+        with pytest.raises(ValueError):
+            flash_attention_bwd(qq, kk, vv, o, lse, o)
+
+
+#: MLA training (deepseek-v2: 16 heads, q/k 192, v 128, one KV group a
+#: head): the forward with lse and the backward against the plain versions
+MLA_TRAIN_CASES = [
+    (2, 4096, 4096, 16, 16, True),  # the training path's shape (train_4k, batch cut to 2)
+    (1, 517, 517, 16, 16, True),  # ragged S
+    (1, 300, 500, 8, 8, True),  # causal, T > S
+    (1, 500, 300, 8, 8, True),  # causal, T < S
+    (1, 200, 333, 4, 2, False),  # no mask, ragged T, GQA 2:1
+]
+
+
+def _mla_train_inputs(gen, B, S, T, H, G, dtype):
+    q = _randn(gen, (B, S, H, 192), dtype)
+    k, v = _randn(gen, (B, T, G, 192), dtype), _randn(gen, (B, T, G, 128), dtype)
+    return q, k, v, _randn(gen, (B, S, H, 128), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,G,causal", MLA_TRAIN_CASES)
+def test_flash_mla_widths_train_match_plain(card, B, S, T, H, G, causal, dtype):
+    """The forward's output and lse and dQ, dK, dV at (192, 128), scale
+    192^-0.5: one launch each; two backward calls bit for bit."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(S + 3 * T)
+    q, k, v, dout = _mla_train_inputs(gen, B, S, T, H, G, dtype)
+    kw = dict(causal=causal, scale=192**-0.5)
+    reset_launches()
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == (1, 1)
+    out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+    assert out.shape == (B, S, H, 128) and lse.shape == (B, H, S)
+    assert _rel_err(out, out_ref) <= BWD_REL_TOL[dtype]
+    assert float((lse - lse_ref).abs().max()) <= (1e-4 if dtype == torch.float32 else 1e-3)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel_err(a, b) <= BWD_REL_TOL[dtype], name
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_short_mla_training_run_through_the_kernels(card):
+    """Three AdamW steps of a 2-layer stack at deepseek-v2-lite-16b's
+    attention widths (16 heads, kv_lora_rank 512, qk 128 + 64, v 128; d 256,
+    4 experts) on the card, float32 compute: 2 forward and 1 backward launch
+    per layer and step (full remat), losses equal to the plain path's
+    within 1e-4."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import step as S
+
+    cfg = smoke(
+        get_config("deepseek-v2-lite-16b"),
+        num_heads=16,
+        num_kv_heads=16,
+        d_model=256,
+        kv_lora_rank=512,
+        qk_nope_dim=128,
+        qk_rope_dim=64,
+        v_head_dim=128,
+    )
+    losses = {}
+    for impl in ("pallas", "jnp"):
+        run = RunConfig(compute_dtype="float32", attn_impl=impl, learning_rate=1e-3, warmup_steps=1)
+        state = S.init_train_state(cfg, run, 0)
+        fn = S.make_train_step(cfg, run, total_steps=3)
+        pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=256)
+        reset_launches()
+        losses[impl] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
+        want = (3 * 2 * cfg.num_layers, 3 * cfg.num_layers) if impl == "pallas" else (0, 0)
+        assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
+    assert all(np.isfinite(losses["pallas"]))
+    np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)
 
 
 def _latent_inputs(gen, dtype, lens, *, bs=16, mb=None, layers=3):

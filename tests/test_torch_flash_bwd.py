@@ -10,7 +10,8 @@ CPU tensors) is held to autograd through the plain ``flash_attention_ref``.
 The bf16 tensor-core backward's roundings (bf16 operands, P and dS rounded
 to bf16 before the products they feed, float32 sums over 64 x 64 tiles,
 bf16 outputs), replayed here in float32, are held to ``jax.vjp`` within
-half of the card's bound of 1e-2.
+half of the card's bound of 1e-2.  MLA's widths (q/k 192, v 128) go through
+the plain forward and backward against ``jax.vjp`` too.
 """
 
 import numpy as np
@@ -89,6 +90,35 @@ def test_plain_backward_matches_reference_vjp(B, S, T, H, G, D, causal, window):
     out, lse = flash_attention_fwd_ref(tq, tk, tv, **blocks)
     got = flash_attention_bwd_ref(tq, tk, tv, out, lse, torch.from_numpy(dout), **blocks)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), TOL, TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,T,H,causal", [(2, 45, 45, 2, True), (1, 40, 71, 2, False)])
+def test_plain_backward_at_mla_widths_matches_reference_vjp(B, S, T, H, causal):
+    """MLA's training widths, q/k 192 and v 128 (one KV group a head), at
+    scale 192^-0.5, as ``mla_attention`` calls ``chunked_attention``."""
+    rng = np.random.default_rng(S + T)
+    q, k = (rng.standard_normal((B, n, H, 192), dtype=np.float32) for n in (S, T))
+    v = rng.standard_normal((B, T, H, 128), dtype=np.float32)
+    dout = rng.standard_normal((B, S, H, 128), dtype=np.float32)
+    blocks = dict(causal=causal, q_block=QB, kv_block=KB)
+
+    def attend(q, k, v):
+        o = RA.chunked_attention(
+            q[:, :, :, None], k, v, _positions(B, S), _positions(B, T), scale=192**-0.5, **blocks
+        )
+        return o[:, :, :, 0]
+
+    want_out, vjp = jax.vjp(attend, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = flash_attention_fwd_ref(tq, tk, tv, scale=192**-0.5, **blocks)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), TOL, TOL)
+    got = flash_attention_bwd_ref(
+        tq, tk, tv, out, lse, torch.from_numpy(dout), scale=192**-0.5, **blocks
+    )
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b), TOL, TOL, err_msg=name)
 
 

@@ -3,7 +3,8 @@
 and 2 shared on every layer): ``prefill`` and ``decode_step`` logits in both
 decode forms through the latent rows of the pool, the parameter tree's round
 trip, the engine's tokens and block placement against the reference's
-engine, and the refusal to build a training model.
+engine, and a training model built and stepped (its numbers against the
+reference: ``tests/test_torch_train_mla.py``).
 
 The logits comparison is ``tests/test_torch_model.py``'s, run on this arch:
 weights from the port's seeded init go to the reference as its parameter
@@ -37,7 +38,7 @@ from repro_torch.interop import model_from_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
-from repro_torch.train.step import init_train_state  # noqa: E402
+from repro_torch.train.step import init_train_state, make_train_step  # noqa: E402
 from test_torch_model import prefill_and_decode_gap  # noqa: E402
 from test_torch_serving import SPEC, MarginEngine, _drive, _reference_model_module  # noqa: E402
 
@@ -125,12 +126,26 @@ def test_engine_matches_reference(monkeypatch, record_property):
             assert margin <= 2e-4, f"request {r.rid} parts at token {split}, margin {margin}"
 
 
-def test_mla_training_is_refused():
+def test_mla_training_model_builds_and_trains():
+    """A float32 training model of the MLA stack: every parameter a float32
+    leaf with a gradient, the model's layers views of the stacked tree, and
+    two AdamW steps that move the 3-D latent up-projections and keep every
+    metric finite."""
     cfg = smoke(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        M.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
-    model = M.init_params(cfg, 0, device="cpu", compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        M.forward_train(model, torch.zeros(1, 8, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        init_train_state(cfg, RunConfig(arch=ARCH), device="cpu")
+    model = M.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
+    logits, aux = M.forward_train(model, torch.zeros(1, 8, dtype=torch.long))
+    assert logits.shape == (1, 8, cfg.padded_vocab) and float(aux) > 0
+    run = RunConfig(arch=ARCH, learning_rate=1e-2, warmup_steps=1)
+    state = init_train_state(cfg, run, device="cpu")
+    w_uk = state.params["layers"]["attn"]["w_uk"]
+    assert w_uk.shape == (cfg.num_layers, cfg.kv_lora_rank, cfg.num_heads, cfg.qk_nope_dim)
+    assert state.model.layers[1].attn.w_uk.data_ptr() == w_uk[1].data_ptr()
+    before = w_uk.clone()
+    step = make_train_step(cfg, run, total_steps=2)
+    rng = np.random.default_rng(0)
+    for _ in range(2):  # the first step's LR is 0
+        tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        state, m = step(state, {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)})
+        assert all(np.isfinite(float(v)) for v in m.values())
+    assert not torch.equal(w_uk, before)
+    assert state.grads["layers"]["attn"]["kv_norm"].abs().sum() > 0
