@@ -16,9 +16,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 flash attention, paged attention and banked_copy at the JAX
                 tests' shapes, at the edges (S = 1, ragged T, GQA 8:1, head
                 dims 16..128, lengths 0, 1, at a split and past the table)
-                and at both serving paths' shapes (stablelm-1.6b: 32 heads
-                of 64; olmoe-1b-7b: 16 heads of 128, a 65536-wide pool row);
-                flash and paged twice at those shapes, bit for bit
+                and at the serving paths' shapes (stablelm-1.6b: 32 heads
+                of 64; olmoe-1b-7b: 16 heads of 128, a 65536-wide pool row;
+                deepseek-7b, chameleon-34b and stablelm-3b below, the last
+                at D = 80 with its edges: S = 1, ragged T, a window, 1, 2, 4
+                and 8 heads per group; banked_copy at W = 163840 and
+                245760); flash and paged twice at those shapes, bit for bit
   3. golden     the three golden single-slice cases on the card, bit for bit
                 against ``tests/data/golden_single_slice.json``
   4. fig4/table1  the paper's Fig. 4 sweep (X = 1..16) and Table I
@@ -54,8 +57,7 @@ Phases, one JSON line each; any failure exits non-zero:
   10. llm_timing the three serving kernels' timing rows at the path's shapes
                 (and flash at the short prompts, S = 128 and 517); flash
                 against SDPA at S = 1024 in alternating rounds of queued calls;
-                paged attention and banked_copy as queued calls, the
-                profiler's reading beside
+                every row as queued calls, the profiler's reading beside
   11. serving_moe  the MoE serving path: olmoe-1b-7b at full width (64
                 experts, top-8, QK-norm) with the same request mix and
                 checks as 8 (no tempering: QK-norm keeps the scores of unit
@@ -84,6 +86,17 @@ Phases, one JSON line each; any failure exits non-zero:
                 (192, 128) at S = 128, 517, 1024, bf16 and float32; the
                 latent call at the first wave's mid-decode lengths with an
                 idle slot; banked_copy at the 497,664-byte tile)
+  11d. serving_dense7b, serving_vlm, serving_3b  the dense configs at full
+                width with the checks of 8 and their profiles and timing
+                rows (flash at S = 1024): deepseek-7b (30 layers, 32 heads
+                of 128, 6.91 B parameters), tempered, teacher forced in bf16
+                and float32; chameleon-34b (family vlm run as the reference
+                runs it, a dense GQA 64:8 stack with QK-norm, 48 layers,
+                34.29 B parameters: 68.6 GB of bf16 weights beside its 6.44
+                GB pool), untempered, teacher forced in bf16 only (137 GB in
+                float32); stablelm-3b (32 heads of 80: every serving kernel
+                at D = 80), tempered, bf16 and float32.  Each prints its
+                seconds
   12. sweep     the scale path's main path, through the public entry points
                  with B lanes per arbiter launch: the golden ``"batch"`` entry
                  through ``simulate_batch`` and the three golden cases through
@@ -135,13 +148,19 @@ Phases, one JSON line each; any failure exits non-zero:
                  plain; deepseek-v2-lite-16b (MLA: the forward's lse and the
                  backward at q/k 192, v 128) with 4 of 27 layers at B 2 x S
                  4096, three steps kernel against plain, launches 24 / 12,
-                 step time, tokens/s, peak memory and model-FLOPs share; and
+                 step time, tokens/s, peak memory and model-FLOPs share;
+                 stablelm-3b at full width and depth (``train_3b``: B 4 x S
+                 4096, AdamW, remat full, three steps kernel against plain,
+                 launches 192 / 96); and
                  the timing rows of the backward (with its rate on its own
                  products and its share of the 5-product bound) and of the
                  forward with its log-sum-exp, MLA's against SDPA's backend
-                 that takes V narrower than Q and K (rows 4tm, 5m).  The MLA
-                 widths are also among the kernel checks (B 2 x S 4096 bf16,
-                 S 517, S 300 / T 500 float32, a repeat at the main shape)
+                 that takes V narrower than Q and K (rows 4tm, 5m), and at
+                 stablelm-3b's (rows 4td, 5d).  The MLA widths are also among
+                 the kernel checks (B 2 x S 4096 bf16, S 517, S 300 / T 500
+                 float32, a repeat at the main shape), and D = 80 (B 2 x S
+                 4096 bf16, S 517, S 300 / T 500, a window, bf16 and float32,
+                 repeats)
 The serving phases (8, 11) also record each full-width run's KV access stream and
 hold it to a traffic-only engine's on the same prompts: the stream the
 co-sim replays.  Then the kernels line, the card's name and power limit, and as the last line
@@ -1429,9 +1448,17 @@ def phase_timing(launches: int, max_abs_err: int) -> dict:
 
 
 def _cuda_randn(gen, shape, dtype):
+    """Standard normals drawn in float32 and rounded to ``dtype``, in slices
+    of at most 2^28 elements along the first dim: a pool of many GB (10.7 GB
+    of bf16 at stablelm-3b's row, 6.4 GB beside chameleon-34b's 68.6 GB of
+    weights) never has a float32 copy of its own size."""
     import torch
 
-    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device="cuda")
+    rows = max(1, 2**28 // max(1, math.prod(shape[1:])))
+    for part in out.split(rows):
+        part.copy_(torch.randn(part.shape, generator=gen, device="cuda", dtype=torch.float32))
+    return out
 
 
 def _unique_tables(gen, B, width, NB, used):
@@ -1511,6 +1538,17 @@ def phase_llm_kernels() -> dict:
         ("window64_gqa8", 1, 300, 300, 32, 4, 64, True, 64),
         ("d16", 2, 77, 77, 8, 2, 16, True, 0),
         ("batch2_gqa4_d128", 2, 200, 200, 16, 4, 128, True, 0),
+        # the dense configs' prefill shapes: deepseek-7b (32 x 128), chameleon-34b
+        # (GQA 64:8 at 128), stablelm-3b (32 x 80: the D = 80 instantiations),
+        # and D = 80 at the edges (S = 1, ragged T, a window)
+        ("deepseek7b_S1024", 1, 1024, 1024, 32, 32, 128, True, 0),
+        ("chameleon_S1024", 1, 1024, 1024, 64, 8, 128, True, 0),
+        ("stablelm3b_S128", 1, 128, 128, 32, 32, 80, True, 0),
+        ("stablelm3b_S517", 1, 517, 517, 32, 32, 80, True, 0),
+        ("stablelm3b_S1024", 1, 1024, 1024, 32, 32, 80, True, 0),
+        ("d80_S1", 1, 1, 1, 32, 32, 80, True, 0),
+        ("d80_ragged_T333_gqa8_full", 1, 100, 333, 8, 1, 80, False, 0),
+        ("d80_window64_gqa4", 2, 300, 300, 32, 8, 80, True, 64),
     ]
     for name, B, S, T, H, G, D, causal, window in flash_cases:
         for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
@@ -1533,6 +1571,14 @@ def phase_llm_kernels() -> dict:
         ("d16_4_16_2_16", 4, 16, 2, 16, 64, 16, 8, 0),
         ("path_8x32x64_pool_view", 8, 32, 32, 64, 2048, 16, 128, 24),
         ("olmoe_8x16x128_pool_view", 8, 16, 16, 128, 2048, 16, 128, 16),
+        # the dense configs' decode: deepseek-7b (30 layers of 32 x 128),
+        # chameleon-34b (48 layers, 8 query heads per group at 128), stablelm-3b
+        # (32 layers of 32 x 80), and D = 80 at 2 and 4 heads per group
+        ("deepseek7b_8x32x128_pool_view", 8, 32, 32, 128, 2048, 16, 128, 30),
+        ("chameleon_8x64x8x128_pool_view", 8, 64, 8, 128, 2048, 16, 128, 48),
+        ("stablelm3b_8x32x80_pool_view", 8, 32, 32, 80, 2048, 16, 128, 32),
+        ("d80_heads2_3_8_4", 3, 8, 4, 80, 64, 16, 8, 0),
+        ("d80_heads4_3_8_2", 3, 8, 2, 80, 64, 16, 8, 0),
     ]
     for name, B, H, G, D, NB, bs, mb, path_layers in paged_cases:
         path = path_layers > 0
@@ -1561,8 +1607,9 @@ def phase_llm_kernels() -> dict:
             del q, kp, vp
 
     # paged at the edges: lengths of 1, one split, two splits, the table's
-    # end, past it (clamped) and 0, with 8 query heads per group
-    for bs, D in ((16, 64), (8, 16), (32, 128)):
+    # end, past it (clamped) and 0, with 8 query heads per group (D = 80:
+    # also with 1, 2 and 4)
+    for bs, D in ((16, 64), (8, 16), (32, 128), (16, 80)):
         span = blocks_per_split(bs) * bs
         mb = 3 * span // bs + 1
         lens = [1, span, 2 * span, mb * bs, mb * bs + 9, 0]
@@ -1578,6 +1625,15 @@ def phase_llm_kernels() -> dict:
             err = _max_err(got, want)
             record("paged_attention", f"edge_lengths_bs{bs}_d{D}_{str(dtype)[6:]}", err, tol)
             check(bool((got[B - 1] == 0).all()), f"paged edge lengths bs={bs}: empty request not 0")
+            if D != 80:
+                continue
+            for m in (1, 2, 4):
+                q = _cuda_randn(gen, (B, G * m, D), dtype)
+                got = paged_attention(q, kp, vp, tbl, ln)
+                torch.cuda.synchronize()
+                err = _max_err(got, paged_attention_ref(q, kp, vp, tbl, ln))
+                record("paged_attention", f"edge_lengths_d80_heads{m}_{str(dtype)[6:]}", err, tol)
+                check(bool((got[B - 1] == 0).all()), "paged edge lengths d80: empty request not 0")
 
     # banked_copy: the JAX tests' shapes and dtypes, two unaligned tiles, and
     # the admission paths' bursts of 64 blocks into the 2048-block pool
@@ -1589,6 +1645,8 @@ def phase_llm_kernels() -> dict:
         ("path_64_blocks", 1, 64, 2048, 16, 24 * 2 * 32 * 64, (bf16,)),
         ("olmoe_64_blocks", 1, 64, 2048, 16, 16 * 2 * 16 * 128, (bf16,)),
         ("mla_64_blocks", 1, 64, 2048, 16, 27 * 576, (bf16,)),  # a 497,664-byte tile
+        ("stablelm3b_64_blocks", 1, 64, 512, 16, 32 * 2 * 32 * 80, (bf16,)),  # W = 163840
+        ("deepseek7b_64_blocks", 1, 64, 512, 16, 30 * 2 * 32 * 128, (bf16,)),  # W = 245760
     ]
     for name, B, nblk, NB, bs, W, dtypes in copy_cases:
         for dtype in dtypes:
@@ -1642,8 +1700,9 @@ def phase_llm_kernels() -> dict:
         del pool, kv
 
     # the redesigned kernels repeat to the bit at the paths' shapes
-    # (stablelm-1.6b: 32 heads of 64; olmoe-1b-7b: 16 heads of 128)
-    for label, H, D in (("", 32, 64), ("_olmoe", 16, 128)):
+    # (stablelm-1.6b: 32 heads of 64; olmoe-1b-7b: 16 heads of 128;
+    # stablelm-3b: 32 heads of 80)
+    for label, H, D in (("", 32, 64), ("_olmoe", 16, 128), ("_stablelm3b", 32, 80)):
         q, k, v = (_cuda_randn(gen, (1, 1024, H, D), bf16) for _ in range(3))
         repeat["flash_attention" + label] = torch.equal(
             flash_attention(q, k, v), flash_attention(q, k, v)
@@ -1842,11 +1901,18 @@ def _logits_gap(a: dict, b: dict) -> dict:
 #: share of tokens whose argmax agrees); their reasons are in PERF.md.
 #: olmoe-1b-7b's are set from its first full-width run on an H100 (bf16
 #: 0.0352 and 97.7 %, float32 6.6e-6 and 100 %): about 3x and 15x the
-#: measured gaps
+#: measured gaps.  The dense configs' were written before their first run:
+#: deepseek-7b and stablelm-3b are tempered as stablelm-1.6b is and take its
+#: bounds; chameleon-34b, untempered (QK-norm), is 48 layers deep, three
+#: times olmoe's depth, so its bf16 bound is the tempered paths' 0.5; its
+#: float32 model (137 GB) does not fit the card, so it has no float32 run
 FORCING_BOUNDS = {
     "stablelm-1.6b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
     "olmoe-1b-7b": {"bf16": (0.1, 0.9), "f32": (1e-4, 0.99)},
     "deepseek-v2-lite-16b": {"bf16": (0.5, 0.9)},
+    "deepseek-7b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
+    "chameleon-34b": {"bf16": (0.5, 0.9)},
+    "stablelm-3b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
 }
 #: deepseek-v2-lite-16b's plain absorbed decode against the plain
 #: non-absorbed one (the reference's two forms of one function), teacher
@@ -1940,6 +2006,30 @@ def phase_serving_mla() -> dict:
     weights, 64.8 GB beside the bf16 model's 32.4 GB, do not fit the card),
     with the plain absorbed and non-absorbed forms also held to each other."""
     return _serving_path("deepseek-v2-lite-16b", "serving_mla", temper=True, f32_forcing=False)
+
+
+def phase_serving_dense7b() -> dict:
+    """deepseek-7b at full width (30 layers, d 4096, 32 heads of 128, MHA,
+    6.91 B parameters, 13.8 GB of bf16 weights; a 245760-wide pool row),
+    ``wq``/``wk`` tempered; teacher forced in bf16 and float32 (the float32
+    model, 27.6 GB, and its float32 pool, 32.2 GB, fit beside the bf16 one)."""
+    return _serving_path("deepseek-7b", "serving_dense7b", temper=True)
+
+
+def phase_serving_vlm() -> dict:
+    """chameleon-34b at full width (family vlm: 48 layers, d 8192, GQA 64:8 at
+    128 with QK-norm, 34.29 B parameters, 68.6 GB of bf16 weights beside a
+    6.44 GB pool), untempered as olmoe is (QK-norm keeps the scores of unit
+    scale); teacher forced in bf16 only (its float32 weights, 137 GB, do
+    not fit the card)."""
+    return _serving_path("chameleon-34b", "serving_vlm", temper=False, f32_forcing=False)
+
+
+def phase_serving_3b() -> dict:
+    """stablelm-3b at full width (32 layers, d 2560, 32 heads of 80: every
+    attention kernel at D = 80; 2.80 B parameters; a 163840-wide pool row),
+    ``wq``/``wk`` tempered; teacher forced in bf16 and float32."""
+    return _serving_path("stablelm-3b", "serving_3b", temper=True)
 
 
 def _serving_path(arch: str, phase: str, *, temper: bool, f32_forcing: bool = True) -> dict:
@@ -2195,7 +2285,8 @@ def _timing_row(
     (``queued_ms``): the training path's kernels launch three kernels per
     call from ctypes, and the profiler's per-call sessions drop some of
     them (in a profiled train step it records them all); banked_copy's
-    rows too."""
+    rows and flash's serving rows too (the profiler read stablelm-3b's
+    flash at 8.69 us a call where its queued calls take 35.9)."""
     call_ms = {k: time_ms(fn, iters, warmup=2 if queued else 20) for k, fn in fns.items()}
     dev_ms = {k: device_ms(fn, max(5, iters // 5)) for k, fn in fns.items()}
     ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
@@ -2377,7 +2468,11 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
         q, k = _cuda_randn(gen, (1, S, H, Dk), bf16), _cuda_randn(gen, (1, S, G, Dk), bf16)
         v = _cuda_randn(gen, (1, S, G, Dv), bf16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+        gqa = dict(enable_gqa=True) if G != H else {}  # chameleon-34b: 64 query heads, 8 KV
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale, **gqa)
+
         lib = sdpa().transpose(1, 2)
         want = flash_attention_ref(q, k, v, scale=scale)
         check(_max_err(lib, want) <= 2e-2, "SDPA yardstick disagrees")
@@ -2397,6 +2492,7 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
             "F.scaled_dot_product_attention(is_causal=True)",
             shape=dict(B=1, S=S, H=H, G=G, D=Dk, Dv=Dv, causal=True),
             path=cfg.name,
+            queued=True,
         )
         if S == 1024:
             # flash against SDPA: device time of queued calls, alternating rounds
@@ -2439,7 +2535,10 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
     # MLA's one latent head broadcast to the 16 query heads as a view)
     kg = kp[idx].reshape(B, mb * bs, G, Dk).transpose(1, 2).contiguous()
     vg = vp[idx].reshape(B, mb * bs, G, Dv).transpose(1, 2).contiguous()
-    kg, vg = kg.expand(B, H, -1, -1), vg.expand(B, H, -1, -1)
+    if G in (1, H):
+        kg, vg = kg.expand(B, H, -1, -1), vg.expand(B, H, -1, -1)
+    else:  # GQA (chameleon-34b, 8 query heads a group): each group's rows repeated
+        kg, vg = kg.repeat_interleave(H // G, dim=1), vg.repeat_interleave(H // G, dim=1)
     mask = (torch.arange(mb * bs, device="cuda")[None] < ln[:, None].long())[:, None, None]
     q4 = q[:, :, None]
     sdpa = lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, scale=scale)
@@ -2523,6 +2622,10 @@ TRAIN_B, TRAIN_S = 4, 4096
 #: parameters, gradients and moments take ~260 GB at 27, ~44 GB at 4) and
 #: train_4k's batch cut to 2 sequences of 4096
 MLA_TRAIN_LAYERS, MLA_TRAIN_B = 4, 2
+#: stablelm-3b's training run: full width and depth, train_4k's batch cut to
+#: the 4 sequences of 4096 that fit beside AdamW's 44.8 GB of float32 state
+#: (the peak predicted in PERF.md before the first run)
+TRAIN_3B_B = 4
 
 
 def _rel_err(got, want) -> float:
@@ -2569,6 +2672,15 @@ def _train_kernel_checks() -> dict:
         ("causal_S300_T500", 1, 300, 500, 8, 2, 64, 64, True, 0, bf16),
         ("causal_S500_T300", 1, 500, 300, 8, 2, 64, 64, True, 0, bf16),
         ("causal_S500_T300_f32", 1, 500, 300, 8, 2, 64, 64, True, 0, f32),
+        # stablelm-3b's heads, D = 80: B 2 x S 4096, ragged S and T, a window
+        ("stablelm3b_B2_S4096", 2, TRAIN_S, TRAIN_S, 32, 32, 80, 80, True, 0, bf16),
+        ("stablelm3b_S517", 1, 517, 517, 32, 32, 80, 80, True, 0, bf16),
+        ("d80_S300_T500", 1, 300, 500, 8, 8, 80, 80, True, 0, bf16),
+        ("d80_S300_T500_f32", 1, 300, 500, 8, 8, 80, 80, True, 0, f32),
+        ("d80_S517_f32", 1, 517, 517, 32, 32, 80, 80, True, 0, f32),
+        ("d80_window64_gqa4", 2, 600, 600, 8, 2, 80, 80, True, 64, bf16),
+        ("d80_window64_gqa4_f32", 2, 600, 600, 8, 2, 80, 80, True, 64, f32),
+        ("d80_T333_full_f32", 1, 100, 333, 8, 1, 80, 80, False, 0, f32),
     ]
     rows, worst, fwd_err, repeat = [], {}, {}, {}
     for name, B, S, T, H, G, D, Dv, causal, window, dtype in cases:
@@ -2604,7 +2716,13 @@ def _train_kernel_checks() -> dict:
         check(row["lse_max_abs_err"] <= TRAIN_LSE_TOL[key], f"flash lse {name}: {row}")
         worst[name] = max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
         fwd_err[name] = row["out_max_abs_err"]
-        if name in ("stablelm_B4_S4096", "olmoe_B2_S2048", "mla_B2_S4096"):
+        if name in (
+            "stablelm_B4_S4096",
+            "olmoe_B2_S2048",
+            "mla_B2_S4096",
+            "stablelm3b_B2_S4096",
+            "d80_S517_f32",
+        ):
             again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
             repeat[name + "_fwd_lse_vs_serving_fwd"] = torch.equal(out, flash_attention(q, k, v))
@@ -2958,13 +3076,17 @@ def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool) -> dict:
 def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> dict:
     """The two runs of ``_steps_kernel_vs_plain`` side by side, checked:
     launches (3 steps x 2 forward and 1 backward per layer through the
-    kernels, none through the plain path), finite metrics, a positive aux
-    loss, the losses and routing decisions within ``TRAIN_MOE_BOUNDS``."""
+    kernels, none through the plain path), finite metrics; for MoE a
+    positive aux loss, the losses and routing decisions within
+    ``TRAIN_MOE_BOUNDS``; for a dense stack the losses within
+    ``TRAIN_STEP_BOUNDS``."""
     k, p = runs["kernel"], runs["ref"]
     L = cfg.num_layers
+    moe = cfg.is_moe_layer(0)
     want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
     loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(k["metrics"], p["metrics"])]
-    agreement = _route_agreement(k["routes"], p["routes"])
+    agreement = _route_agreement(k["routes"], p["routes"]) if moe else None
+    bounds = TRAIN_MOE_BOUNDS if moe else {"loss_abs": TRAIN_STEP_BOUNDS["loss_abs"]}
     step_s = statistics.median(k["step_s"])
     flops = _flops_per_step(cfg, B * S, S)
     out = {
@@ -2989,7 +3111,7 @@ def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> d
         "model_flops_share_formula": FLOPS_SHARE_FORMULA,
         "launches": k["launches"],
         "predicted": want,
-        "bounds": TRAIN_MOE_BOUNDS,
+        "bounds": bounds,
     }
     check(k["launches"] == want, f"{cfg.name} train launches {k['launches']}, due {want}")
     check(sum(p["launches"].values()) == 0, f"the plain {cfg.name} run launched {p['launches']}")
@@ -2997,12 +3119,13 @@ def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> d
         all(math.isfinite(v) for m in k["metrics"] + p["metrics"] for v in m.values()),
         f"{cfg.name} train metrics not finite",
     )
-    check(all(m["aux_loss"] > 0 for m in k["metrics"]), f"{cfg.name} aux loss is not positive")
-    check(max(loss_diff) <= TRAIN_MOE_BOUNDS["loss_abs"], f"{cfg.name} losses differ: {loss_diff}")
-    check(
-        agreement["agreement"] >= TRAIN_MOE_BOUNDS["route_agreement"],
-        f"{cfg.name} routing differs: {agreement}",
-    )
+    check(max(loss_diff) <= bounds["loss_abs"], f"{cfg.name} losses differ: {loss_diff}")
+    if moe:
+        check(all(m["aux_loss"] > 0 for m in k["metrics"]), f"{cfg.name} aux loss is not positive")
+        check(
+            agreement["agreement"] >= bounds["route_agreement"],
+            f"{cfg.name} routing differs: {agreement}",
+        )
     return out
 
 
@@ -3041,12 +3164,30 @@ def _train_mla() -> dict:
     return out
 
 
-def _train_timing(main: dict, moe: dict, errs: dict) -> list:
-    """Timing rows of the flash backward at stablelm-1.6b's and olmoe-1b-7b's
-    training shapes (bf16, causal) against its plain version and the
-    backward of ``scaled_dot_product_attention`` under autograd on the same
-    tensors; the forward with its log-sum-exp at stablelm's shape against
-    the serving forward (no lse), the plain version and SDPA."""
+def _train_3b() -> dict:
+    """stablelm-3b at full width and depth (32 layers, 32 heads of 80, 2.80
+    B parameters; AdamW's float32 parameters, gradients and moments 44.8
+    GB), B = ``TRAIN_3B_B`` x S = 4096 (train_4k's sequence length), ``wq``
+    and ``wk`` tempered as its serving run tempers them: three steps through
+    the kernels (the flash forward with lse and the backward at D = 80) and
+    three through the plain attention path from one state and batches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("stablelm-3b")
+    runs = _steps_kernel_vs_plain(cfg, TRAIN_3B_B, TRAIN_S, temper=True)
+    reduced = f"train_4k's batch of 256 cut to {TRAIN_3B_B}; full width and depth"
+    out = _kernel_vs_plain_summary(cfg, runs, TRAIN_3B_B, TRAIN_S, reduced)
+    emit("train_3b", **out)
+    return out
+
+
+def _train_timing(main: dict, moe: dict, dense3b: dict, errs: dict) -> list:
+    """Timing rows of the flash backward at stablelm-1.6b's, olmoe-1b-7b's
+    and stablelm-3b's training shapes (bf16, causal) against its plain
+    version and the backward of ``scaled_dot_product_attention`` under
+    autograd on the same tensors; the forward with its log-sum-exp at the
+    two stablelm shapes against the serving forward (no lse), the plain
+    version and SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -3065,6 +3206,15 @@ def _train_timing(main: dict, moe: dict, errs: dict) -> list:
     shapes = [
         ("stablelm-1.6b-train", TRAIN_B, TRAIN_S, 32, 64, main["launches"], "stablelm_B4_S4096"),
         ("olmoe-1b-7b-train", 2, 2048, 16, 128, moe["launches"], "olmoe_B2_S2048"),
+        (
+            "stablelm-3b-train",
+            TRAIN_3B_B,
+            TRAIN_S,
+            32,
+            80,
+            dense3b["launches"],
+            "stablelm3b_B2_S4096",
+        ),
     ]
     for path, B, S, H, D, launches, case in shapes:
         q, k, v, dout = (_cuda_randn(gen, (B, S, H, D), bf16) for _ in range(4))
@@ -3269,7 +3419,10 @@ def phase_training() -> list:
     _train_crash_resume()
     moe = _train_moe()
     mla = _train_mla()
-    rows = _train_timing(main, moe, errs) + _train_timing_mla(mla, errs)
+    t3b = time.perf_counter()
+    dense3b = _train_3b()
+    emit("train_3b_seconds", seconds=time.perf_counter() - t3b)
+    rows = _train_timing(main, moe, dense3b, errs) + _train_timing_mla(mla, errs)
     emit("training", seconds=time.perf_counter() - t0)
     return rows
 
@@ -3312,6 +3465,14 @@ def main() -> int:
     rows += phase_llm_timing(serving, llm_errs, flash_lengths=(128, 517, 1024))
     del serving
     torch.cuda.empty_cache()
+    for phase in (phase_serving_dense7b, phase_serving_vlm, phase_serving_3b):
+        t0 = time.perf_counter()
+        serving = phase()
+        phase_serving_profile(serving)
+        rows += phase_llm_timing(serving, llm_errs, flash_lengths=(1024,))
+        emit(serving["phase"] + "_seconds", seconds=time.perf_counter() - t0)
+        del serving
+        torch.cuda.empty_cache()
     rows += phase_training()
     torch.cuda.empty_cache()
     # the scale path last: its profiled windows hold ~10^5 kernel records each

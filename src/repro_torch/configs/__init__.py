@@ -13,6 +13,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
 }
 
 

@@ -135,9 +135,12 @@ def check_supported(cfg: ModelConfig) -> None:
     carries uniform stacks of GQA or MLA attention, dense or with an MoE FFN
     on every layer, with or without QK-norm (ROADMAP Queue 1 lists the rest
     under "the remaining model families", with the slice that brings each).
-    What it runs it also trains: GQA and MLA, dense or MoE."""
+    What it runs it also trains: GQA and MLA, dense or MoE.  Family ``vlm``
+    (chameleon-34b) runs as a dense stack: the reference's model code
+    branches only on ``ssm`` and ``hybrid`` and never reads ``frontend``, so
+    its VQ front end is the embedding table and nothing more."""
     later = []
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         later.append(f"family {cfg.family!r}")
     if cfg.use_mla and cfg.q_lora_rank:
         later.append("MLA with query compression")

@@ -19,7 +19,8 @@
 // overlap this tile's math.  The consumers compute S = Q K^T with
 // `wgmma.mma_async ... .f32.bf16.bf16` on 128/64/32-byte swizzled tiles in
 // shared memory (the swizzle follows D * 2 bytes; D = 128 is two 128-byte
-// atoms, 192 three), mask by the true T, the causal diagonal and the window, and run the
+// atoms, 192 three, 80 five 32-byte ones: include/hopper.cuh says why), mask
+// by the true T, the causal diagonal and the window, and run the
 // online softmax in float32 on the accumulator fragments: each row belongs to
 // the four lanes of a quad, so its max and sum take two shuffles.  P is
 // rounded to bf16 in registers and fed to the second `wgmma` as its register
@@ -30,17 +31,20 @@
 // first.
 //
 // Widths.  q and k have one head width DK, v its own DV, and the output DV:
-// the square GQA widths 16, 32, 64 and 128, and MLA's prefill (deepseek-v2:
+// the square GQA widths 16, 32, 64, 80 and 128, and MLA's prefill (deepseek-v2:
 // DK = 192, the 128 up-projected dims and the 64 RoPE dims of each head, DV =
 // 128).  At (192, 128) S = Q K^T takes 12 k-steps of 16 over 192, P V has N =
 // 128, the Q and K tiles are three 128-byte swizzle atoms wide and the V tile
-// two; V is never padded to DK.
+// two; V is never padded to DK.  At (80, 80) (stablelm-3b) S = Q K^T takes
+// five k-steps of 16, one per 32-byte atom, and P V has N = 80: the tiles,
+// the products and the stores hold the true 80 columns, nothing padded.
 //
 // float32: the CUDA cores (the tensor cores offer only TF32 for float32, which
 // keeps about three digits; the float32 contract is 2e-5).  One block per
 // (64-row q tile, head, batch) loops over its KV tiles through shared memory;
 // four threads share a query row, each owning D / 4 of its dims in
-// interleaved float4 groups, and the row's score is two shuffles.
+// interleaved float4 groups (five at D = 80), and the row's score is two
+// shuffles.
 //
 // Bound.  2 * (DK + DV) FLOP per unmasked (row, key) pair: ~4.3 GFLOP per
 // layer at S = 1024, H = 32, D = 64 causal, 4.4 us at the card's 989 TFLOP/s
@@ -475,8 +479,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
 
 }  // namespace
 
-// The widths the kernels are built for: (D, D) for D in 16, 32, 64, 128, and
-// MLA's (192, 128).
+// The widths the kernels are built for: (D, D) for D in 16, 32, 64, 80, 128,
+// and MLA's (192, 128).
 #define FLASH_DISPATCH(fn)                                                              \
   if (D == Dv) {                                                                        \
     switch (D) {                                                                        \
@@ -486,6 +490,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
         return fn<32, 32>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);  \
       case 64:                                                                          \
         return fn<64, 64>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);  \
+      case 80:                                                                          \
+        return fn<80, 80>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s);  \
       case 128:                                                                         \
         return fn<128, 128>(q, k, v, out, lse, B, S, T, H, G, causal, window, scale, s); \
       default:                                                                          \

@@ -37,8 +37,9 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref,
 )
 
-#: head dims the kernels are built for where q, k and v share one
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernels are built for where q, k and v share one (80:
+#: stablelm-3b and h2o-danube)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 #: (q/k width, v width) pairs the forward, its log-sum-exp and the backward
 #: are built for: the square ones and MLA's (deepseek-v2: 128 + 64 RoPE
 #: dims, v 128)

@@ -25,7 +25,7 @@
 // Both passes recompute P, so S and dP are computed twice: 7 products per
 // (row, key) pair where FA3's atomic dQ needs 5.  Widths: q and k have one
 // head width DK, v, out and dout their own DV (dQ and dK are DK wide, dV DV):
-// the square widths 16, 32, 64 and 128, and MLA's (192, 128) (deepseek-v2's
+// the square widths 16, 32, 64, 80 and 128, and MLA's (192, 128) (deepseek-v2's
 // 128 up-projected and 64 RoPE dims of each head, v 128).  Two routes,
 // chosen by the input type (the wrapper dispatches; neither falls back to
 // the other):
@@ -50,7 +50,13 @@
 // q tiles that the mask rules out entirely are never loaded; under causal
 // the longest CTAs of each (head, batch) launch first.  Registers: the dK/dV
 // pass holds dK and dV (D / 2 floats each) plus S^T and dP^T (32 each) per
-// thread, ~200 at D = 128, so it runs one CTA per SM there and two below.
+// thread, ~200 at D = 128, so it runs one CTA per SM there and two at 64
+// and below.  At D = 80 (stablelm-3b) the tiles are five 32-byte swizzle
+// atoms wide (include/hopper.cuh), S^T and dP^T take five k-steps of 16, dQ,
+// dK and dV are N = 80 products, and the dK/dV pass holds dK 40 + dV 40 +
+// S^T 32 + dP^T 32 floats a thread: the square pass as it is, at one CTA
+// per SM (at two, ptxas caps a thread at 168 registers, spills 544 bytes
+// and serializes the wgmma, C7512).
 // At (192, 128) one warpgroup would hold dK 96 + dV 64 + S^T 32 + dP^T 32 =
 // 224 floats before its bf16 operands, and spill; so that pass
 // (`flash_bwd_dkv_split_bf16`) splits its accumulators over two consumer
@@ -69,8 +75,9 @@
 // reads of 8 neighbouring rows fall in distinct banks), 256 threads, each
 // computing a 4 x 4 block of the 64 x 64 score and dP tiles (rows tr + 16 i,
 // columns tc + 16 j) from float4 reads, then a 4-row x D/16-dim block of the
-// dK/dV (or dQ) accumulators.  At (192, 128) the four staged tiles take
-// 164 KB and the whole dK/dV pass 199 KB of the 227 KB a block may use.
+// dK/dV (or dQ) accumulators (at D = 80 five dims a thread, 16 apart).  At
+// (192, 128) the four staged tiles take 164 KB and the whole dK/dV pass 199
+// KB of the 227 KB a block may use; at (80, 80) 86 and 121 KB.
 //
 // Bound: 5 products per unmasked (row, key) pair, 2 DK flop each for S, dQ
 // and dK and 2 DV for dP and dV, at the card's 989 TFLOP/s bf16 tensor-core
@@ -112,11 +119,12 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
 
 // Thread layout of the D-wide accumulators: thread t owns the dims
 // dim(c, w) = (t % 16) * W + 16 * W * c + w, c < D / 16 / W, w < W, so each
-// chunk of W dims is contiguous and a warp's chunks are neighbours.
+// chunk of W dims is contiguous and a warp's chunks are neighbours.  W is the
+// widest of 4, 2 and 1 that divides the thread's D / 16 dims (D = 80: 1).
 template <int D>
 struct Dims {
   static constexpr int kPer = D / 16;  // dims per thread
-  static constexpr int kW = kPer < 4 ? kPer : 4;
+  static constexpr int kW = kPer % 4 == 0 ? 4 : kPer % 2 == 0 ? 2 : 1;
   static constexpr int kChunks = kPer / kW;
   static constexpr int kPad = D + 4;  // padded row stride of a 64 x D tile
   __device__ static __forceinline__ int dim(int td, int c, int w) {
@@ -207,19 +215,28 @@ __device__ __forceinline__ bool unmasked(int row, int col, int S, int Tk, int ca
   return ok;
 }
 
-// D_i = rowsum(dO * O): D / 4 threads per row, 4 dims each (both routes).
+// Threads per row of `flash_bwd_prep`: D / 4 where that is a power of two,
+// else 16 (D = 80: 5 dims each), so that the row's shuffles stay in its lanes.
+template <int D>
+struct PrepLanes {
+  static constexpr int kN = (D / 4 & (D / 4 - 1)) == 0 ? D / 4 : 16;
+};
+
+// D_i = rowsum(dO * O): PrepLanes threads per row (both routes).
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_prep(const T* __restrict__ out, const T* __restrict__ dout, float* __restrict__ drow,
                    int S, int H, long long rows) {
-  constexpr int NT = D / 4;
+  constexpr int NT = PrepLanes<D>::kN;
+  constexpr int E = D / NT;  // dims per thread
+  static_assert(NT <= 32 && (NT & (NT - 1)) == 0 && D % NT == 0, "a row's lanes");
   const long long row = static_cast<long long>(blockIdx.x) * (kThreads / NT) + threadIdx.x / NT;
   const int lane = threadIdx.x % NT;
   float acc = 0.f;
   if (row < rows) {
-    const long long base = row * D + lane * 4;
+    const long long base = row * D + lane * E;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc += to_f32(out[base + e]) * to_f32(dout[base + e]);
+    for (int e = 0; e < E; ++e) acc += to_f32(out[base + e]) * to_f32(dout[base + e]);
   }
 #pragma unroll
   for (int off = NT / 2; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -243,6 +260,7 @@ constexpr int dkv_smem_floats() {
   return tiles_floats<DK, DV>() + 2 * kBM * kPS + 2 * kBM;
 }
 static_assert(dkv_smem_floats<192, 128>() * 4 <= 232448, "the float32 dK/dV pass's tiles");
+static_assert(dkv_smem_floats<80, 80>() * 4 <= 232448, "the float32 dK/dV pass's tiles");
 
 // float32 dQ: one block per (q tile, head, batch), looping over its live KV tiles.
 template <int DK, int DV, typename T>
@@ -441,7 +459,7 @@ template <int D, typename T>
 int launch_prep(const void* out, const void* dout, void* drow, int B, int S, int H,
                 cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * S * H;
-  const int rows_per_block = kThreads / (D / 4);
+  const int rows_per_block = kThreads / PrepLanes<D>::kN;
   flash_bwd_prep<D, T><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
                          kThreads, 0, stream>>>(static_cast<const T*>(out),
                                                 static_cast<const T*>(dout),
@@ -725,7 +743,7 @@ __global__ void __launch_bounds__(kThreadsTC, DK > 128 ? 1 : 2)
 // group's heads' Q and dO tiles streamed.  S^T = K Q^T, dP^T = V dO^T,
 // dV += P^T dO, dK += dS^T Q.
 template <int D>
-__global__ void __launch_bounds__(kThreadsTC, D >= 128 ? 1 : 2)
+__global__ void __launch_bounds__(kThreadsTC, D > 64 ? 1 : 2)
     flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
@@ -1054,8 +1072,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
 
 }  // namespace
 
-// The widths the kernels are built for: (D, D) for D in 16, 32, 64, 128, and
-// MLA's (192, 128).  D is the width of q and k, Dv that of v, out and dout.
+// The widths the kernels are built for: (D, D) for D in 16, 32, 64, 80, 128,
+// and MLA's (192, 128).  D is the width of q and k, Dv that of v, out and dout.
 #define BWD_ARGS q, k, v, out, dout, lse, drow, dq, dk, dv, B, S, T, H, G, causal, window, scale, st
 #define BWD_DISPATCH(fn)                                                    \
   if (B == 0 || S == 0 || T == 0) return 0;                                 \
@@ -1069,6 +1087,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
         return fn<32, 32>(BWD_ARGS);                                        \
       case 64:                                                              \
         return fn<64, 64>(BWD_ARGS);                                        \
+      case 80:                                                              \
+        return fn<80, 80>(BWD_ARGS);                                        \
       case 128:                                                             \
         return fn<128, 128>(BWD_ARGS);                                      \
       default:                                                              \

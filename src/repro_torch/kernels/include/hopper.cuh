@@ -8,8 +8,24 @@
 //
 // Tiles.  A [64 rows, D] bf16 tile of a [B, rows, heads, D] tensor lands in
 // shared memory as D / atom swizzle atoms of 64 rows x `kSwizzle` bytes, one
-// TMA box each (the swizzle follows D * 2 bytes: 128 B for D >= 64, where
-// D = 128 is two atoms and D = 192 three; 64 B for D = 32; 32 B for D = 16).
+// TMA box each.  The swizzle is the widest of 128, 64 and 32 bytes that
+// divides a row of D * 2 bytes: 128 B for D = 64, 128 (two atoms) and 192
+// (three); 64 B for D = 32; 32 B for D = 16 and D = 80.
+//
+// D = 80 (stablelm-3b, h2o-danube: 160-byte rows, 1 1/4 of a 128-byte atom)
+// takes five 32-byte atoms of 16 dims, one `wgmma` k-step each.  Of the
+// three layouts that fit such a row this is the one the generic code below
+// already walks: the tile maps, S = Q K^T's k-steps and P V's MN-major
+// descriptors (the atom stride as the leading offset) are those of D = 16
+// repeated five times, with no second tensor map or descriptor kind (a
+// 64-dim 128-byte atom beside a 16-dim 32-byte one) and no padded columns
+// (96 wide in 64-byte atoms: a fifth more products, and a TMA box past the
+// row that the tensor map fills with zeros).  Its cost is five TMA boxes of
+// 2 KB per tile where D = 64 takes one of 8 KB, and a swizzle whose 8-row
+// core matrices span 256 bytes of shared memory.  Measured on an H100
+// (PERF.md rows 4d, 4td, 5d): the forward at 32 heads and S = 1024 takes 25 %
+// more than the line between D = 64 and D = 128 puts D = 80 at; the split
+// layout is the lever for a later redesign.
 // Every tile is 1024-byte aligned.
 //
 // Accumulator fragment of a 64 x N wgmma tile: thread t of the warpgroup
@@ -32,7 +48,9 @@ constexpr int kTileRows = 64;  // rows of every tile: one wgmma M, and the depth
 
 template <int D>
 struct Swizzle {
-  static constexpr int kSwizzle = D >= 64 ? 128 : 2 * D;  // bytes per row of a swizzle atom
+  static_assert(D * 2 % 32 == 0, "a tile row must be whole 32-byte swizzle rows");
+  // bytes per row of a swizzle atom
+  static constexpr int kSwizzle = D * 2 % 128 == 0 ? 128 : D * 2 % 64 == 0 ? 64 : 32;
   static constexpr int kAtom = kSwizzle / 2;              // bf16 per atom row
   static constexpr int kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;  // wgmma enum
   static constexpr int kTileBytes = kTileRows * D * 2;
@@ -199,6 +217,27 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -288,7 +327,7 @@ __device__ __forceinline__ void issue_scores(float (&acc)[kTileRows / 2], uint32
 // 16 of its rows per step, its swizzle atoms `kTileRows * kSwizzle`
 // bytes apart (the descriptor's leading offset).  The forward's O += P V; the
 // backward's dQ += dS K, dV += P^T dO and dK += dS^T Q (MLA: dQ and dK at
-// N = 192).
+// N = 192; D = 80: N = 80 over five 32-byte atoms).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[kTileRows / 16][4],
                                          uint32_t b_tile) {

@@ -14,7 +14,10 @@
 // (group, request, split), each split a fixed span of `bps` pool blocks, so a
 // batch of long requests fills the card.  A CTA whose span starts at or past
 // the request's length exits at once.  Inside a CTA every token row of K and
-// V is read as 16-byte vectors, LPR lanes to a row, and each thread loads the
+// V is read as 16-byte vectors, LPR lanes to a row (`RowLanes`: the next power
+// of two of a row's pieces, so a row's shuffles stay within its lanes; at D =
+// 80 a 160-byte bf16 row is 10 pieces on 16 lanes, a float32 row 20 on 32,
+// the rest idle), and each thread loads the
 // K and V pieces of eight rows before it uses any, so many rows are in
 // flight; the table entries of the next batch's rows are loaded a batch
 // ahead (the first batch's with the request's length).  The scores of a
@@ -23,7 +26,8 @@
 // head over the batch, against a running max across batches, and P V
 // accumulates per row slot, reduced by shuffles and then across the four
 // warps in a fixed order.  The query heads of a group (up to 8) share every
-// K and V load; the kernel is built for 1, 2, 4 and 8 of them.  Each
+// K and V load; the kernel is built for 1, 2, 4 and 8 of them, at D = 16, 32,
+// 64, 80 and 128.  Each
 // (request, head, split) writes a float32 partial (max, sum, acc[D]) to
 // scratch that the wrapper allocates.  `paged_merge`, the second kernel,
 // combines the live splits of each (request, head) in split order: no float
@@ -117,6 +121,23 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// A token row of D elements of T as 16-byte pieces on kLanes lanes: the next
+// power of two of the pieces, so that a row's shuffles stay within its lanes
+// and kThreads holds whole rows.  Lanes at or past kPieces (D = 80: 6 of 16
+// in bf16, 12 of 32 in float32) load nothing and add zeros.
+template <typename T, int D>
+struct RowLanes {
+  static constexpr int kPieces = D / Vec<T>::N;
+  static constexpr int kLanes = kPieces <= 2    ? kPieces
+                                : kPieces <= 4  ? 4
+                                : kPieces <= 8  ? 8
+                                : kPieces <= 16 ? 16
+                                                : 32;
+  static constexpr int kRowsPerPass = kThreads / kLanes;
+  static constexpr int kRowsPerBatch = kRowsPerPass * kUnroll;
+  static_assert(kPieces * Vec<T>::N == D && kPieces <= 32, "a row in 16-byte pieces on one warp");
+};
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -136,9 +157,10 @@ __global__ void __launch_bounds__(kThreads)
                 int bs, int bps, int nsplit, long long blk_stride, long long row_stride,
                 float scale) {
   constexpr int VEC = Vec<T>::N;
-  constexpr int LPR = D / VEC;       // lanes per token row
-  constexpr int RPP = kThreads / LPR;  // rows per CTA per pass
-  constexpr int ROWS = RPP * kUnroll;  // rows per batch
+  using RL = RowLanes<T, D>;
+  constexpr int LPR = RL::kLanes;         // lanes per token row
+  constexpr int RPP = RL::kRowsPerPass;   // rows per CTA per pass
+  constexpr int ROWS = RL::kRowsPerBatch;  // rows per batch
   extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int b = blockIdx.y;
@@ -150,6 +172,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid % 32;
   const int slot = tid / LPR;  // row slot within a pass
   const int c = tid % LPR;     // this thread's 16-byte piece of a row
+  const bool live = c < RL::kPieces;  // whether that piece is in the row
   const int32_t* tbl = table + static_cast<long long>(b) * mb;
   // pool blocks of this thread's rows in a batch, loaded a batch ahead (the
   // first batch's together with the length, before it is known)
@@ -176,14 +199,15 @@ __global__ void __launch_bounds__(kThreads)
   float qv[M][VEC], acc[M][VEC];
 #pragma unroll
   for (int h = 0; h < M; ++h) {
-    if (h < m) {
+    const bool on = h < m && live;
+    if (on) {
       const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
           q + (static_cast<long long>(b) * H + g * m + h) * D + c * VEC));
       Vec<T>::unpack(raw, qv[h]);
     }
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      qv[h][i] = h < m ? qv[h][i] * scale : 0.f;
+      qv[h][i] = on ? qv[h][i] * scale : 0.f;
       acc[h][i] = 0.f;
     }
   }
@@ -200,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const bool ok = off[u] >= 0;
+      const bool ok = live && off[u] >= 0;
       kraw[u] = ok ? __ldg(reinterpret_cast<const uint4*>(k + off[u])) : make_uint4(0, 0, 0, 0);
       vraw[u] = ok ? __ldg(reinterpret_cast<const uint4*>(v + off[u])) : make_uint4(0, 0, 0, 0);
     }
@@ -280,7 +304,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < VEC; ++i) {
 #pragma unroll
       for (int w = LPR; w < 32; w <<= 1) acc[h][i] += __shfl_xor_sync(0xffffffffu, acc[h][i], w);
-      if (lane < LPR) wacc[(warp * M + h) * D + c * VEC + i] = acc[h][i];
+      if (lane < LPR && live) wacc[(warp * M + h) * D + c * VEC + i] = acc[h][i];
     }
   }
   __syncthreads();
@@ -350,7 +374,7 @@ int launch_split(const void* q, const void* k, const void* v, const void* table,
                  const void* lengths, float* part_acc, float* part_ms, int B, int H, int G, int mb,
                  int bs, int bps, long long blk_stride, long long row_stride, float scale,
                  cudaStream_t stream) {
-  constexpr int kRowsPerBatch = kThreads / (D / Vec<T>::N) * kUnroll;
+  constexpr int kRowsPerBatch = RowLanes<T, D>::kRowsPerBatch;
   const int nsplit = (mb + bps - 1) / bps;
   const size_t smem = (M * kRowsPerBatch + kWarps * M * D + 3 * M) * sizeof(float);
   paged_split<T, D, M><<<dim3(G, B, nsplit), kThreads, smem, stream>>>(
@@ -392,6 +416,8 @@ int dispatch_split(int D, const void* q, const void* k, const void* v, const voi
       PAGED_DIM(32);
     case 64:
       PAGED_DIM(64);
+    case 80:
+      PAGED_DIM(80);
     case 128:
       PAGED_DIM(128);
     default:

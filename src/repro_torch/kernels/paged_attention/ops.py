@@ -31,8 +31,9 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-#: head dims the kernel is built for (16-byte pieces of a token row per lane)
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is built for (16-byte pieces of a token row per lane;
+#: 80: stablelm-3b and h2o-danube)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 #: query heads per KV group the kernel holds in registers
 MAX_HEADS_PER_GROUP = 8
 #: most splits the merge stages in shared memory (48 KB)

@@ -3,16 +3,22 @@
     PYTHONPATH=src python -m repro_torch.launch.serve                  # full width, CUDA
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 By default it serves stablelm-1.6b at full width on the CUDA card (random
 weights from ``--seed``); ``--arch`` names another of the port's configs
 (``repro_torch.configs.list_archs()``: olmoe-1b-7b, MoE with QK-norm;
 deepseek-v2-lite-16b, MLA with one 576-wide latent row per token and layer
-in the pool, decoded in the absorbed form, and MoE with shared experts,
-32.4 GB of bf16 weights).  The request mix: 16 requests with prompts of
-128..1024 tokens, 32 new tokens each, 8 slots, 2048-token contexts,
-16-token blocks.  ``--smoke`` takes the reduced config and the reference launcher's sizes (8 requests of
+in the pool, decoded in the absorbed form, and MoE with shared experts, 32.4
+GB of bf16 weights; deepseek-7b, dense MHA at 32 heads of 128, 13.8 GB;
+chameleon-34b, dense GQA 64:8 at 128 with QK-norm, 68.6 GB, the largest that
+fits the card beside its pool; stablelm-3b, dense MHA at 32 heads of 80, 5.6
+GB).  The request mix: 16 requests with prompts of 128..1024 tokens, 32 new
+tokens each, 8 slots, 2048-token contexts, 16-token blocks.  ``--smoke``
+takes the reduced config and the reference launcher's sizes (8 requests of
 4..15 prompt tokens, 8 new tokens, 4 slots, 64-token contexts, 8-token
 blocks); ``--device cpu`` runs the plain PyTorch path on the host.
 """
@@ -106,7 +112,8 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--arch",
         default="stablelm-1.6b",
-        help="stablelm-1.6b, olmoe-1b-7b or deepseek-v2-lite-16b",
+        help="one of repro_torch.configs.list_archs(): stablelm-1.6b, olmoe-1b-7b, "
+        "deepseek-v2-lite-16b, deepseek-7b, chameleon-34b or stablelm-3b",
     )
     ap.add_argument("--smoke", action="store_true", help="reduced config and sizes")
     ap.add_argument("--device", default=None, help="default: the CUDA card")

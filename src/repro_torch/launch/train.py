@@ -3,17 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --steps 16
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --layers 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --steps 16
 
 ``--smoke`` trains the reduced config; without it the full config trains on
 the one CUDA card (stablelm-1.6b: 1.64 B float32 parameters with their AdamW
-moments, 26.3 GB), where the reference launcher refuses for lack of a TPU
-runtime.  ``--layers N`` cuts the stack to its first N layers at full width:
-deepseek-v2-lite-16b's float32 parameters, gradients and AdamW moments
-take ~260 GB at its 27 layers, ~44 GB at 4.  The loop is the reference's: sequences of 64 tokens, batches of
-``max(2, 2 * microbatches)``, checkpoints every ``max(10, steps // 4)``
-steps into ``--ckpt-dir`` (none without it), auto-resume.  Attention runs
-through the hand-written kernels (on the CPU, their plain versions).  It
-asserts that the loss fell, as the reference launcher does.
+moments, 26.3 GB; stablelm-3b: 2.80 B, 44.8 GB), where the reference
+launcher refuses for lack of a TPU runtime.  ``--arch`` takes any of
+``repro_torch.configs.list_archs()``.  ``--layers N`` cuts the stack to its
+first N layers at full width: deepseek-v2-lite-16b's float32 parameters,
+gradients and AdamW moments take ~260 GB at its 27 layers, ~44 GB at 4;
+deepseek-7b's ~111 GB at 30 layers, chameleon-34b's ~549 GB at 48.  The loop
+is the reference's: sequences of 64 tokens, batches of ``max(2, 2 *
+microbatches)``, checkpoints every ``max(10, steps // 4)`` steps into
+``--ckpt-dir`` (none without it), auto-resume.  Attention runs through the
+hand-written kernels (on the CPU, their plain versions).  It asserts that the
+loss fell, as the reference launcher does.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from repro_torch.train.loop import train_loop
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--arch", default="stablelm-1.6b", help="one of configs.list_archs()")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0, help="cut the stack to N layers (0: all)")

@@ -6,9 +6,12 @@ layer stack's leaves stacked ``[L, ...]`` as the reference stacks them, and
 ``init_leaf`` draws each leaf.  Each leaf draws from its own
 ``torch.Generator``, seeded from a stable digest of the seed and the leaf's
 path, so a leaf's values do not depend on the order of the tree or on the
-process.  (The reference folds Python's salted ``hash`` of the path into its
-key, so its weights differ between processes; parity with it goes through
-``repro_torch.interop``.)
+process.  A stacked layer leaf is drawn one layer at a time, each layer from
+a generator of its own (the digest also takes the layer's index), so no
+float32 copy of a whole stack exists (chameleon-34b's ``w_gate`` alone would
+be 34.6 GB; one layer of it is 0.72 GB).  (The reference folds Python's
+salted ``hash`` of the path into its key, so its weights differ between
+processes; parity with it goes through ``repro_torch.interop``.)
 """
 
 from __future__ import annotations
@@ -41,19 +44,25 @@ def keystr(keys) -> str:
     return "".join(f"['{k}']" for k in keys)
 
 
-def leaf_seed(seed: int, keys) -> int:
-    return zlib.crc32(f"{seed}:{keystr(keys)}".encode())
+def leaf_seed(seed: int, keys, layer: Optional[int] = None) -> int:
+    """The CRC of the seed and the leaf's path, and of the layer's index
+    for one layer of a stacked leaf."""
+    tag = f"{seed}:{keystr(keys)}" + ("" if layer is None else f"[{layer}]")
+    return zlib.crc32(tag.encode())
 
 
-def init_leaf(spec: ParamSpec, seed: int, device) -> torch.Tensor:
+def init_leaf(spec: ParamSpec, seed: int, device, shape=None) -> torch.Tensor:
     """One float32 leaf on ``device``: the reference's init rules (``fan_in``
-    reads the second-to-last dim, as the reference's does)."""
+    reads the second-to-last dim of ``spec``, as the reference's does).
+    ``shape`` draws only that part (one layer of a stacked leaf,
+    ``spec.shape[1:]``) by the same rules."""
+    shape = spec.shape if shape is None else shape
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, device=device)
+        return torch.zeros(shape, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, device=device)
+        return torch.ones(shape, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(spec.shape, generator=gen, device=device)
+    x = torch.randn(shape, generator=gen, device=device)
     if spec.init == "fan_in":
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         return x.mul_(1.0 / math.sqrt(fan_in))

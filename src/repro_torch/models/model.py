@@ -249,7 +249,9 @@ def init_params(
 ) -> Transformer:
     """A :class:`Transformer` with random weights drawn on ``device``
     (default: CUDA) by the reference's init rules, each leaf from its own
-    generator seeded from ``seed`` and the leaf's path."""
+    generator seeded from ``seed`` and the leaf's path; a stacked layer leaf
+    layer by layer, straight into that layer's parameter, each layer's
+    generator seeded from the path and the layer's index (``leaf_seed``)."""
     model = empty_model(
         cfg,
         device=device,
@@ -259,7 +261,12 @@ def init_params(
         param_dtype=param_dtype,
     )
     for keys, spec in iter_specs(param_specs(cfg)):
-        model._assign(keys, init_leaf(spec, leaf_seed(seed, keys), model.device), spec)
+        if keys[0] != "layers":
+            model._assign(keys, init_leaf(spec, leaf_seed(seed, keys), model.device), spec)
+            continue
+        for i, layer in enumerate(model.layers):
+            x = init_leaf(spec, leaf_seed(seed, keys, i), model.device, spec.shape[1:])
+            _param(layer, keys[1:]).copy_(x)
     return model
 
 

@@ -260,6 +260,10 @@ def _tables(gen, B, width, NB, used):
         (1, 300, 300, 32, 4, 64, True, 64),
         (2, 200, 200, 16, 4, 128, True, 0),
         (1, 1024, 1024, 16, 16, 128, True, 0),  # olmoe-1b-7b's longest prompt
+        (1, 1024, 1024, 32, 32, 80, True, 0),  # stablelm-3b's longest prompt, D = 80
+        (1, 1, 1, 4, 4, 80, True, 0),  # S = 1 at D = 80
+        (1, 100, 333, 8, 1, 80, False, 0),  # ragged T, GQA 8:1, D = 80
+        (1, 300, 300, 8, 2, 80, True, 64),  # window, D = 80
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, window, dtype, tol):
@@ -288,6 +292,11 @@ def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, wi
         (3, 16, 2, 64, 64, 16, 8),  # 8 query heads per group
         (4, 16, 2, 16, 64, 16, 8),  # head dim 16
         (8, 16, 16, 128, 512, 16, 128),  # olmoe-1b-7b's decode: one head per group, D = 128
+        (8, 32, 32, 80, 512, 16, 128),  # stablelm-3b's decode: one head per group, D = 80
+        (3, 8, 4, 80, 64, 16, 8),  # D = 80, 2 heads per group
+        (3, 8, 2, 80, 64, 16, 8),  # D = 80, 4 heads per group
+        (3, 16, 2, 80, 64, 16, 8),  # D = 80, 8 heads per group
+        (4, 64, 8, 128, 256, 16, 16),  # chameleon-34b's 8 heads per group at D = 128
     ],
 )
 def test_paged_attention_kernel_matches_plain(card, B, H, G, D, NB, bs, mb, dtype, tol):
@@ -311,7 +320,7 @@ def test_paged_attention_kernel_matches_plain(card, B, H, G, D, NB, bs, mb, dtyp
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("bs,D", [(16, 64), (8, 16), (32, 128)])
+@pytest.mark.parametrize("bs,D", [(16, 64), (8, 16), (32, 128), (16, 80)])
 def test_paged_attention_kernel_edge_lengths(card, bs, D, dtype, tol):
     """Lengths of 1, exactly one split, two splits, the table's end, past the
     table's end (clamped) and 0; 8 query heads per group."""
@@ -391,6 +400,41 @@ def test_short_serving_run_at_head_dim_16(card):
     _serve_reduced(head_dim=16)
 
 
+def test_short_serving_run_at_head_dim_80(card):
+    """A reduced stablelm-3b at its own head dim of 80 (20 rotary dims)
+    through the kernels' D = 80 instantiations."""
+    _serve_reduced(head_dim=80, arch="stablelm-3b")
+
+
+def test_head_dim_80_kernels_repeat_bit_for_bit(card):
+    """Two calls of flash (with and without lse), the backward and paged
+    at stablelm-3b's heads (32 of 80) give the same bits, bf16 and float32."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_randn(gen, (1, 777, 32, 80), dtype) for _ in range(3))
+        assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+        first, second = flash_attention_fwd(q, k, v), flash_attention_fwd(q, k, v)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert torch.equal(first[0], flash_attention(q, k, v))
+        dout = _randn(gen, (1, 777, 32, 80), dtype)
+        one, two = (flash_attention_bwd(q, k, v, *first, dout) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(one, two))
+        pool = _randn(gen, (512, 16, 2, 2, 32, 80), dtype)
+        kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
+        lens = [585, 1061, 0, 700]
+        tbl = _tables(gen, 4, 128, 512, [-(-n // 16) for n in lens])
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = _randn(gen, (4, 32, 80), dtype)
+        assert torch.equal(paged_attention(q, kp, vp, tbl, ln), paged_attention(q, kp, vp, tbl, ln))
+
+
 def test_short_moe_serving_run_at_head_dim_128(card):
     """A reduced olmoe-1b-7b (MoE on every layer, QK-norm) at its own head
     dim of 128, one KV head per query head, through the kernels."""
@@ -453,6 +497,10 @@ BWD_CASES = [
     (2, 1000, 1000, 16, 4, 128, True, 0),  # D = 128, GQA 4:1, S not a multiple of 64
     (1, 300, 500, 8, 2, 64, True, 0),  # causal, T > S
     (1, 500, 300, 8, 2, 64, True, 0),  # causal, T < S
+    (1, 517, 517, 32, 32, 80, True, 0),  # stablelm-3b's heads, D = 80, ragged S
+    (2, 300, 300, 8, 2, 80, True, 64),  # window at D = 80, GQA 4:1
+    (1, 100, 333, 8, 1, 80, False, 0),  # ragged T at D = 80, no mask
+    (1, 300, 500, 8, 8, 80, True, 0),  # causal, T > S, D = 80
 ]
 
 
@@ -597,6 +645,29 @@ def test_short_training_run_through_the_kernels(card):
         state = S.init_train_state(cfg, run, 0)
         fn = S.make_train_step(cfg, run, total_steps=3)
         pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=64)
+        reset_launches()
+        losses[impl] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
+        want = (3 * 2 * cfg.num_layers, 3 * cfg.num_layers) if impl == "pallas" else (0, 0)
+        assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
+    np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)
+
+
+def test_short_training_run_at_head_dim_80(card):
+    """Three AdamW steps of smoke(stablelm-3b) at its own head dim of 80
+    on the card, float32 compute: launches as above and the losses equal
+    the plain path's within 1e-4."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import step as S
+
+    cfg = smoke(get_config("stablelm-3b"), head_dim=80)
+    losses = {}
+    for impl in ("pallas", "jnp"):
+        run = RunConfig(compute_dtype="float32", attn_impl=impl, learning_rate=1e-3, warmup_steps=1)
+        state = S.init_train_state(cfg, run, 0)
+        fn = S.make_train_step(cfg, run, total_steps=3)
+        pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=100)
         reset_launches()
         losses[impl] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
         want = (3 * 2 * cfg.num_layers, 3 * cfg.num_layers) if impl == "pallas" else (0, 0)

@@ -42,7 +42,14 @@ def test_configs_match_reference(overrides):
     "arch", ["deepseek-v2-lite-16b", "whisper-base", "mamba2-1.3b", "h2o-danube-1.8b"]
 )
 def test_later_slices_raise(arch):
-    assert list_archs() == [ARCH, "olmoe-1b-7b", "deepseek-v2-lite-16b"]
+    assert list_archs() == [
+        ARCH,
+        "olmoe-1b-7b",
+        "deepseek-v2-lite-16b",
+        "deepseek-7b",
+        "chameleon-34b",
+        "stablelm-3b",
+    ]
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
     if cfg.use_mla:  # served and trained: no later slice left for it
         assert get_config(arch) == cfg
