@@ -97,6 +97,29 @@ Phases, one JSON line each; any failure exits non-zero:
                 float32); stablelm-3b (32 heads of 80: every serving kernel
                 at D = 80), tempered, bf16 and float32.  Each prints its
                 seconds
+  11s. serving_swa, serving_ssm  h2o-danube-1.8b at full width and depth
+                (GQA 32:8 at 80, a 4096-token sliding window, 1.84 B
+                parameters), tempered, with the checks of 8 on the FULL mix
+                (the window never masks there) and on the WINDOW mix (4
+                prompts of 8192 tokens and 4 of 4065..4096, decode past
+                position 4096: the paged kernel masks the keys before the
+                window), its WINDOW decode profiled and timing rows 3w
+                (paged with the window) and 4w (prefill flash at S 8192);
+                then mamba2-1.3b at full width and depth (48 SSM layers, tied
+                embeddings, 1.34 B parameters) on the FULL_SSD mix:
+                isolation every step, the KV record, no attention or
+                banked_copy launch, each slot's SSM state beside the pool,
+                its decode profiled, and its two forms in float32 (8
+                prompts of 512 tokens through the chunked prefill and
+                through 512 recurrent steps: final state, conv window and
+                last logits within ``SSM_FORMS_BOUND``).  Each prints its
+                seconds.  The paged window is also held to its plain
+                version in 2 (1, 4 and 8 heads a group, D = 64, 80, 128,
+                windows of 1, 16, 1000 and 4096 against lengths whose
+                window starts inside a split, on a split boundary, after 16
+                and 19 dead splits, in split 0; a window at and past the
+                lengths changes no bit; h2o-danube's decode shape), as is
+                the flash forward at S 8192 with the window
   12. sweep     the scale path's main path, through the public entry points
                  with B lanes per arbiter launch: the golden ``"batch"`` entry
                  through ``simulate_batch`` and the three golden cases through
@@ -151,7 +174,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  step time, tokens/s, peak memory and model-FLOPs share;
                  stablelm-3b at full width and depth (``train_3b``: B 4 x S
                  4096, AdamW, remat full, three steps kernel against plain,
-                 launches 192 / 96); and
+                 launches 192 / 96); h2o-danube-1.8b at full width and depth
+                 (``train_swa``: S 8192, past its 4096-token window; three
+                 steps kernel against plain at B 1, three timed kernel steps
+                 at B 2, tokens/s, model-FLOPs share over the window's pairs,
+                 peak memory; the forward's lse and the backward with the
+                 window among the kernel checks; rows 4tw and 5w); and
                  the timing rows of the backward (with its rate on its own
                  products and its share of the 5-product bound) and of the
                  forward with its log-sum-exp, MLA's against SDPA's backend
@@ -1549,6 +1577,9 @@ def phase_llm_kernels() -> dict:
         ("d80_S1", 1, 1, 1, 32, 32, 80, True, 0),
         ("d80_ragged_T333_gqa8_full", 1, 100, 333, 8, 1, 80, False, 0),
         ("d80_window64_gqa4", 2, 300, 300, 32, 8, 80, True, 64),
+        # h2o-danube-1.8b's prefill at the WINDOW mix's longest prompt: 32
+        # heads over 8 groups at 80, S 8192, its window of 4096
+        ("h2o_S8192_window4096", 1, 8192, 8192, 32, 8, 80, True, 4096),
     ]
     for name, B, S, T, H, G, D, causal, window in flash_cases:
         for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
@@ -1717,9 +1748,104 @@ def phase_llm_kernels() -> dict:
             paged_attention(q, kp, vp, tbl, ln), paged_attention(q, kp, vp, tbl, ln)
         )
         del pool, kp, vp
+    _paged_window_checks(gen, record, repeat)
     check(all(repeat.values()), f"a kernel's second call differs from its first: {repeat}")
     emit("llm_kernels", cases=rows, max_abs_err=worst, repeats_bit_for_bit=repeat)
     return worst
+
+
+#: lengths against a window of 4096 over 256-token splits (16 blocks of 16):
+#: the start inside split 16 (16 dead splits before it), on a split boundary
+#: (17 dead), inside split 19 (more than 16), inside split 0, short of the
+#: window, and an idle slot
+WINDOW_LENS = (8224, 8448, 9000, 4097, 100, 0)
+
+
+def _window_lengths() -> list:
+    """h2o-danube-1.8b's WINDOW mix at mid-decode: its 8 prompts' lengths
+    plus 16 (``launch.serve.WINDOW``, seed 0, as its serving run draws them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    spec = serve.WINDOW
+    prompts = serve.make_prompts(get_config("h2o-danube-1.8b"), spec, seed=0)
+    return [len(p) + spec.max_new_tokens // 2 for p in prompts]
+
+
+def _paged_window_checks(gen, record, repeat) -> None:
+    """Paged attention with a sliding window against its plain version: at
+    1, 4 and 8 query heads a group and D = 64, 80, 128, bf16 and float32,
+    windows of 1, 16 (a block), 1000 (no block multiple) and 4096 over
+    ``WINDOW_LENS``, each call one split and one merge launch and repeated
+    bit for bit; windows equal to a length and past it change no bit; at
+    h2o-danube's decode shape (8 slots, 32 heads over 8 groups at 80, a
+    layer's views of its 24-layer pool, a 520-block table) at the WINDOW
+    mix's mid-decode lengths, one slot idle, where the windowed output must
+    differ from the unwindowed one (the mask is live)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    bs, mb, G = 16, 600, 2
+    used = [-(-n // bs) for n in WINDOW_LENS]
+    NB = sum(used) + 7
+    ln = torch.tensor(WINDOW_LENS, dtype=torch.int32, device="cuda")
+    tbl = _unique_tables(gen, len(WINDOW_LENS), mb, NB, used)
+    for D in (64, 80, 128):
+        for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
+            kp, vp = (_cuda_randn(gen, (NB, bs, G, D), dtype) for _ in range(2))
+            for m in (1, 4, 8):
+                q = _cuda_randn(gen, (len(WINDOW_LENS), G * m, D), dtype)
+                plain = paged_attention(q, kp, vp, tbl, ln)
+                for window in (1, 16, 1000, 4096):
+                    before = LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"]
+                    got = paged_attention(q, kp, vp, tbl, ln, window=window)
+                    torch.cuda.synchronize()
+                    after = LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"]
+                    check(after == (before[0] + 1, before[1] + 1), f"window launches {after}")
+                    want = paged_attention_ref(q, kp, vp, tbl, ln, window=window)
+                    case = f"window{window}_d{D}_heads{m}_{str(dtype)[6:]}"
+                    record("paged_attention", case, _max_err(got, want), tol)
+                    check(bool((got[-1] == 0).all()), f"paged {case}: idle slot not 0")
+                    again = paged_attention(q, kp, vp, tbl, ln, window=window)
+                    repeat[f"paged_attention_{case}"] = torch.equal(got, again)
+                # a window at or past every length is no window
+                past = paged_attention(q, kp, vp, tbl, ln, window=max(WINDOW_LENS))
+                check(torch.equal(past, plain), f"paged d{D} heads{m}: a window past the lengths")
+                at = paged_attention(q, kp, vp, tbl, ln, window=WINDOW_LENS[3])
+                check(torch.equal(at[3:], plain[3:]), f"paged d{D} heads{m}: window = length")
+            del kp, vp
+
+    lens = _window_lengths()
+    lens[3] = 0
+    NB = 4224
+    used = [-(-n // bs) for n in lens]
+    tbl = _unique_tables(gen, 8, 520, NB, used)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
+        pool = _cuda_randn(gen, (NB, bs, 24, 2, 8, 80), dtype)
+        kp, vp = pool[:, :, 5, 0], pool[:, :, 5, 1]
+        q = _cuda_randn(gen, (8, 32, 80), dtype)
+        got = paged_attention(q, kp, vp, tbl, ln, window=4096)
+        torch.cuda.synchronize()
+        want = paged_attention_ref(q, kp, vp, tbl, ln, window=4096)
+        case = f"h2o_8x32x8x80_pool_view_window4096_{str(dtype)[6:]}"
+        record("paged_attention", case, _max_err(got, want), tol)
+        check(bool((got[3] == 0).all()), f"paged {case}: idle slot not 0")
+        unwindowed = paged_attention(q, kp, vp, tbl, ln)
+        live = [b for b, n in enumerate(lens) if n >= 2 * 4096]  # half the rows masked
+        check(
+            all(_max_err(got[b], unwindowed[b]) > 1e-3 for b in live),
+            f"paged {case}: the window changed nothing past it",
+        )
+        if dtype == bf16:
+            repeat["paged_attention_h2o_window"] = torch.equal(
+                got, paged_attention(q, kp, vp, tbl, ln, window=4096)
+            )
+        del pool, kp, vp
 
 
 #: largest float64 logit gap between two experts that a float32 product of the
@@ -1913,7 +2039,17 @@ FORCING_BOUNDS = {
     "deepseek-7b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
     "chameleon-34b": {"bf16": (0.5, 0.9)},
     "stablelm-3b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
+    # written before its first run: tempered as stablelm-1.6b and on both
+    # mixes (the WINDOW mix's 8192-token prompts and decode past the window)
+    "h2o-danube-1.8b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
 }
+#: mamba2-1.3b's two forms of one function on the card (float32): the
+#: chunked prefill of 8 prompts of 512 tokens (two 256-token chunks) and 512
+#: recurrent decode steps from a zero state, held to each other as the
+#: largest abs difference over the largest abs entry of the final SSM state,
+#: of the conv window and of the last logits (stated before the first run:
+#: float32 summation orders through 48 layers, ~1e-5 expected)
+SSM_FORMS_BOUND = 1e-2
 #: deepseek-v2-lite-16b's plain absorbed decode against the plain
 #: non-absorbed one (the reference's two forms of one function), teacher
 #: forced, bf16: the same bounds as the kernel path against the plain one
@@ -2032,11 +2168,55 @@ def phase_serving_3b() -> dict:
     return _serving_path("stablelm-3b", "serving_3b", temper=True)
 
 
-def _serving_path(arch: str, phase: str, *, temper: bool, f32_forcing: bool = True) -> dict:
-    """One serving path at full width through ``repro_torch.launch.serve``;
-    returns what the later phases need (model, prompts, launch counts, host
-    time per decode step).  ``f32_forcing``: also teacher force a float32
-    model through the kernels and the plain path."""
+def phase_serving_swa_ssm(llm_errs: dict) -> list:
+    """``serving_swa`` with its profile (the WINDOW run's decode) and timing
+    rows 3w and 4w, then ``serving_ssm`` with its profile, each printing its
+    seconds; returns the kernels-line rows."""
+    import torch
+
+    t0 = time.perf_counter()
+    full, window = phase_serving_swa()
+    phase_serving_profile(window)
+    rows = _swa_timing(window, llm_errs)
+    emit("serving_swa_seconds", seconds=time.perf_counter() - t0)
+    del full, window
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving = phase_serving_ssm()
+    phase_serving_profile(serving)
+    emit("serving_ssm_seconds", seconds=time.perf_counter() - t0)
+    del serving
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serving_swa() -> tuple:
+    """h2o-danube-1.8b at full width and depth (24 layers, d 2560, GQA 32:8
+    at 80, a 4096-token sliding window, 1.84 B parameters), ``wq``/``wk``
+    tempered, on the FULL mix (contexts of at most 1056 tokens: the window
+    never masks) and on the WINDOW mix (prompts of 8192 tokens, twice the
+    window, and of 4065..4096, whose decode crosses position 4096), each
+    with the checks of ``_serving_path`` (launches, isolation every step,
+    the KV record, teacher forcing in bf16 and float32).  Returns both
+    runs' results (``(full, window)``)."""
+    full = _serving_path("h2o-danube-1.8b", "serving_swa", temper=True)
+    window = _serving_path(
+        "h2o-danube-1.8b", "serving_swa_window", temper=True, mix="WINDOW", model=full["model"]
+    )
+    del full["model"]
+    return full, window
+
+
+def phase_serving_ssm() -> dict:
+    """mamba2-1.3b at full width and depth (48 SSM layers, d 2048, 64 SSD
+    heads of 64 with a 128-wide state, tied embeddings, 1.34 B parameters)
+    on the FULL_SSD mix: the pool allocates and frees blocks as the
+    reference's engine does (its KV access record held to a traffic-only
+    engine's), isolation every step, no attention or ``banked_copy``
+    launch, each slot's SSM state and conv window beside the pool.  Then
+    the two forms on the card in float32 (``SSM_FORMS_BOUND``): 8 prompts of
+    512 tokens through the chunked prefill at B = 8 and through 512
+    recurrent decode steps from a zero state."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2045,15 +2225,242 @@ def _serving_path(arch: str, phase: str, *, temper: bool, f32_forcing: bool = Tr
     from repro_torch.models import model as M
     from repro_torch.serving.record import KVAccessRecorder
 
-    cfg, spec = get_config(arch), serve.FULL
-    moe = cfg.is_moe_layer(0)
+    cfg, spec = get_config("mamba2-1.3b"), serve.FULL_SSD
     t0 = time.perf_counter()
     model = M.init_params(cfg, 0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = serve.make_prompts(cfg, spec, seed=0)
+    serve.check_mix(cfg, spec, prompts)
+    plan_rec = KVAccessRecorder()
+    plan, _ = serve.new_engine(None, None, spec, prompts, recorder=plan_rec)
+    plan.run()
+    recorder = KVAccessRecorder()
+    eng, reqs = serve.new_engine(cfg, model, spec, prompts, recorder=recorder)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        eng.step()
+        check(eng.pool.check_isolation(), f"pool isolation broken at step {eng.steps}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    summary = serve.summarize(eng, reqs, wall)
+    check(sum(launches.values()) == 0, f"the SSM path launched kernels: {launches}")
+    check(eng.kv is None, "the SSM engine allocated a KV store")
+    check(eng.steps == plan.steps, f"{eng.steps} engine steps, traffic-only run took {plan.steps}")
+    check(
+        recorder.record.events_key() == plan_rec.record.events_key(),
+        "the SSM run's KV access record differs from the traffic-only engine's",
+    )
+    check(
+        all(r.done and len(r.out_tokens) == spec.max_new_tokens for r in reqs),
+        "a request did not finish with its token count",
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_bytes = eng.ssm.nbytes()
+    del eng
+    forms = _ssm_two_forms(cfg)
+    emit(
+        "serving_ssm",
+        arch=cfg.name,
+        mix="FULL_SSD",
+        params=cfg.num_params(),
+        init_s=init_s,
+        **{k: summary[k] for k in ("requests", "done", "out_tokens", "steps", "wall_s")},
+        prompt_lengths=[len(p) for p in prompts],
+        prompt_tokens=summary["stats"]["prefill_tokens"],
+        prefill_tokens_per_s=summary["prefill_tokens_per_s"],
+        decode_ms_per_step=summary["decode_ms_per_step"],
+        out_tokens_per_s=summary["out_tokens_per_s"],
+        pool_imbalance=summary["pool_imbalance"],
+        peak_memory_gb=peak_gb,
+        ssm_state_mb_per_slot=state_bytes / spec.max_batch / 1e6,
+        ssm_state_mb=state_bytes / 1e6,
+        launches=launches,
+        stats=summary["stats"],
+        two_forms=forms,
+        kv_access_record=recorder.record.summary(),
+    )
+    return dict(
+        model=model,
+        spec=spec,
+        prompts=prompts,
+        launches=launches,
+        decode_ms_per_step=summary["decode_ms_per_step"],
+        phase="serving_ssm",
+    )
+
+
+def _ssm_two_forms(cfg) -> dict:
+    """The chunked prefill and the recurrence of one float32 model on the
+    same 8 prompts of 512 tokens: final SSM state, conv window and last
+    logits held to each other within ``SSM_FORMS_BOUND`` (relative to the
+    largest entry)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    model = M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(512)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen, device="cuda")
+    chunked = model.init_ssm_cache(8)
+    t0 = time.perf_counter()
+    want = M.prefill(model, tokens, ssm_out=chunked)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    rec = model.init_ssm_cache(8)
+    pos = torch.zeros(8, dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for i in range(512):
+        got = M.decode_step(model, tokens[:, i : i + 1], pos + i, rec)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    out = {
+        "prompts": 8,
+        "tokens": 512,
+        "chunk": cfg.ssm_chunk,
+        "state_rel_err": _rel_err(rec.ssm, chunked.ssm),
+        "conv_rel_err": _rel_err(rec.conv, chunked.conv),
+        "logits_rel_err": _rel_err(got, want),
+        "logits_max_abs_err": _max_err(got, want),
+        "bound": SSM_FORMS_BOUND,
+        "prefill_s": prefill_s,
+        "recurrent_s": decode_s,
+    }
+    del model, chunked, rec
+    torch.cuda.empty_cache()
+    for key in ("state_rel_err", "conv_rel_err", "logits_rel_err"):
+        check(out[key] <= SSM_FORMS_BOUND, f"mamba2's two forms differ: {out}")
+    return out
+
+
+def _swa_timing(window: dict, errs: dict) -> list:
+    """h2o-danube-1.8b's windowed kernels at its WINDOW mix's shapes (bf16):
+    paged over 8 slots at the mix's mid-decode lengths, window 4096 (row
+    3w; its byte bound counts only the rows in the window; the yardstick is
+    SDPA over K/V gathered beforehand, the window as ``attn_mask``), and the
+    prefill flash at S 8192 with the window (row 4w; SDPA with the window
+    as ``attn_mask``, K/V repeated per query head)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_mask, flash_attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    model, launches = window["model"], window["launches"]
+    cfg = model.cfg
+    H, G, D, w = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
+    bf16, gen = torch.bfloat16, torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    lens = _window_lengths()
+    B, bs, mb = len(lens), 16, 520
+    NB = sum(-(-n // bs) for n in lens) + 8
+    tbl = _unique_tables(gen, B, mb, NB, [-(-n // bs) for n in lens])
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pool = _cuda_randn(gen, (NB, bs, *model.kv_row_shape()), bf16)
+    kp, vp = pool[:, :, 0, 0], pool[:, :, 0, 1]
+    q = _cuda_randn(gen, (B, H, D), bf16)
+    live = sum(min(n, w) for n in lens)  # rows in the window
+    nbytes = live * G * 2 * D * 2 + B * H * 2 * D * 2 + B * mb * 4 + B * 4
+    idx = tbl.long().clamp(min=0)
+    kg = kp[idx].reshape(B, mb * bs, G, D).transpose(1, 2).repeat_interleave(H // G, dim=1)
+    vg = vp[idx].reshape(B, mb * bs, G, D).transpose(1, 2).repeat_interleave(H // G, dim=1)
+    tok = torch.arange(mb * bs, device="cuda")[None]
+    n = ln[:, None].long()
+    mask = ((tok < n) & (tok >= n - w))[:, None, None]
+    q4 = q[:, :, None]
+    sdpa = lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
+    want = paged_attention_ref(q, kp, vp, tbl, ln, window=w)
+    check(_max_err(sdpa()[:, :, 0], want) <= 3e-2, "windowed paged yardstick")
+    rows.append(
+        _timing_row(
+            "paged_attention",
+            {
+                "kernel": lambda: paged_attention(q, kp, vp, tbl, ln, window=w),
+                "plain": lambda: paged_attention_ref(q, kp, vp, tbl, ln, window=w),
+                "library": sdpa,
+            },
+            200,
+            nbytes,
+            2 * 2 * D * H * live,
+            launches["paged_attention"],
+            errs["paged_attention"],
+            "F.scaled_dot_product_attention on K/V gathered beforehand, the window as attn_mask",
+            shape=dict(B=B, H=H, G=G, D=D, block_size=bs, lengths=lens, window=w),
+            path=cfg.name + "-window",
+            queued=True,
+        )
+    )
+    del pool, kp, vp, kg, vg, mask
+
+    S = 8192
+    q = _cuda_randn(gen, (1, S, H, D), bf16)
+    k, v = (_cuda_randn(gen, (1, S, G, D), bf16) for _ in range(2))
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(H // G, dim=1).contiguous() for t in (k, v))
+    amask = attention_mask(S, S, causal=True, window=w, device="cuda")
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+    check(
+        _max_err(sdpa().transpose(1, 2), flash_attention_ref(q, k, v, window=w)) <= 2e-2,
+        "windowed flash yardstick",
+    )
+    pairs = w * (w + 1) // 2 + (S - w) * w  # live (q, k) pairs
+    rows.append(
+        _timing_row(
+            "flash_attention",
+            {
+                "kernel": lambda: flash_attention(q, k, v, window=w),
+                "plain": lambda: flash_attention_ref(q, k, v, window=w),
+                "library": sdpa,
+            },
+            10,
+            S * (H + G) * 2 * D * 2,
+            4 * D * H * pairs,
+            launches["flash_attention"],
+            errs["flash_attention"],
+            "F.scaled_dot_product_attention with the window as attn_mask (K/V repeated per head)",
+            shape=dict(B=1, S=S, H=H, G=G, D=D, causal=True, window=w),
+            path=cfg.name + "-window",
+            queued=True,
+        )
+    )
+    del q, k, v, qt, kt, vt, amask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _serving_path(
+    arch: str, phase: str, *, temper: bool, f32_forcing: bool = True, mix: str = "FULL", model=None
+) -> dict:
+    """One serving path at full width through ``repro_torch.launch.serve``
+    on the request mix ``mix`` (``serve.MIXES``); returns what the later
+    phases need (model, prompts, launch counts, host time per decode step).
+    ``f32_forcing``: also teacher force a float32 model through the kernels
+    and the plain path.  ``model``: a bf16 model of ``arch`` already built
+    (and tempered where ``temper``), in place of a new one."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving.record import KVAccessRecorder
+
+    cfg, spec = get_config(arch), serve.MIXES[mix]
+    moe = cfg.is_moe_layer(0)
+    t0 = time.perf_counter()
+    built = model is None
+    model = M.init_params(cfg, 0) if built else model
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = serve.make_prompts(cfg, spec, seed=0)
+    serve.check_mix(cfg, spec, prompts)
     score_std = {}
-    if temper:
+    if temper and built:
         if cfg.use_mla:
             score_std["untempered"] = _score_std(model, prompts[0])
         model = _tempered(model)
@@ -2170,6 +2577,7 @@ def _serving_path(arch: str, phase: str, *, temper: bool, f32_forcing: bool = Tr
     emit(
         phase,
         arch=cfg.name,
+        mix=mix,
         params=cfg.num_params(),
         init_s=init_s,
         **{k: summary[k] for k in ("requests", "done", "out_tokens", "steps", "wall_s")},
@@ -2365,7 +2773,7 @@ def _latent_timing(q, kp, tbl, ln, scale) -> None:
     chunks = [-(-n // C) for n in lens]
     live = sum(-(-n // c) for n, c in zip(lens, chunks) if c)
     stages = max(-(-c // ops.LATENT_STAGE_ROWS) for c in chunks)
-    call = lambda: ops.paged_attention(q, kp, kp[..., :512], tbl, ln, scale=scale)  # noqa: E731
+    call = lambda: ops.paged_attention(q, kp, kp[..., :512], tbl, ln, scale=scale)
     call_us = queued_ms(call, 200) * 1e3
 
     lib = ctypes.CDLL(MARKED["paged_attention"])
@@ -2376,7 +2784,7 @@ def _latent_timing(q, kp, tbl, ln, scale) -> None:
     out = torch.empty((B, 16, 512), dtype=q.dtype, device="cuda")
     args = (q.data_ptr(), kp.data_ptr(), tbl.data_ptr(), ln.data_ptr(), out.data_ptr(), B, mb, bs)
     args += (kp.stride(0), kp.stride(1), scale, torch.cuda.current_stream().cuda_stream)
-    marked = lambda: check(fn(*args) == 0, "marked latent launch")  # noqa: E731
+    marked = lambda: check(fn(*args) == 0, "marked latent launch")
     marks = torch.zeros((B * C, 16), dtype=torch.int64, device="cuda")
     marked_us = queued_ms(marked, 200) * 1e3  # marks off
     check(lib.paged_attention_latent_marks(marks.data_ptr()) == 0, "latent marks buffer")
@@ -2406,9 +2814,9 @@ def _latent_timing(q, kp, tbl, ln, scale) -> None:
     parts = (part_acc.data_ptr(), part_ms.data_ptr())
     split_args = (q32.data_ptr(), kv32.data_ptr(), tbl.data_ptr(), ln.data_ptr(), *parts, B, mb)
     split_args += (bs, bps, kv32.stride(0), kv32.stride(1), scale, stream)
-    merge_args = (*parts, ln.data_ptr(), out32.data_ptr(), B, 16, 512, mb, bs, bps, 0, stream)
-    split32 = lambda: check(fns["latent_split"](*split_args) == 0, "f32 split")  # noqa: E731
-    merge32 = lambda: check(fns["merge"](*merge_args) == 0, "f32 merge")  # noqa: E731
+    merge_args = (*parts, ln.data_ptr(), out32.data_ptr(), B, 16, 512, mb, bs, bps, 0, 0, stream)
+    split32 = lambda: check(fns["latent_split"](*split_args) == 0, "f32 split")
+    merge32 = lambda: check(fns["merge"](*merge_args) == 0, "f32 merge")
     split32()
     emit(
         "latent_timing",
@@ -2626,6 +3034,19 @@ MLA_TRAIN_LAYERS, MLA_TRAIN_B = 4, 2
 #: the 4 sequences of 4096 that fit beside AdamW's 44.8 GB of float32 state
 #: (the peak predicted in PERF.md before the first run)
 TRAIN_3B_B = 4
+#: h2o-danube-1.8b's training run (full width and depth): at train_4k's S =
+#: 4096 its 4096-token window never masks a key, so the sequences are 8192
+#: long; kernel against plain at B 1 (the plain path's float32 scores of a
+#: layer take 8.6 GB a sequence), a timed kernel run at B 2 (16384 tokens a
+#: step, as train_4k's 4 x 4096 a card)
+SWA_TRAIN_S, SWA_TRAIN_B, SWA_TIMED_B = 8192, 1, 2
+
+
+def _window_pairs(S: int, window: int) -> int:
+    """The (query, key) pairs a causal sequence of S attends to under a
+    sliding window (0: none)."""
+    w = min(window or S, S)
+    return w * (w + 1) // 2 + (S - w) * w
 
 
 def _rel_err(got, want) -> float:
@@ -2681,6 +3102,10 @@ def _train_kernel_checks() -> dict:
         ("d80_window64_gqa4", 2, 600, 600, 8, 2, 80, 80, True, 64, bf16),
         ("d80_window64_gqa4_f32", 2, 600, 600, 8, 2, 80, 80, True, 64, f32),
         ("d80_T333_full_f32", 1, 100, 333, 8, 1, 80, 80, False, 0, f32),
+        # h2o-danube-1.8b's training shapes: 32 heads over 8 groups at 80, S
+        # 8192, its window of 4096 (the timed step's B 2, the checked B 1)
+        ("h2o_B2_S8192_window4096", 2, 8192, 8192, 32, 8, 80, 80, True, 4096, bf16),
+        ("h2o_S8192_window4096_f32", 1, 8192, 8192, 32, 8, 80, 80, True, 4096, f32),
     ]
     rows, worst, fwd_err, repeat = [], {}, {}, {}
     for name, B, S, T, H, G, D, Dv, causal, window, dtype in cases:
@@ -2722,10 +3147,12 @@ def _train_kernel_checks() -> dict:
             "mla_B2_S4096",
             "stablelm3b_B2_S4096",
             "d80_S517_f32",
+            "h2o_B2_S8192_window4096",
         ):
             again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
-            repeat[name + "_fwd_lse_vs_serving_fwd"] = torch.equal(out, flash_attention(q, k, v))
+            serving_out = flash_attention(q, k, v, **kw)
+            repeat[name + "_fwd_lse_vs_serving_fwd"] = torch.equal(out, serving_out)
         rows.append(row)
         del q, k, v, dout, out, lse, got, want, out_ref, lse_ref
     check(all(repeat.values()), f"a second call differs from the first: {repeat}")
@@ -2740,7 +3167,8 @@ def _train_kernel_checks() -> dict:
 
 #: how ``_flops_per_step`` counts, for the lines that report the share
 FLOPS_SHARE_FORMULA = (
-    "(6 * (costs.active_params - Vp * d) + 3 * L * H * (Dqk + Dv) * S) * tokens / step_s / 989e12"
+    "(6 * (costs.active_params - Vp * d) + 6 * L * H * (Dqk + Dv) * pairs / S) * tokens "
+    "/ step_s / 989e12"
 )
 
 
@@ -2748,8 +3176,10 @@ def _flops_per_step(cfg, tokens: int, seq: int) -> float:
     """Model FLOPs of one training step (no remat recompute): 6 N per token
     for the N active parameters of the matrix products (``analysis.costs.
     active_params``: MoE's top-k experts; all but the embedding table), and
-    3 L H (Dqk + Dv) S per token for causal attention's two products (S T
-    causal pairs are S^2 / 2; at square widths 6 L H D S)."""
+    6 L H (Dqk + Dv) pairs / S per token for attention's two products over
+    the live (query, key) pairs of a sequence (causal: S (S + 1) / 2, about
+    3 L H (Dqk + Dv) S, counted as S^2 / 2; a sliding window fewer,
+    ``_window_pairs``)."""
     from repro_torch.analysis.costs import active_params
 
     n = active_params(cfg) - cfg.padded_vocab * cfg.d_model
@@ -2757,7 +3187,8 @@ def _flops_per_step(cfg, tokens: int, seq: int) -> float:
         dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
     else:
         dqk = dv = cfg.resolved_head_dim
-    attn = 3 * cfg.num_layers * cfg.num_heads * (dqk + dv) * seq
+    pairs = _window_pairs(seq, cfg.sliding_window) if cfg.sliding_window else seq * seq / 2
+    attn = 6 * cfg.num_layers * cfg.num_heads * (dqk + dv) * pairs / seq
     return float((6 * n + attn) * tokens)
 
 
@@ -3022,12 +3453,12 @@ def _train_crash_resume() -> dict:
     return out
 
 
-def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool) -> dict:
+def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool, impls=("kernel", "ref")) -> dict:
     """Three AdamW steps (remat "full") of ``cfg`` through the kernels and
-    three through the plain attention path, each from the same seeded init
-    (``wq`` and ``wk``/``w_uk`` x 1/8 where ``temper``) and the same batches
-    of B x S tokens; per run the metrics, step seconds, routing decisions
-    (call for call), launches and peak memory."""
+    three through the plain attention path (``impls``), each from the same
+    seeded init (``wq`` and ``wk``/``w_uk`` x 1/8 where ``temper``) and the
+    same batches of B x S tokens; per run the metrics, step seconds, routing
+    decisions (call for call), launches and peak memory."""
     import torch
 
     from repro_torch.configs.base import RunConfig
@@ -3039,7 +3470,7 @@ def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool) -> dict:
     batches = [next(pipe) for _ in range(3)]
     runs = {}
     run = RunConfig(remat_policy="full")
-    for impl in ("kernel", "ref"):
+    for impl in impls:
         t0 = time.perf_counter()
         state = S_.init_train_state(cfg, run, seed=0)
         if temper:
@@ -3179,6 +3610,131 @@ def _train_3b() -> dict:
     out = _kernel_vs_plain_summary(cfg, runs, TRAIN_3B_B, TRAIN_S, reduced)
     emit("train_3b", **out)
     return out
+
+
+def _train_swa() -> dict:
+    """h2o-danube-1.8b at full width and depth (24 layers, GQA 32:8 at 80,
+    window 4096, 1.84 B parameters; AdamW's float32 state 29.4 GB), remat
+    full, ``wq``/``wk`` tempered as its serving run tempers them, sequences
+    of ``SWA_TRAIN_S`` = 8192 (at train_4k's 4096 the window never masks):
+    three steps through the kernels and three through the plain path at B
+    ``SWA_TRAIN_B`` from one state and batches, then three timed kernel
+    steps at B ``SWA_TIMED_B`` (tokens/s, model-FLOPs share over the
+    window's live pairs, peak memory)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("h2o-danube-1.8b")
+    S = SWA_TRAIN_S
+    runs = _steps_kernel_vs_plain(cfg, SWA_TRAIN_B, S, temper=True)
+    reduced = (
+        f"S {S} in place of train_4k's 4096 (its window of 4096 masks nothing there); kernel "
+        f"against plain at B {SWA_TRAIN_B}, timed at B {SWA_TIMED_B} (train_4k's batch of 256 "
+        "cut); full width and depth"
+    )
+    out = _kernel_vs_plain_summary(cfg, runs, SWA_TRAIN_B, S, reduced)
+    timed = _steps_kernel_vs_plain(cfg, SWA_TIMED_B, S, temper=True, impls=("kernel",))["kernel"]
+    step_s = statistics.median(timed["step_s"])
+    flops = _flops_per_step(cfg, SWA_TIMED_B * S, S)
+    L = cfg.num_layers
+    check(
+        timed["launches"] == {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L},
+        f"timed h2o-danube launches {timed['launches']}",
+    )
+    out["timed"] = {
+        "batch": SWA_TIMED_B,
+        "seq": S,
+        "step_s": timed["step_s"],
+        "step_s_median": step_s,
+        "tokens_per_s": SWA_TIMED_B * S / step_s,
+        "model_flops_per_step": flops,
+        "model_flops_share": flops / step_s / BF16_OPS_PER_S,
+        "peak_memory_gb": timed["peak_memory_gb"],
+        "launches": timed["launches"],
+        "losses": [m["loss"] for m in timed["metrics"]],
+        "window_pairs_per_sequence": _window_pairs(S, cfg.sliding_window),
+        "causal_pairs_per_sequence": S * (S + 1) // 2,
+    }
+    emit("train_swa", **out)
+    return out
+
+
+def _train_timing_swa(swa: dict, errs: dict) -> list:
+    """Timing rows of the training forward with its log-sum-exp (row 4tw) and
+    of the backward (row 5w) at h2o-danube's timed shape, B 2 x S 8192, 32
+    heads over 8 groups at 80, window 4096: against their plain versions and
+    SDPA with the window as ``attn_mask`` (K/V repeated per query head);
+    bounds over the window's live (query, key) pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_mask,
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16, rows = torch.bfloat16, []
+    B, S, H, G, D, w = SWA_TIMED_B, SWA_TRAIN_S, 32, 8, 80, 4096
+    case, launches = "h2o_B2_S8192_window4096", swa["timed"]["launches"]
+    q, dout = (_cuda_randn(gen, (B, S, H, D), bf16) for _ in range(2))
+    k, v = (_cuda_randn(gen, (B, S, G, D), bf16) for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v, window=w)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (
+        t.transpose(1, 2).repeat_interleave(H // G, dim=1).contiguous().requires_grad_(True)
+        for t in (k, v)
+    )
+    amask = attention_mask(S, S, causal=True, window=w, device="cuda")
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+    dot = dout.transpose(1, 2).contiguous()
+    check(_rel_err(o.detach().transpose(1, 2), out) <= 2e-2, "SDPA windowed forward yardstick")
+    pairs = B * H * _window_pairs(S, w)
+    fwd = {
+        "kernel": lambda: flash_attention_fwd(q, k, v, window=w),
+        "plain": lambda: flash_attention_fwd_ref(q, k, v, window=w),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask),
+    }
+    row = _timing_row(
+        "flash_attention",
+        fwd,
+        10,
+        2 * B * S * (H + 2 * G) * D + 2 * B * S * H * D + 4 * B * H * S,
+        4 * D * pairs,
+        launches["flash_attention"],
+        errs["fwd"][case],
+        "F.scaled_dot_product_attention with the window as attn_mask (K/V repeated per head)",
+        shape=dict(B=B, S=S, H=H, G=G, D=D, causal=True, window=w, lse=True),
+        path="h2o-danube-1.8b-train",
+        queued=True,
+    )
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    rows.append(row)
+    bwd = {
+        "kernel": lambda: flash_attention_bwd(q, k, v, out, lse, dout, window=w),
+        "plain": lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout, window=w),
+        "library": lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+    }
+    row = _timing_row(
+        "flash_attention_bwd",
+        bwd,
+        10,
+        2 * B * S * (2 * H + 2 * G) * D * 2 + 4 * B * H * S,
+        10 * D * pairs,
+        launches["flash_attention_bwd"],
+        errs["bwd"][case],
+        "torch.autograd.grad of F.scaled_dot_product_attention with the window as attn_mask",
+        shape=dict(B=B, S=S, H=H, G=G, D=D, causal=True, window=w),
+        path="h2o-danube-1.8b-train",
+        queued=True,
+    )
+    row["tflops_7_products"] = 14 * D * pairs / (row["ms"] * 1e-3) / 1e12
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    rows.append(row)
+    del q, k, v, dout, out, lse, qt, kt, vt, o, dot, amask
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _train_timing(main: dict, moe: dict, dense3b: dict, errs: dict) -> list:
@@ -3422,7 +3978,11 @@ def phase_training() -> list:
     t3b = time.perf_counter()
     dense3b = _train_3b()
     emit("train_3b_seconds", seconds=time.perf_counter() - t3b)
+    tswa = time.perf_counter()
+    swa = _train_swa()
+    emit("train_swa_seconds", seconds=time.perf_counter() - tswa)
     rows = _train_timing(main, moe, dense3b, errs) + _train_timing_mla(mla, errs)
+    rows += _train_timing_swa(swa, errs)
     emit("training", seconds=time.perf_counter() - t0)
     return rows
 
@@ -3473,6 +4033,7 @@ def main() -> int:
         emit(serving["phase"] + "_seconds", seconds=time.perf_counter() - t0)
         del serving
         torch.cuda.empty_cache()
+    rows += phase_serving_swa_ssm(llm_errs)
     rows += phase_training()
     torch.cuda.empty_cache()
     # the scale path last: its profiled windows hold ~10^5 kernel records each

@@ -3,9 +3,9 @@ reference's ``analysis/costs.py``, with an H100's rates in place of the
 TPU's.
 
 The counts are the reference's, rule for rule, for the stacks the port runs
-(uniform GQA or MLA attention on every layer, dense or MoE;
-``configs.base.check_supported`` refuses the rest, so the reference's SSM
-and encoder-decoder terms have no counterpart here):
+(uniform GQA or MLA attention on every layer, dense or MoE, and uniform SSM
+stacks; ``configs.base.check_supported`` refuses the rest, so the
+reference's encoder-decoder terms have no counterpart here):
   * a matrix product [.., m, k] x [k, n] is 2 m k n FLOPs; elementwise work
     is not counted (under 1 %);
   * attention's scores and P V count the rectangle they visit: S T, or
@@ -17,6 +17,12 @@ and encoder-decoder terms have no counterpart here):
     absorbed decode counts the latent-space products instead;
   * MoE counts the capacity buffer computed, E C slots per sequence
     (``models.moe.expert_capacity``), padding included;
+  * an SSM layer counts its projections, conv taps and SSD: per chunk the
+    C B^T and M x products, the chunk states and the inter-chunk readout
+    (prefill, training), or the state update and readout (decode); its
+    cache holds the float32 state and a conv window per sequence, whatever
+    the context (a sliding window does not shorten the reference's count:
+    it counts ``cache_len`` rows);
   * a training step is 3 forwards (4 with ``remat="full"``).
 
 ``model_flops`` is the 6 N D yardstick (2 N D for inference) over the
@@ -66,6 +72,22 @@ def _mla_flops(cfg: ModelConfig, B, S, T, *, decode_absorbed=False, triangular=F
     return f
 
 
+def _ssm_flops(cfg: ModelConfig, B, S, *, decode=False) -> float:
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, h, ph = cfg.ssm_num_groups, cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
+    f = 2 * B * S * d * (2 * di + 2 * g * n + h)  # z, x, B, C, dt projections
+    f += 2 * B * S * di * d  # output projection
+    f += 2 * B * S * (di + 2 * g * n) * cfg.ssm_conv_width
+    if decode:
+        f += 2 * B * S * h * ph * n * 2  # state update and readout
+    else:
+        chunk = min(cfg.ssm_chunk, S)
+        f += 2 * B * S * chunk * g * n  # G = C B^T per chunk
+        f += 2 * B * S * chunk * h * ph  # M x
+        f += 2 * 2 * B * S * h * ph * n  # chunk states and y_inter
+    return f
+
+
 def _moe_flops(cfg: ModelConfig, B, S) -> float:
     d = cfg.d_model
     fe = cfg.moe_d_ff or cfg.d_ff
@@ -96,7 +118,9 @@ def forward_flops(
     check_supported(cfg)
     decode = kind == "decode"
     T = cache_len if decode else S
-    if cfg.use_mla:
+    if cfg.family == "ssm":
+        attn = _ssm_flops(cfg, B, S, decode=decode)
+    elif cfg.use_mla:
         attn = _mla_flops(
             cfg, B, S, T, triangular=triangular, decode_absorbed=mla_absorbed and decode
         )
@@ -188,15 +212,23 @@ def hbm_bytes_per_device(
 def cache_bytes_per_device(
     cfg: ModelConfig, shape: ShapeConfig, *, chips: int, tp: int = 16, cache_len: int = 0
 ) -> float:
-    """bf16 KV cache bytes per device: K and V per layer, or MLA's latent row."""
+    """bf16 KV cache bytes per device: K and V per layer, or MLA's latent
+    row; an SSM layer's float32 state and bf16 conv window per sequence
+    (the reference counts three conv rows)."""
     check_supported(cfg)
     T = cache_len or shape.seq_len
     dp = max(chips // tp, 1)
-    if cfg.use_mla:
+    per_seq = 0
+    if cfg.family == "ssm":
+        state = cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state_dim * 4
+        per_seq = cfg.num_layers * (state + cfg.ssm_conv_dim * 3 * 2)
+        per_layer = 0
+    elif cfg.use_mla:
         per_layer = cfg.latent_dim * 2
     else:
         per_layer = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
-    return shape.global_batch * T * cfg.num_layers * per_layer / min(chips, dp * tp)
+    total = shape.global_batch * (T * cfg.num_layers * per_layer + per_seq)
+    return total / min(chips, dp * tp)
 
 
 def roofline_terms(

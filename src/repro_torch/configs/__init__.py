@@ -16,6 +16,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
 }
 
 

@@ -109,56 +109,75 @@ class ModelConfig:
         (0 without MLA): what the cache stores per layer."""
         return self.kv_lora_rank + self.qk_rope_dim if self.use_mla else 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state_dim else 0
+
+    @property
+    def ssm_conv_dim(self) -> int:
+        """Channels of the SSM's causal conv: x, then B, then C."""
+        return self.d_inner + 2 * self.ssm_num_groups * self.ssm_state_dim
+
     def num_params(self) -> int:
         """The reference's analytic parameter count, for the uniform stacks
         the port runs (it counts one scale vector per norm, no QK-norm
-        scales and no MLA ``kv_norm``)."""
+        scales and no MLA ``kv_norm``; an SSM layer's projections, conv
+        taps, ``A_log``, ``D``, ``dt_bias``, gated norm and ``out_proj``; one
+        vocabulary matrix where the embeddings are tied)."""
         check_supported(self)
         d, V, hd = self.d_model, self.padded_vocab, self.resolved_head_dim
         h = self.num_heads
-        if self.use_mla:
+        if self.family == "ssm":
+            di, gn, hs = self.d_inner, self.ssm_num_groups * self.ssm_state_dim, self.ssm_num_heads
+            mixer = d * (2 * di + 2 * gn + hs) + self.ssm_conv_dim * self.ssm_conv_width
+            mixer += 3 * hs + di + di * d
+        elif self.use_mla:
             dn, dr, dv, r = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim, self.kv_lora_rank
-            attn = d * h * (dn + dr) + d * (r + dr) + r * h * (dn + dv) + h * dv * d
+            mixer = d * h * (dn + dr) + d * (r + dr) + r * h * (dn + dv) + h * dv * d
         else:
-            attn = d * h * hd * 2 + 2 * d * self.num_kv_heads * hd
+            mixer = d * h * hd * 2 + 2 * d * self.num_kv_heads * hd
         if self.is_moe_layer(0):
             f = self.moe_d_ff or self.d_ff
             ffn = self.moe_num_experts * 3 * d * f + d * self.moe_num_experts
             ffn += 3 * d * self.moe_num_shared * f
         else:
             ffn = (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
-        return 2 * V * d + self.num_layers * (attn + ffn + 2 * d)
+        vocab = (1 if self.tie_embeddings else 2) * V * d
+        return vocab + self.num_layers * (mixer + ffn + 2 * d)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet: it
     carries uniform stacks of GQA or MLA attention, dense or with an MoE FFN
-    on every layer, with or without QK-norm (ROADMAP Queue 1 lists the rest
-    under "the remaining model families", with the slice that brings each).
-    What it runs it also trains: GQA and MLA, dense or MoE.  Family ``vlm``
+    on every layer, with or without QK-norm and sliding windows, and
+    uniform SSM stacks (family ``ssm``: mamba2), with tied or separate
+    embeddings (ROADMAP Queue 1 lists the rest under "the remaining model
+    families", with the slice that brings each).  The attention stacks also
+    train; an SSM stack serves, and its training comes with the hybrid
+    stacks (``models.model.forward_train`` refuses it).  Family ``vlm``
     (chameleon-34b) runs as a dense stack: the reference's model code
     branches only on ``ssm`` and ``hybrid`` and never reads ``frontend``, so
     its VQ front end is the embedding table and nothing more."""
     later = []
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
         later.append(f"family {cfg.family!r}")
     if cfg.use_mla and cfg.q_lora_rank:
         later.append("MLA with query compression")
     if cfg.moe_num_experts and cfg.moe_layer_period != 1:
         later.append("MoE on every k-th layer")
-    if cfg.ssm_state_dim or cfg.attn_layer_period:
-        later.append("SSM / hybrid stacks")
+    if cfg.attn_layer_period or (cfg.ssm_state_dim and cfg.family != "ssm"):
+        later.append("hybrid stacks")
     if cfg.is_encoder_decoder:
         later.append("encoder-decoder")
-    if cfg.sliding_window > 0:
-        later.append("sliding-window attention")
-    if cfg.tie_embeddings:
-        later.append("tied embeddings")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet; the port runs uniform GQA or "
-            "MLA stacks (dense or MoE), and the later slices of ROADMAP Queue 1 (the "
-            "remaining model families) bring the rest"
+            "MLA stacks (dense or MoE) and uniform SSM stacks, and the later slices of "
+            "ROADMAP Queue 1 (the remaining model families) bring the rest"
         )
 
 
@@ -258,5 +277,9 @@ def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         changes.update(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16, head_dim=0)
     if cfg.moe_num_experts:
         changes.update(moe_num_experts=4, moe_top_k=min(2, cfg.moe_top_k), moe_d_ff=64)
+    if cfg.ssm_state_dim:
+        changes.update(ssm_state_dim=16, ssm_head_dim=16, ssm_chunk=32)
+    if cfg.sliding_window:
+        changes["sliding_window"] = 16
     changes.update(overrides)
     return dataclasses.replace(cfg, **changes)

@@ -98,7 +98,11 @@ def model_from_reference(
     ``ws_up [d, n f]``, ``ws_down [n f, d]``; QK-norm's ``q_norm``/``k_norm
     [k]``; an MLA layer's ``attn`` leaves ``wq [d, h, dn + dr]``, ``w_dkv
     [d, r]``, ``w_kpe [d, dr]``, ``kv_norm [r]``, ``w_uk [r, h, dn]``,
-    ``w_uv [r, h, dv]``, ``wo [h, dv, d]``).
+    ``w_uv [r, h, dv]``, ``wo [h, dv, d]``; an SSM layer's ``mixer_norm``
+    and ``ssm`` leaves ``w_z``/``w_x [d, d_inner]``, ``w_B``/``w_C [d, g n]``,
+    ``w_dt [d, h]``, ``conv_x``/``conv_B``/``conv_C [W, ...]``, ``A_log``,
+    ``D``, ``dt_bias [h]``, ``norm [d_inner]``, ``out_proj [d_inner, d]``).
+    A config that ties its embeddings (mamba2) has no ``lm_head`` leaf.
     Weight matrices are cast to ``compute_dtype`` once here; norm scales and
     biases stay float32.  ``device`` defaults to CUDA."""
     model = empty_model(

@@ -6,14 +6,21 @@
 // heads of the group attend to the tokens 0 .. lengths[b]-1 that the block
 // table places in the pool: token t lies in pool block block_table[b, t / bs],
 // row t % bs.  A token whose table entry is -1 is masked, as in the reference.
-// A request with no valid token gets 0.
+// A request with no valid token gets 0.  With a sliding window (window > 0,
+// h2o-danube) request b attends to tokens start_b .. lengths[b]-1 only,
+// start_b = max(0, lengths[b] - window): the reference's mask q - t < window
+// at q = lengths[b] - 1 (src/repro/models/attention.py:64-74).  The TPU
+// kernel has no window, because the reference rolls a window-sized cache;
+// the port keeps every block of a request in the pool, so the kernel masks.
 //
 // Design (flash-decoding).  The Pallas grid (B, blocks) walks one request's
 // blocks in order and carries the online softmax in VMEM, one launch per KV
 // group.  Here the KV length is split instead: `paged_split` runs one CTA per
 // (group, request, split), each split a fixed span of `bps` pool blocks, so a
 // batch of long requests fills the card.  A CTA whose span starts at or past
-// the request's length exits at once.  Inside a CTA every token row of K and
+// the request's length, or ends at or before its window's start, exits at
+// once; the CTA whose span holds the window's start masks the rows below it
+// and skips its whole batches there.  Inside a CTA every token row of K and
 // V is read as 16-byte vectors, LPR lanes to a row (`RowLanes`: the next power
 // of two of a row's pieces, so a row's shuffles stay within its lanes; at D =
 // 80 a 160-byte bf16 row is 10 pieces on 16 lanes, a float32 row 20 on 32,
@@ -30,8 +37,9 @@
 // 64, 80 and 128.  Each
 // (request, head, split) writes a float32 partial (max, sum, acc[D]) to
 // scratch that the wrapper allocates.  `paged_merge`, the second kernel,
-// combines the live splits of each (request, head) in split order: no float
-// atomics, so the output is the same bit for bit from run to run.  The pool may
+// combines the live splits of each (request, head) in split order, from the
+// split that holds the window's start (the splits before it write no
+// partial): no float atomics, so the output is the same bit for bit from run to run.  The pool may
 // be a strided view (one layer's K or V of the engine's all-layer pool): blocks
 // and rows are addressed by their strides, heads and dims are contiguous.
 //
@@ -155,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
                 const int32_t* __restrict__ table, const int32_t* __restrict__ lengths,
                 float* __restrict__ part_acc, float* __restrict__ part_ms, int H, int m, int mb,
                 int bs, int bps, int nsplit, long long blk_stride, long long row_stride,
-                float scale) {
+                float scale, int window) {
   constexpr int VEC = Vec<T>::N;
   using RL = RowLanes<T, D>;
   constexpr int LPR = RL::kLanes;         // lanes per token row
@@ -186,8 +194,12 @@ __global__ void __launch_bounds__(kThreads)
   };
   load_blocks(0);
   const int len = min(max(lengths[b], 0), mb * bs);
-  if (t0 >= len) return;  // the merge reads live splits only
+  const int start = window > 0 ? max(len - window, 0) : 0;  // first token in the window
+  if (t0 >= len || t0 + span <= start) return;  // the merge reads live splits only
   const int n = min(span, len - t0);
+  const int lo = max(start - t0, 0);  // rows below lo lie before the window
+  const int r_begin = lo / ROWS * ROWS;  // whole batches before it are skipped
+  if (r_begin) load_blocks(r_begin);
   float* sc = smem;                      // [M][ROWS]
   float* wacc = smem + M * ROWS;         // [kWarps][M][D]
   float* stat = wacc + kWarps * M * D;   // [M][3]: running max, running sum, rescale
@@ -213,14 +225,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   const long long piece = static_cast<long long>(g) * D + c * VEC;
 
-  for (int r0 = 0; r0 < n; r0 += ROWS) {
-    long long off[kUnroll];  // -1: a row past n or in a -1 block
+  for (int r0 = r_begin; r0 < n; r0 += ROWS) {
+    long long off[kUnroll];  // -1: a row past n, before the window or in a -1 block
     uint4 kraw[kUnroll], vraw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int r = r0 + u * RPP + slot;
       const int t = t0 + r;
-      off[u] = r < n && blk[u] >= 0 ? blk[u] * blk_stride + (t % bs) * row_stride + piece : -1;
+      off[u] = r < n && r >= lo && blk[u] >= 0
+                   ? blk[u] * blk_stride + (t % bs) * row_stride + piece
+                   : -1;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -247,7 +261,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // one max pass and one exp pass per head over the batch
+    // one max pass and one exp pass per head over the batch (rows before the
+    // window hold -inf)
     const int nrows = min(ROWS, n - r0);
     for (int h = warp; h < m; h += kWarps) {
       float* row = sc + h * ROWS;
@@ -325,14 +340,16 @@ __global__ void __launch_bounds__(kThreads)
 
 // out[b, h, :] from the live splits of (b, h), in split order: one CTA of D
 // threads per (b, h); the splits' (max, sum) are staged in shared memory, and
-// each thread loads its dim of the first kMergeChunk splits' accumulators
-// before it waits for them.
+// each thread loads its dim of the first kMergeChunk live splits'
+// accumulators before it waits for them.  The live splits run from the one
+// that holds the window's start (split 0 without a window) to the one that
+// holds the request's last token.
 constexpr int kMergeChunk = 16;
 
 template <typename T>
 __global__ void paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_ms,
                             const int32_t* __restrict__ lengths, T* __restrict__ out, int H, int D,
-                            int nsplit, int span, int max_len) {
+                            int nsplit, int span, int max_len, int window) {
   extern __shared__ float smem[];  // [nsplit] max, then [nsplit] sum
   float* s_max = smem;
   float* s_sum = smem + nsplit;
@@ -340,29 +357,31 @@ __global__ void paged_merge(const float* __restrict__ part_acc, const float* __r
   const int b = bh / H;
   const int d = threadIdx.x;
   const int len = min(max(lengths[b], 0), max_len);
+  const int first = window > 0 ? max(len - window, 0) / span : 0;
   const int live = (len + span - 1) / span;
   const float* ms = part_ms + bh * nsplit * 2;
   const float* acc = part_acc + bh * nsplit * D + d;
-  float a[kMergeChunk];
+  float a[kMergeChunk];  // a[u]: split first + u
 #pragma unroll
-  for (int u = 0; u < kMergeChunk; ++u) a[u] = u < live ? acc[static_cast<long long>(u) * D] : 0.f;
-  for (int sp = d; sp < live; sp += blockDim.x) {
+  for (int u = 0; u < kMergeChunk; ++u)
+    a[u] = first + u < live ? acc[static_cast<long long>(first + u) * D] : 0.f;
+  for (int sp = first + d; sp < live; sp += blockDim.x) {
     const float sum = ms[2 * sp + 1];
     s_max[sp] = sum > 0.f ? ms[2 * sp] : -INFINITY;
     s_sum[sp] = sum;
   }
   __syncthreads();
   float big = -INFINITY;
-  for (int sp = 0; sp < live; ++sp) big = fmaxf(big, s_max[sp]);
+  for (int sp = first; sp < live; ++sp) big = fmaxf(big, s_max[sp]);
   float total = 0.f, o = 0.f;
-  for (int sp = 0; sp < live; ++sp) {  // in split order
+  for (int sp = first; sp < live; ++sp) {  // in split order
     if (!(s_sum[sp] > 0.f)) continue;
     const float w = expf(s_max[sp] - big);
     float x = 0.f;
 #pragma unroll
     for (int u = 0; u < kMergeChunk; ++u)
-      if (u == sp) x = a[u];
-    if (sp >= kMergeChunk) x = acc[static_cast<long long>(sp) * D];
+      if (first + u == sp) x = a[u];
+    if (sp >= first + kMergeChunk) x = acc[static_cast<long long>(sp) * D];
     total += s_sum[sp] * w;
     o += x * w;
   }
@@ -373,14 +392,14 @@ template <typename T, int D, int M>
 int launch_split(const void* q, const void* k, const void* v, const void* table,
                  const void* lengths, float* part_acc, float* part_ms, int B, int H, int G, int mb,
                  int bs, int bps, long long blk_stride, long long row_stride, float scale,
-                 cudaStream_t stream) {
+                 int window, cudaStream_t stream) {
   constexpr int kRowsPerBatch = RowLanes<T, D>::kRowsPerBatch;
   const int nsplit = (mb + bps - 1) / bps;
   const size_t smem = (M * kRowsPerBatch + kWarps * M * D + 3 * M) * sizeof(float);
   paged_split<T, D, M><<<dim3(G, B, nsplit), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lengths), part_acc, part_ms,
-      H, H / G, mb, bs, bps, nsplit, blk_stride, row_stride, scale);
+      H, H / G, mb, bs, bps, nsplit, blk_stride, row_stride, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -389,11 +408,11 @@ template <typename T, int D>
 int dispatch_heads(const void* q, const void* k, const void* v, const void* table,
                    const void* lengths, float* part_acc, float* part_ms, int B, int H, int G,
                    int mb, int bs, int bps, long long blk_stride, long long row_stride,
-                   float scale, cudaStream_t s) {
+                   float scale, int window, cudaStream_t s) {
   const int m = H / G;
 #define PAGED_LAUNCH(M)                                                                         \
   return launch_split<T, D, M>(q, k, v, table, lengths, part_acc, part_ms, B, H, G, mb, bs, bps, \
-                               blk_stride, row_stride, scale, s)
+                               blk_stride, row_stride, scale, window, s)
   if (m == 1) PAGED_LAUNCH(1);
   if (m == 2) PAGED_LAUNCH(2);
   if (m <= 4) PAGED_LAUNCH(4);
@@ -405,10 +424,10 @@ template <typename T>
 int dispatch_split(int D, const void* q, const void* k, const void* v, const void* table,
                    const void* lengths, float* part_acc, float* part_ms, int B, int H, int G,
                    int mb, int bs, int bps, long long blk_stride, long long row_stride,
-                   float scale, cudaStream_t s) {
+                   float scale, int window, cudaStream_t s) {
 #define PAGED_DIM(D)                                                                          \
   return dispatch_heads<T, D>(q, k, v, table, lengths, part_acc, part_ms, B, H, G, mb, bs, bps, \
-                              blk_stride, row_stride, scale, s)
+                              blk_stride, row_stride, scale, window, s)
   switch (D) {
     case 16:
       PAGED_DIM(16);
@@ -1044,23 +1063,23 @@ int launch_latent_bf16(const void* q, const void* kv, const void* table, const v
 // The split pass.  dtype: 0 = float32, 1 = bfloat16.  q [B, H, D] contiguous;
 // k/v element (blk, row, g, d) at blk * blk_stride + row * row_stride + g * D + d;
 // part_acc [B, H, nsplit, D] and part_ms [B, H, nsplit, 2] float32 scratch,
-// nsplit = ceil(mb / bps).
+// nsplit = ceil(mb / bps); window 0 (none) or the tokens a request attends to.
 extern "C" int paged_attention_split(const void* q, const void* k, const void* v,
                                      const void* table, const void* lengths, void* part_acc,
                                      void* part_ms, int B, int H, int G, int D, int mb, int bs,
                                      int bps, long long blk_stride, long long row_stride,
-                                     float scale, int dtype, void* stream) {
+                                     float scale, int window, int dtype, void* stream) {
   if (B == 0 || mb == 0) return 0;
-  if (G <= 0 || H % G != 0 || H / G > kMaxHeads || bps <= 0 || bs <= 0)
+  if (G <= 0 || H % G != 0 || H / G > kMaxHeads || bps <= 0 || bs <= 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* acc = static_cast<float*>(part_acc);
   auto* ms = static_cast<float*>(part_ms);
   if (dtype == 1)
     return dispatch_split<__nv_bfloat16>(D, q, k, v, table, lengths, acc, ms, B, H, G, mb, bs, bps,
-                                         blk_stride, row_stride, scale, s);
+                                         blk_stride, row_stride, scale, window, s);
   return dispatch_split<float>(D, q, k, v, table, lengths, acc, ms, B, H, G, mb, bs, bps,
-                               blk_stride, row_stride, scale, s);
+                               blk_stride, row_stride, scale, window, s);
 }
 
 // MLA's latent call in bf16, one launch: q [B, 16, 576] contiguous; kv
@@ -1111,12 +1130,12 @@ extern "C" int paged_attention_latent_marks(void* buf) {
 }
 #endif
 
-// The merge pass: out [B, H, D] in q's dtype.
+// The merge pass: out [B, H, D] in q's dtype; window as the split pass's.
 extern "C" int paged_attention_merge(const void* part_acc, const void* part_ms,
                                      const void* lengths, void* out, int B, int H, int D, int mb,
-                                     int bs, int bps, int dtype, void* stream) {
+                                     int bs, int bps, int window, int dtype, void* stream) {
   if (B == 0) return 0;
-  if (bps <= 0 || bs <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bps <= 0 || bs <= 0 || window < 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const int nsplit = (mb + bps - 1) / bps;
   const size_t smem = 2 * static_cast<size_t>(nsplit) * sizeof(float);
@@ -1126,9 +1145,9 @@ extern "C" int paged_attention_merge(const void* part_acc, const void* part_ms,
   const auto* len = static_cast<const int32_t*>(lengths);
   if (dtype == 1)
     paged_merge<<<blocks, D, smem, s>>>(acc, ms, len, static_cast<__nv_bfloat16*>(out), H, D,
-                                        nsplit, bps * bs, mb * bs);
+                                        nsplit, bps * bs, mb * bs, window);
   else
     paged_merge<<<blocks, D, smem, s>>>(acc, ms, len, static_cast<float*>(out), H, D, nsplit,
-                                        bps * bs, mb * bs);
+                                        bps * bs, mb * bs, window);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,13 @@ comes from the block table's width, so the wrapper reads no device tensor on
 the host.  On CPU tensors it runs the plain version (``ref.py``).  There is
 no fallback between the two.
 
+``window > 0`` (h2o-danube's sliding window) makes request ``b`` attend to
+its tokens ``max(0, lengths[b] - window) .. lengths[b] - 1``: the splits
+wholly before that start exit at once and write no partial, the one that
+holds it masks the rows below it, and the merge starts at that split.  The
+launches stay one split and one merge a call.  The latent call takes no
+window (MLA's configs have none) and refuses one.
+
 MLA's absorbed decode (deepseek-v2) makes a call of its own shape
 (``LATENT``): one KV group of 16 query heads, K the layer's latent rows of
 576 and V the first 512 columns of the same rows, passed as a view of K's
@@ -61,7 +68,7 @@ def _kernel_fns():
         lib = _build.load("paged_attention")
         split = lib.paged_attention_split
         split.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
-        split.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        split.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         latent = lib.paged_attention_latent
         latent.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
         latent.argtypes += [ctypes.c_float, ctypes.c_void_p]
@@ -69,7 +76,7 @@ def _kernel_fns():
         latent_split.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
         latent_split.argtypes += [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]
         merge = lib.paged_attention_merge
-        merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         for fn in (split, latent, latent_split, merge):
             fn.restype = ctypes.c_int
         _fns.update(split=split, latent=latent, latent_split=latent_split, merge=merge)
@@ -174,15 +181,24 @@ def paged_attention(
     lengths: torch.Tensor,
     *,
     scale=None,
+    window: int = 0,
 ) -> torch.Tensor:
     """q ``[B, H, D]``; k pool ``[NB, bs, G, D]``, v pool ``[NB, bs, G, Dv]``
     (strided views allowed, ``[G, D]`` contiguous; ``Dv == D``, or the
     latent call, ``LATENT``, with V a view of K's first columns);
-    block_table ``[B, mb]`` int32 (-1 = unused); lengths ``[B]`` int32.
+    block_table ``[B, mb]`` int32 (-1 = unused); lengths ``[B]`` int32;
+    ``window`` 0 (none) or the most recent tokens a request attends to.
     Returns ``[B, H, Dv]`` in q's dtype; ``scale`` defaults to ``D ** -0.5``."""
+    window = int(window)
+    if window < 0 or window >= 2**31:
+        raise ValueError(f"window must be 0 (none) or a positive token count; got {window}")
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, block_table, lengths, scale=scale)
+        return paged_attention_ref(
+            q, k_pool, v_pool, block_table, lengths, scale=scale, window=window
+        )
     latent = v_pool.dim() == 4 and v_pool.shape[3] != q.shape[-1]
+    if latent and window:
+        raise ValueError("the latent call takes no window (MLA's configs have none)")
     if latent:
         _check_latent(q, k_pool, v_pool, block_table, lengths)
     else:
@@ -240,6 +256,7 @@ def paged_attention(
             bs,
             bps,
             *tail,
+            window,
             _DTYPES[q.dtype],
             stream,
         )
@@ -248,7 +265,18 @@ def paged_attention(
             raise RuntimeError(f"paged_attention split kernel launch failed: cudaError_t {err}")
         LAUNCHES["paged_attention"] += 1
     err = fns["merge"](
-        *parts, lengths.data_ptr(), out.data_ptr(), B, H, Dv, mb, bs, bps, _DTYPES[q.dtype], stream
+        *parts,
+        lengths.data_ptr(),
+        out.data_ptr(),
+        B,
+        H,
+        Dv,
+        mb,
+        bs,
+        bps,
+        window,
+        _DTYPES[q.dtype],
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_attention merge kernel launch failed: cudaError_t {err}")

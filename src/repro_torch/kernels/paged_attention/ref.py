@@ -5,7 +5,10 @@ The contract shared with the CUDA kernel (``csrc/paged_attention.cu``): the
 ``g`` attends to the tokens ``t < lengths[b]`` whose block
 ``block_table[b, t // bs]`` is not -1, reading token ``t`` of K and V at pool
 block ``block_table[b, t // bs]``, row ``t % bs``, group ``g``.  Softmax in
-float32; a request with no valid token gets 0.  V may be narrower than K:
+float32; a request with no valid token gets 0.  With ``window > 0`` only
+the tokens ``t >= lengths[b] - window`` are valid besides (h2o-danube's
+sliding window: the reference's ``q - t < window`` at ``q = lengths[b] - 1``).
+V may be narrower than K:
 MLA's latent call passes the latent rows of 576 as K and their first 512
 columns as V.  (The reference's
 ``paged_attention_ref`` returns the mean of V over pool block 0 there, a
@@ -30,10 +33,12 @@ def paged_attention_ref(
     lengths: torch.Tensor,
     *,
     scale=None,
+    window: int = 0,
 ) -> torch.Tensor:
     """q ``[B, H, D]``; k pool ``[NB, bs, G, D]``, v pool ``[NB, bs, G, Dv]``
     (views allowed); block_table ``[B, mb]`` int32 (-1 = unused); lengths
-    ``[B]``.  Returns ``[B, H, Dv]``."""
+    ``[B]``; ``window`` 0 (none) or the most recent tokens each request
+    attends to.  Returns ``[B, H, Dv]``."""
     B, H, D = q.shape
     NB, bs, G, _ = k_pool.shape
     Dv = v_pool.shape[3]
@@ -46,6 +51,8 @@ def paged_attention_ref(
     valid = (tok[None, :] < lengths[:, None].long()) & (block_table >= 0).repeat_interleave(
         bs, dim=1
     )
+    if window:  # from the window's start; a length past the table ends at it, as in the kernel
+        valid &= tok[None, :] >= lengths[:, None].long().clamp(max=mb * bs) - window
     qg = q.reshape(B, G, H // G, D).float()
     s = torch.einsum("bgmd,btgd->bgmt", qg, k) * scale
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
@@ -66,6 +73,7 @@ def paged_attention_split_ref(
     splits: int | None = None,
     stage_rows: int | None = None,
     scale=None,
+    window: int = 0,
 ) -> torch.Tensor:
     """The CUDA kernels' split-and-merge arithmetic in plain PyTorch (tests
     only).  Each request's tokens are cut into splits: of ``blocks_per_split``
@@ -73,8 +81,10 @@ def paged_attention_split_ref(
     ``splits`` chunks of ceil(length / splits) tokens (the bf16 latent
     kernel's cluster of CTAs).  Each split gives a float32 partial (max,
     sum, acc) per head, and the splits are merged in order against their
-    largest max.  Scores are float32 products of q and the rows as they are
-    stored, scaled after the product (the GQA kernel scales q first: a
+    largest max.  ``window`` masks the tokens before ``length - window``, as
+    the GQA kernel does: a split wholly before that start gives no partial.
+    Scores are float32 products of q and the rows as they are stored,
+    scaled after the product (the GQA kernel scales q first: a
     float32 rounding apart).  With ``stage_rows`` it also replays the latent
     kernels' stages: each split's rows in stages of that many, P taken
     against the running max after each stage and rounded to q's dtype (bf16:
@@ -82,6 +92,8 @@ def paged_attention_split_ref(
     softmax weights) before P V and before its sum.  Equals
     ``paged_attention_ref`` up to float32 rounding, and up to that rounding
     of P in bf16."""
+    if window and splits:
+        raise ValueError("the latent call's chunks take no window")
     B, H, D = q.shape
     NB, bs, G, _ = k_pool.shape
     Dv = v_pool.shape[3]
@@ -99,6 +111,8 @@ def paged_attention_split_ref(
         rows_k = k_pool[blk.clamp(min=0), tok % bs].float()  # [n, G, D]
         rows_v = v_pool[blk.clamp(min=0), tok % bs].float()
         valid = blk >= 0
+        if window:
+            valid &= tok >= n - window
         # rows of -1 blocks may hold anything
         rows_v = rows_v.masked_fill(~valid[:, None, None], 0.0)
         qg = q[b].reshape(G, m, D).float()

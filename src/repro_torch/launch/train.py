@@ -4,12 +4,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --steps 16
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --layers 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b --steps 16
 
 ``--smoke`` trains the reduced config; without it the full config trains on
 the one CUDA card (stablelm-1.6b: 1.64 B float32 parameters with their AdamW
 moments, 26.3 GB; stablelm-3b: 2.80 B, 44.8 GB), where the reference
 launcher refuses for lack of a TPU runtime.  ``--arch`` takes any of
-``repro_torch.configs.list_archs()``.  ``--layers N`` cuts the stack to its
+``repro_torch.configs.list_archs()`` but mamba2-1.3b, whose SSM training
+comes with the hybrid stacks (the training forward refuses it): h2o-danube-
+1.8b trains with its 4096-token sliding window (1.84 B parameters, 29.4 GB
+with AdamW's moments).  ``--layers N`` cuts the stack to its
 first N layers at full width: deepseek-v2-lite-16b's float32 parameters,
 gradients and AdamW moments take ~260 GB at its 27 layers, ~44 GB at 4;
 deepseek-7b's ~111 GB at 30 layers, chameleon-34b's ~549 GB at 48.  The loop

@@ -14,6 +14,15 @@ Two regimes, computing the reference's function in each (GQA here; MLA in
             block table (the reference: ``direct_attention`` over its dense
             cache).
 
+A sliding window (``cfg.sliding_window > 0``, h2o-danube) goes to every
+attention call: a query at position ``q`` sees keys ``t`` with ``q - t <
+window``, the reference's mask.  The reference's decode rolls a cache of
+``window`` slots (``slot = pos % window``) and its prefill of a prompt longer
+than the window attends over the whole prompt under the mask and keeps the
+last ``window`` rows; here the pool keeps every row of a request, and the
+paged kernel masks the rows before ``pos - window + 1`` itself, so both
+compute the reference's function over the same keys.
+
 K/V are stored in the KV dtype (bfloat16, as the reference's cache) and
 attention reads them back from there, so a float32 run rounds them exactly
 where the reference does.  ``impl="ref"`` calls the kernels' plain versions
@@ -150,18 +159,24 @@ class GQAAttention(torch.nn.Module):
         """x ``[B, S, d]``, positions ``[B, S]``; ``kv_out`` (``[B, S, 2, G, D]``
         or None) receives the fresh K/V in ``kv_dtype``."""
         q, k, v = self._qkv(x, positions)
-        k, v = k.to(kv_dtype), v.to(kv_dtype)
         if kv_out is not None:
             kv_out[:, :, 0] = k
             kv_out[:, :, 1] = v
+        window = self.cfg.sliding_window
+        if not (window and x.shape[1] > window):
+            # attention reads the K/V back as stored, as the reference reads its
+            # cache; its rolling prefill (a prompt past the window) attends over
+            # the fresh K/V in the compute dtype instead
+            k, v = k.to(kv_dtype).to(x.dtype), v.to(kv_dtype).to(x.dtype)
         flash = ATTENTION[impl][0]
-        return self._out(flash(q, k.to(x.dtype), v.to(x.dtype), causal=True))
+        return self._out(flash(q, k, v, causal=True, window=window))
 
     def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
-        """Causal self-attention over ``x [B, S, d]``, differentiable."""
+        """Causal (and windowed) self-attention over ``x [B, S, d]``, differentiable."""
         q, k, v = self._qkv(x, positions)
         flash = TRAIN_ATTENTION[impl]
-        return self._out(flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=True))
+        qkv = (q.contiguous(), k.contiguous(), v.contiguous())
+        return self._out(flash(*qkv, causal=True, window=self.cfg.sliding_window))
 
     def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str) -> torch.Tensor:
         """x ``[B, 1, d]``, positions ``[B, 1]``."""
@@ -176,6 +191,7 @@ class GQAAttention(torch.nn.Module):
             pool[:, :, layer, 1],
             cache.block_table,
             cache.lengths,
+            window=self.cfg.sliding_window,
         )
         return self._out(o[:, None])
 

@@ -1,10 +1,11 @@
 """Decoder stack of the port: the reference's ``models/model.py`` for
-uniform GQA or MLA architectures, dense or with an MoE FFN on every layer.
+uniform GQA or MLA architectures, dense or with an MoE FFN on every layer,
+with or without a sliding window, and for uniform SSM stacks (mamba2).
 
 Public API (each mirrors the reference's function of the same name):
   param_specs(cfg)                         -> ParamSpec tree (layers stacked [L, ...])
   init_params(cfg, seed, device=...)       -> Transformer with seeded random weights
-  prefill(model, tokens, kv_out)           -> logits [B, 1, Vp] of the last position
+  prefill(model, tokens, kv_out, ssm_out=None) -> logits [B, 1, Vp] of the last position
   decode_step(model, tokens, pos, cache, mla_absorbed=False) -> logits [B, 1, Vp]
   forward_train(model, tokens, remat_policy=...) -> (logits [B, S, Vp], aux)
 
@@ -18,8 +19,16 @@ reference's ``_ffn_layer_specs``; its ``aux`` loss is dropped (serving).
 An MLA config (``cfg.use_mla``, deepseek-v2) holds ``mla_specs`` under
 ``"attn"`` and stores one latent row per token and layer in the pool
 (``kv_row_shape``); it trains as GQA does, through ``MLAAttention.forward_train``.
-Families, SSM and sliding windows this slice does not carry raise
-``NotImplementedError`` (``configs.base.check_supported``).
+A sliding window (``cfg.sliding_window``, h2o-danube) reaches every
+attention call (``models.attention``).  An SSM stack (family ``ssm``) holds
+``mixer_norm`` and ``ssm`` per layer and no FFN, as the reference's
+``_uniform_layer_specs``; it keeps no KV rows (``kv_row_shape`` is ``(0,)``)
+and its state is an ``SSMCache`` (``models.ssm``) that ``prefill`` writes
+(``ssm_out``) and ``decode_step`` updates in place; its training comes with
+the hybrid stacks, and ``forward_train`` refuses it.  Tied embeddings
+(``cfg.tie_embeddings``, mamba2) keep no ``lm_head``: the logits are
+``x @ embed.T``, as the reference's ``_logits``.  The families the port does
+not carry yet raise ``NotImplementedError`` (``configs.base.check_supported``).
 
 Training takes a model built with ``param_dtype`` (float32, the reference's
 master parameters): every parameter is stored in that dtype with
@@ -57,32 +66,50 @@ from repro_torch.models.attention import (
 from repro_torch.models.layers import Norm, ParamSpec, init_leaf, iter_specs, leaf_seed, norm_spec
 from repro_torch.models.mlp import MLP, mlp_specs
 from repro_torch.models.moe import MoE, moe_specs
+from repro_torch.models.ssm import SSMBlock, SSMCache, init_ssm_cache, ssm_specs
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     check_supported(cfg)
     d, Vp = cfg.d_model, cfg.padded_vocab
-    layer = {
-        "attn_norm": norm_spec(cfg, d),
-        "attn": mla_specs(cfg) if cfg.use_mla else gqa_specs(cfg),
-        "ffn_norm": norm_spec(cfg, d),
-    }
-    if cfg.is_moe_layer(0):
-        layer["moe"] = moe_specs(cfg)
+    if cfg.family == "ssm":
+        layer = {"mixer_norm": norm_spec(cfg, d), "ssm": ssm_specs(cfg)}
     else:
-        layer["ffn"] = mlp_specs(cfg, cfg.d_ff)
-    return {
+        layer = {
+            "attn_norm": norm_spec(cfg, d),
+            "attn": mla_specs(cfg) if cfg.use_mla else gqa_specs(cfg),
+            "ffn_norm": norm_spec(cfg, d),
+        }
+        if cfg.is_moe_layer(0):
+            layer["moe"] = moe_specs(cfg)
+        else:
+            layer["ffn"] = mlp_specs(cfg, cfg.d_ff)
+    specs = {
         "embed": ParamSpec((Vp, d), ("vocab", "embed_table"), stddev=0.02),
         "final_norm": norm_spec(cfg, d),
-        "lm_head": ParamSpec((d, Vp), ("embed", "vocab"), init="fan_in"),
-        "layers": _stack(layer, cfg.num_layers),
     }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, Vp), ("embed", "vocab"), init="fan_in")
+    specs["layers"] = _stack(layer, cfg.num_layers)
+    return specs
 
 
 def _stack(tree: dict, n: int) -> dict:
     return {
         k: v.stacked(n) if isinstance(v, ParamSpec) else _stack(v, n) for k, v in tree.items()
     }
+
+
+class SSMLayer(torch.nn.Module):
+    """One layer of an SSM stack: ``x + ssm(mixer_norm(x))``, no FFN."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        self.mixer_norm = Norm(cfg, cfg.d_model)
+        self.ssm = SSMBlock(cfg, dtype)
+
+    def forward(self, x, cache: Optional[SSMCache] = None, *, decode: bool = False):
+        return x + self.ssm(self.mixer_norm(x), cache, decode=decode)
 
 
 class Block(torch.nn.Module):
@@ -142,8 +169,11 @@ class Transformer(torch.nn.Module):
         d, Vp = cfg.d_model, cfg.padded_vocab
         self.embed = torch.nn.Parameter(torch.empty(Vp, d, dtype=wdt), False)
         self.final_norm = Norm(cfg, d)
-        self.lm_head = torch.nn.Parameter(torch.empty(d, Vp, dtype=wdt), False)
-        self.layers = torch.nn.ModuleList(Block(cfg, wdt) for _ in range(cfg.num_layers))
+        self.lm_head = None  # tied: the logits read ``embed``
+        if not cfg.tie_embeddings:
+            self.lm_head = torch.nn.Parameter(torch.empty(d, Vp, dtype=wdt), False)
+        layer_cls = SSMLayer if cfg.family == "ssm" else Block
+        self.layers = torch.nn.ModuleList(layer_cls(cfg, wdt) for _ in range(cfg.num_layers))
         if param_dtype is not None:
             for p in self.parameters():
                 p.requires_grad_(True)
@@ -155,8 +185,11 @@ class Transformer(torch.nn.Module):
     def kv_row_shape(self) -> tuple:
         """How the engine views one token's pool row: ``(L, 2, G, D)``, every
         layer's K and V, for GQA; ``(L, kv_lora_rank + qk_rope_dim)``, every
-        layer's latent row, for MLA."""
+        layer's latent row, for MLA; ``(0,)`` for an SSM stack, which keeps
+        no KV rows."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return (0,)
         if cfg.use_mla:
             return (cfg.num_layers, cfg.latent_dim)
         return (cfg.num_layers, 2, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -206,7 +239,15 @@ class Transformer(torch.nn.Module):
         return self.embed[tokens.long()]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.final_norm(x) @ self.lm_head.to(x.dtype)
+        head = self.embed.T if self.lm_head is None else self.lm_head
+        return self.final_norm(x) @ head.to(x.dtype)
+
+    def init_ssm_cache(self, batch: int) -> SSMCache:
+        """A zero SSM state for ``batch`` sequences on the model's device:
+        float32 state, conv window in the KV dtype (bf16, the reference's)."""
+        return init_ssm_cache(
+            self.cfg, self.cfg.num_layers, batch, device=self.device, conv_dtype=self.kv_dtype
+        )
 
 
 def _param(module: torch.nn.Module, keys) -> torch.Tensor:
@@ -271,13 +312,23 @@ def init_params(
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor, kv_out=None) -> torch.Tensor:
+def prefill(
+    model: Transformer, tokens: torch.Tensor, kv_out=None, ssm_out: Optional[SSMCache] = None
+) -> torch.Tensor:
     """Run the prompt ``tokens [B, S]``.  ``kv_out`` (``[B, S, *kv_row_shape]``,
-    or None) receives every layer's fresh K/V (MLA: latent rows).  Returns
-    the last position's logits ``[B, 1, Vp]`` in the compute dtype."""
+    or None) receives every layer's fresh K/V (MLA: latent rows).  An SSM
+    stack starts from ``ssm_out``'s state (a zero state if None), as the
+    reference's prefill starts from its cache's, and writes its final state
+    and conv window there.  Returns the last position's logits ``[B, 1,
+    Vp]`` in the compute dtype."""
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = model._embed(tokens)
+    if model.cfg.family == "ssm":
+        cache = model.init_ssm_cache(B) if ssm_out is None else ssm_out
+        for layer, blk in enumerate(model.layers):
+            x = blk(x, SSMCache(cache.ssm[layer], cache.conv[layer]))
+        return model._logits(x[:, -1:])
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
     for layer, blk in enumerate(model.layers):
         kv = None if kv_out is None else kv_out[:, :, layer]
         x = x + blk.attn.prefill(
@@ -292,16 +343,22 @@ def decode_step(
     model: Transformer,
     tokens: torch.Tensor,
     pos: torch.Tensor,
-    cache: PagedKV,
+    cache,
     *,
     mla_absorbed: bool = False,
 ) -> torch.Tensor:
     """One token per sequence: tokens ``[B, 1]``, pos ``[B]`` absolute index.
-    Writes each active slot's K/V into the pool and returns ``[B, 1, Vp]``.
+    Writes each active slot's K/V into the pool (``cache``, a ``PagedKV``)
+    and returns ``[B, 1, Vp]``; an SSM stack takes an ``SSMCache`` of ``B``
+    sequences instead, updated in place (it reads no position).
     ``mla_absorbed`` picks MLA's decode form, as the reference's does
     (default: the non-absorbed form); GQA ignores it."""
-    positions = pos.reshape(-1, 1)
     x = model._embed(tokens)
+    if model.cfg.family == "ssm":
+        for layer, blk in enumerate(model.layers):
+            x = blk(x, SSMCache(cache.ssm[layer], cache.conv[layer]), decode=True)
+        return model._logits(x)
+    positions = pos.reshape(-1, 1)
     kw = {"absorbed": mla_absorbed} if model.cfg.use_mla else {}
     for layer, blk in enumerate(model.layers):
         x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl, **kw)
@@ -367,7 +424,13 @@ def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str
     """tokens ``[B, S]`` -> ``(logits [B, S, Vp]`` in the compute dtype,
     ``aux`` float32 scalar, the layers' summed MoE load-balancing loss``)``:
     the reference's ``forward_train`` for a decoder-only stack, with
-    gradients to every parameter of a training model."""
+    gradients to every parameter of a training model.  An SSM stack raises
+    ``NotImplementedError``: its training comes with the hybrid stacks."""
+    if model.cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{model.cfg.name}: training an SSM stack is not ported yet; ROADMAP Queue 1, "
+            "hybrid stacks (jamba-1.5-large-398b), brings it (the port serves SSM stacks)"
+        )
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_lookup(model.embed, tokens).to(model.compute_dtype)
@@ -382,6 +445,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str
 
 __all__ = [
     "PagedKV",
+    "SSMCache",
     "Transformer",
     "decode_step",
     "embed_lookup",

@@ -32,6 +32,17 @@ reads.
     at every step.  Both forms are the reference's and compute the same
     function; ``tests/test_torch_model_mla.py`` holds each to it.
 
+A sliding-window model (h2o-danube) keeps every block of a request in the
+pool, where the reference rolls a cache of ``window`` slots; the paged
+kernel masks the rows before ``pos - window + 1`` (``models.attention``), so
+the tokens are the reference's.  An SSM model (mamba2) keeps no KV rows: the
+engine holds each slot's SSM state and conv window (``models.ssm.SSMCache``,
+``[L, max_batch, ...]``) beside the pool, prefill at B = 1 writes the slot's
+state (from zero, as the reference's fresh cache) and each decode step
+updates every slot's in place; there is no ``banked_copy`` launch.  The pool
+still allocates and frees blocks per request whatever the family, as the
+reference's does, so the KV access record is the reference's.
+
 Tokens, slot assignment, block placement and step count equal the
 reference's.  Greedy argmax runs over the padded vocabulary, as there.
 ``params=None`` runs the engine traffic-only: the same control flow with no
@@ -123,8 +134,11 @@ class ServingEngine:
         self._next_rid = 0
         self.steps = 0
         self.stats = EngineStats()
-        self.kv = None
+        self.kv = self.ssm = None
         if params is None:  # traffic-only: no device store
+            return
+        if cfg.family == "ssm":  # per-slot recurrent state, no KV rows
+            self.ssm = params.init_ssm_cache(max_batch)
             return
         self.kv = torch.zeros(
             (nblocks, block_size, params.kv_width()), dtype=params.kv_dtype, device=params.device
@@ -178,15 +192,26 @@ class ServingEngine:
             return
         t0 = time.perf_counter()
         model, bs = self.params, self.block_size
+        tokens = self._device(r.prompt.astype(np.int64))[None]
+        if self.ssm is not None:
+            state = self.ssm.slot(slot)
+            state.ssm.zero_()
+            state.conv.zero_()
+            logits = M.prefill(model, tokens, ssm_out=state)
+            self._admitted(slot, r, logits, t0)
+            return
         nblk = -(-S // bs)
         burst = self.kv.new_zeros((1, nblk, bs, self.kv.shape[2]))
         kv_out = burst.view(1, nblk * bs, *self.kv_layers.shape[2:])[:, :S]
-        logits = M.prefill(model, self._device(r.prompt.astype(np.int64))[None], kv_out)
+        logits = M.prefill(model, tokens, kv_out)
         table = self._device(np.asarray([self.pool.by_request[r.rid][:nblk]], np.int32))
         BANKED_COPY[model.impl](self.kv, burst, table)
+        self._admitted(slot, r, logits, t0)
+
+    def _admitted(self, slot: int, r: Request, logits: torch.Tensor, t0: float) -> None:
         r.out_tokens.append(self._pick([r], logits[:, -1])[0])
         self.slot_req[slot] = r
-        self.slot_pos[slot] = S
+        self.slot_pos[slot] = len(r.prompt)
         self.stats.prefill_s += time.perf_counter() - t0
         self._record_prefill(slot, r)
 
@@ -199,6 +224,11 @@ class ServingEngine:
         slots' next tokens."""
         model, bs, B = self.params, self.block_size, self.max_batch
         toks = np.zeros((B, 1), np.int64)
+        if self.ssm is not None:  # every slot steps its state; idle slots read token 0
+            for i in active:
+                toks[i, 0] = self.slot_req[i].out_tokens[-1]
+            logits = M.decode_step(model, self._device(toks), None, self.ssm)  # no position
+            return self._pick([self.slot_req[i] for i in active], logits[active, 0])
         table = np.full((B, self.table_width), -1, np.int32)
         lengths = np.zeros(B, np.int32)
         write = np.zeros((3, len(active)), np.int64)  # slot, block, row

@@ -970,3 +970,183 @@ def test_short_mla_serving_run(card):
         else:
             assert sum(LAUNCHES.values()) == 0
     assert tokens["kernel"] == tokens["ref"]
+
+
+# ---------------------------------------------------------------------------
+# Sliding windows (h2o-danube-1.8b): the paged kernel masks the rows before
+# ``length - window``, skips the splits wholly before it and merges from the
+# first live one; the flash forward and backward at the window of 4096
+# ---------------------------------------------------------------------------
+
+#: lengths against a window of 4096 over 256-token splits (16 blocks of 16):
+#: the start inside split 16 (16 dead splits), on a split boundary (17 dead),
+#: inside split 19 (more than 16 dead), inside split 0, short of the window,
+#: and an idle slot
+WINDOW_LENS = [8224, 8448, 9000, 4097, 100, 0]
+
+
+def _window_case(gen, m, D, dtype, lens=WINDOW_LENS, G=2, bs=16, mb=600):
+    used = [-(-n // bs) for n in lens]
+    NB = sum(used) + 7
+    kp, vp = (_randn(gen, (NB, bs, G, D), dtype) for _ in range(2))
+    tbl = _tables(gen, len(lens), mb, NB, used)
+    q = _randn(gen, (len(lens), G * m, D), dtype)
+    return q, kp, vp, tbl, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_paged_window_matches_plain(card, m, D, dtype, tol):
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(m * D)
+    args = _window_case(gen, m, D, dtype)
+    for window in (1, 16, 1000, 4096):  # a row, a block, no block multiple, h2o-danube's
+        before = (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"])
+        got = paged_attention(*args, window=window)
+        torch.cuda.synchronize()
+        after = (LAUNCHES["paged_attention"], LAUNCHES["paged_attention_merge"])
+        assert after == (before[0] + 1, before[1] + 1)  # one split and one merge a call
+        want = paged_attention_ref(*args, window=window)
+        assert float((got.double() - want.double()).abs().max()) <= tol, window
+        assert bool((got[-1] == 0).all())  # the idle slot
+        assert torch.equal(got, paged_attention(*args, window=window))  # bit for bit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_window_at_or_past_the_length_is_a_no_op(card, dtype):
+    """A window equal to a request's length or past it changes no bit, and
+    one shorter than a context changes the output (the mask is live)."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lens = [3000, 2999, 1, 4500, 0]
+    q, kp, vp, tbl, ln = _window_case(gen, 4, 80, dtype, lens=lens, G=8)
+    plain = paged_attention(q, kp, vp, tbl, ln)
+    at = paged_attention(q, kp, vp, tbl, ln, window=3000)
+    past = paged_attention(q, kp, vp, tbl, ln, window=20000)
+    assert torch.equal(past, plain)
+    assert all(torch.equal(at[b], plain[b]) for b in range(3))  # lengths <= 3000
+    assert not torch.allclose(at[3].float(), plain[3].float(), atol=1e-3)  # 4500 > 3000
+
+
+def test_paged_window_on_the_h2o_danube_pool(card):
+    """h2o-danube's decode call: 8 slots, 32 query heads over 8 groups at 80,
+    a layer's strided views of a 24-layer pool, the WINDOW mix's lengths at
+    mid-decode, a 520-block table (33 splits), one slot idle."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    lens = [8208, 8208, 8208, 0, 4081, 4096, 4100, 4112]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        pool = _randn(gen, (4224, 16, 24, 2, 8, 80), dtype)
+        kp, vp = pool[:, :, 7, 0], pool[:, :, 7, 1]
+        tbl = _tables(gen, 8, 520, 4224, [-(-n // 16) for n in lens])
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = _randn(gen, (8, 32, 80), dtype)
+        got = paged_attention(q, kp, vp, tbl, ln, window=4096)
+        want = paged_attention_ref(q, kp, vp, tbl, ln, window=4096)
+        assert float((got.double() - want.double()).abs().max()) <= tol
+        assert bool((got[3] == 0).all())
+        assert not torch.allclose(got[0].float(), paged_attention(q, kp, vp, tbl, ln)[0].float())
+        del pool, kp, vp
+
+
+def test_paged_window_refusals(card):
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, kp, vp, tbl, ln = _window_case(gen, 1, 64, torch.bfloat16, lens=[10, 0], mb=4)
+    with pytest.raises(ValueError, match="window"):
+        paged_attention(q, kp, vp, tbl, ln, window=-1)
+    kv = _randn(gen, (8, 16, 1, 576), torch.bfloat16)
+    tbl = _tables(gen, 2, 4, 8, [1, 0])
+    ql = _randn(gen, (2, 16, 576), torch.bfloat16)
+    with pytest.raises(ValueError, match="latent call takes no window"):
+        paged_attention(ql, kv, kv[..., :512], tbl, ln, window=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_4096_at_h2o_danube_heads(card, dtype):
+    """The prefill flash (with and without lse) and the backward at
+    h2o-danube's heads (32 over 8 groups at 80), S = 8192, window 4096."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4096)
+    q = _randn(gen, (1, 8192, 32, 80), dtype)
+    k, v = (_randn(gen, (1, 8192, 8, 80), dtype) for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v, window=4096)
+    want, want_lse = flash_attention_fwd_ref(q, k, v, window=4096)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel_err(out, want) <= tol
+    assert float((lse - want_lse).abs().max()) <= (1e-4 if dtype == torch.float32 else 1e-3)
+    assert torch.equal(flash_attention(q, k, v, window=4096), out)
+    dout = _randn(gen, (1, 8192, 32, 80), dtype)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, window=4096)
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, dout, window=4096)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, b) <= BWD_REL_TOL[dtype], name
+    again = flash_attention_bwd(q, k, v, out, lse, dout, window=4096)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_short_serving_run_with_a_window(card):
+    """smoke(h2o-danube-1.8b) (window 16, GQA 4:1) at head dim 80 on the
+    card: launches as predicted and the plain path's tokens, float32; the
+    SMOKE mix's decode crosses the window."""
+    _serve_reduced(head_dim=80, arch="h2o-danube-1.8b")
+
+
+def test_short_ssm_serving_run(card):
+    """smoke(mamba2-1.3b) served on the card: no attention or banked_copy
+    launch, the same tokens as on the CPU (float32)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = smoke(get_config("mamba2-1.3b"))
+    prompts = serve.make_prompts(cfg, serve.SMOKE, seed=1)
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        model = M.init_params(cfg, 0, device="cpu", compute_dtype=torch.float32)
+        model = model.to(device)
+        reset_launches()
+        eng, reqs = serve.new_engine(cfg, model, serve.SMOKE, prompts)
+        eng.run()
+        assert sum(LAUNCHES.values()) == 0 and all(r.done for r in reqs)
+        tokens[device] = [r.out_tokens for r in reqs]
+    assert tokens["cuda"] == tokens["cpu"]
+
+
+def test_short_training_run_with_a_window(card):
+    """Three AdamW steps of smoke(h2o-danube-1.8b) at head dim 80 (window 16)
+    over sequences of 100 tokens: launches as above, losses equal the plain
+    path's within 1e-4 (float32)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import step as S
+
+    cfg = smoke(get_config("h2o-danube-1.8b"), head_dim=80)
+    losses = {}
+    for impl in ("pallas", "jnp"):
+        run = RunConfig(compute_dtype="float32", attn_impl=impl, learning_rate=1e-3, warmup_steps=1)
+        state = S.init_train_state(cfg, run, 0)
+        fn = S.make_train_step(cfg, run, total_steps=3)
+        pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=100)
+        reset_launches()
+        losses[impl] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
+        want = (3 * 2 * cfg.num_layers, 3 * cfg.num_layers) if impl == "pallas" else (0, 0)
+        assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
+    np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)

@@ -64,3 +64,21 @@ def test_costs_use_the_h100_rates():
     assert t["memory_s"] == t["hbm_bytes_per_device"] / 3.35e12
     # MLA + MoE: the active parameters are the top-6 of 64 routed experts
     assert C.active_params(cfg) < cfg.num_params() / 5
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mamba2-1.3b"])
+@pytest.mark.parametrize(
+    "kind,B,S,cache_len", [("train", 2, 4096, 0), ("prefill", 1, 8192, 0), ("decode", 8, 1, 8320)]
+)
+def test_window_and_ssm_counts_match_reference(arch, kind, B, S, cache_len):
+    """The sliding-window and SSM configs: parameters (an SSM layer's
+    projections, conv taps, A, D, dt bias and gated norm; one vocabulary
+    matrix where mamba2 ties its embeddings), active parameters and forward
+    FLOPs (the SSD chunk terms, or the recurrent step's) equal the
+    reference's exactly."""
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    assert cfg.num_params() == rcfg.num_params()
+    assert C.active_params(cfg) == R.active_params(rcfg)
+    got = C.forward_flops(cfg, B, S, kind=kind, cache_len=cache_len)
+    assert got == R.forward_flops(rcfg, B, S, kind=kind, cache_len=cache_len)
+    assert got > 0

@@ -67,6 +67,9 @@ rec = record_serving_run(num_requests=3, max_batch=2)
 assert serving_scenario(rec).compile().qos[0] == "realtime"
 assert sample_case(FuzzConfig(), 0).scenario.masters
 serve.main(["--smoke", "--device", "cpu", "--requests", "3"])
+from repro_torch.models import ssm  # noqa: F401
+serve.main(["--smoke", "--device", "cpu", "--requests", "3", "--arch", "mamba2-1.3b"])
+serve.main(["--smoke", "--device", "cpu", "--requests", "3", "--arch", "h2o-danube-1.8b"])
 out = simulate(random_uniform(2, 4, burst=4, seed=1), SimParams(max_cycles=400), device="cpu")
 assert bool(out["all_done"]) and out["throughput"].shape == (4,)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules

@@ -19,7 +19,7 @@ from repro_torch.configs import get_config, list_archs, smoke  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models import layers, mlp  # noqa: E402
 from repro_torch.models.attention import mask_bias  # noqa: E402
-from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.model import forward_train, init_params  # noqa: E402
 
 ARCH = "stablelm-1.6b"
 
@@ -49,12 +49,20 @@ def test_later_slices_raise(arch):
         "deepseek-7b",
         "chameleon-34b",
         "stablelm-3b",
+        "h2o-danube-1.8b",
+        "mamba2-1.3b",
     ]
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
-    if cfg.use_mla:  # served and trained: no later slice left for it
+    if cfg.use_mla or cfg.sliding_window:  # served and trained: no later slice left for it
         assert get_config(arch) == cfg
         model = init_params(smoke(cfg), device="cpu", param_dtype=torch.float32)
         assert all(p.requires_grad and p.dtype == torch.float32 for p in model.parameters())
+        return
+    if cfg.family == "ssm":  # served; its training comes with the hybrid stacks
+        assert get_config(arch) == cfg
+        model = init_params(smoke(cfg), device="cpu", param_dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match="hybrid stacks"):
+            forward_train(model, torch.zeros(1, 32, dtype=torch.int64))
         return
     with pytest.raises(KeyError):
         get_config(arch)
