@@ -97,9 +97,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 float32); stablelm-3b (32 heads of 80: every serving kernel
                 at D = 80), tempered, bf16 and float32.  Each prints its
                 seconds
-  11s. serving_swa, serving_ssm  h2o-danube-1.8b at full width and depth
-                (GQA 32:8 at 80, a 4096-token sliding window, 1.84 B
-                parameters), tempered, with the checks of 8 on the FULL mix
+  11s. serving_swa, serving_ssm  h2o-danube-1.8b at full width and 12 of
+                its 24 layers (a cut of the script's time; GQA 32:8 at 80, a
+                4096-token sliding window), tempered, with the checks of 8 on the FULL mix
                 (the window never masks there) and on the WINDOW mix (4
                 prompts of 8192 tokens and 4 of 4065..4096, decode past
                 position 4096: the paged kernel masks the keys before the
@@ -109,7 +109,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 embeddings, 1.34 B parameters) on the FULL_SSD mix:
                 isolation every step, the KV record, no attention or
                 banked_copy launch, each slot's SSM state beside the pool,
-                its decode profiled, and its two forms in float32 (8
+                its decode profiled, and its two forms in float32 at 12
+                of its 48 layers (a cut of the script's time; 8
                 prompts of 512 tokens through the chunked prefill and
                 through 512 recurrent steps: final state, conv window and
                 last logits within ``SSM_FORMS_BOUND``).  Each prints its
@@ -120,6 +121,19 @@ Phases, one JSON line each; any failure exits non-zero:
                 and 19 dead splits, in split 0; a window at and past the
                 lengths changes no bit; h2o-danube's decode shape), as is
                 the flash forward at S 8192 with the window
+  11h. serving_hybrid  jamba-1.5-large-398b cut to one super-block (8 of 72
+                layers) and 8 of 16 experts, top-2 kept, every width the
+                published one (25.82 B parameters, 51.6 GB of bf16 weights),
+                on the FULL_SSD mix: one attention layer (64 query heads over
+                8 KV groups at 128) and 7 SSD layers a super-block, MoE at
+                odd positions; the checks of 8 (launches: flash and
+                banked_copy once an admission, paged split and merge once a
+                decode step; isolation, the KV record, teacher forcing in
+                bf16), each slot's SSM state beside the pool, its decode
+                profile and timing rows (flash at S 1024, row 4c's shape;
+                paged, row 3c's; banked_copy at W = 2048, row 2j); its
+                banked_copy tile is also held to its plain version in 2
+                (bit for bit, twice alike).  Prints its seconds
   12. sweep     the scale path's main path, through the public entry points
                  with B lanes per arbiter launch: the golden ``"batch"`` entry
                  through ``simulate_batch`` and the three golden cases through
@@ -142,7 +156,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  three lanes of one dense batch, every group's summaries and
                  per-gather stats bit for bit against ``cosim_reference.json``,
                  the reference benchmark's isolation and scaling asserts
-  14. cosim_scale  the co-sim's scale mode: 1024 recorded requests on the
+  14. cosim_scale  the co-sim's scale mode: 512 recorded requests (the
+                 benchmark's 1024 cut for the script's time) on the
                  schedule pipeline with streaming percentiles and the time
                  skip, against the capture; at 128 requests the fixed horizon
                  against the time skip (equal but for ``skipped_cycles``)
@@ -172,14 +187,22 @@ Phases, one JSON line each; any failure exits non-zero:
                  backward at q/k 192, v 128) with 4 of 27 layers at B 2 x S
                  4096, three steps kernel against plain, launches 24 / 12,
                  step time, tokens/s, peak memory and model-FLOPs share;
-                 stablelm-3b at full width and depth (``train_3b``: B 4 x S
-                 4096, AdamW, remat full, three steps kernel against plain,
-                 launches 192 / 96); h2o-danube-1.8b at full width and depth
-                 (``train_swa``: S 8192, past its 4096-token window; three
+                 stablelm-3b at full width and 16 of 32 layers (``train_3b``:
+                 B 4 x S 4096, AdamW, remat full, three steps kernel against
+                 plain, launches 96 / 48); h2o-danube-1.8b at full width and
+                 12 of 24 layers (``train_swa``: S 8192, past its 4096-token window; three
                  steps kernel against plain at B 1, three timed kernel steps
                  at B 2, tokens/s, model-FLOPs share over the window's pairs,
                  peak memory; the forward's lse and the backward with the
-                 window among the kernel checks; rows 4tw and 5w); and
+                 window among the kernel checks; rows 4tw and 5w); mamba2-1.3b
+                 at full width and depth (``train_ssm``: B 4 x S 4096, AdamW,
+                 three steps, no launch, the loss finite and falling, step
+                 time, tokens/s, model-FLOPs share, peak memory); jamba's
+                 super-block at a stated reduced width (``train_hybrid``: d
+                 2048, 16 heads over 2 groups at 128, 16 experts top-2, 3.0 B
+                 parameters, B 2 x S 4096, Adafactor, three steps kernel
+                 against plain, launches 6 / 3; its heads among the kernel
+                 checks, rows 4tj and 5j); and
                  the timing rows of the backward (with its rate on its own
                  products and its share of the 5-product bound) and of the
                  forward with its log-sum-exp, MLA's against SDPA's backend
@@ -1678,6 +1701,8 @@ def phase_llm_kernels() -> dict:
         ("mla_64_blocks", 1, 64, 2048, 16, 27 * 576, (bf16,)),  # a 497,664-byte tile
         ("stablelm3b_64_blocks", 1, 64, 512, 16, 32 * 2 * 32 * 80, (bf16,)),  # W = 163840
         ("deepseek7b_64_blocks", 1, 64, 512, 16, 30 * 2 * 32 * 128, (bf16,)),  # W = 245760
+        # jamba's serving cut: one attention layer of 8 groups at 128, W = 2048
+        ("jamba_64_blocks", 1, 64, 2048, 16, 1 * 2 * 8 * 128, (bf16,)),
     ]
     for name, B, nblk, NB, bs, W, dtypes in copy_cases:
         for dtype in dtypes:
@@ -1693,13 +1718,15 @@ def phase_llm_kernels() -> dict:
             torch.cuda.synchronize()
             want = banked_copy_ref(pool, new, tbl)
             record("banked_copy", f"{name}_{str(dtype)[6:]}", float(not torch.equal(got, want)), 0)
+            if name.startswith("jamba"):
+                repeat_copy = torch.equal(got, banked_copy(pool.clone(), new, tbl))
             del pool, new, got, want
 
     # MLA (deepseek-v2-lite-16b): flash at QK 192 / V 128 at its prompts'
     # lengths, the latent paged call (16 heads, K rows of 576, V their first
     # 512 columns) at its first wave's mid-decode lengths over a strided layer
     # view of the all-layer latent pool, one slot idle, ragged last blocks
-    repeat = {}
+    repeat = {"banked_copy_jamba": repeat_copy}
     mla_scale = 192**-0.5
     for S in (128, 517, 1024):
         for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
@@ -1959,7 +1986,7 @@ def _serving_engine_cls():
 
 
 def _tempered(model):
-    """``model`` with every layer's ``wq`` and ``wk`` (MLA: ``wq`` and
+    """``model`` with every attention layer's ``wq`` and ``wk`` (MLA: ``wq`` and
     ``w_uk``, which makes K's non-RoPE part) scaled by 1/8 (exact in bf16):
     attention scores of std ~1, as in a trained model.  Under the
     reference's fan-in init they have std ~64 and the network is chaotic at
@@ -1968,10 +1995,18 @@ def _tempered(model):
     import torch
 
     with torch.no_grad():
-        for blk in model.layers:
-            blk.attn.wq.mul_(0.125)
-            (blk.attn.w_uk if model.cfg.use_mla else blk.attn.wk).mul_(0.125)
+        for attn in _attention_modules(model):
+            attn.wq.mul_(0.125)
+            (attn.w_uk if model.cfg.use_mla else attn.wk).mul_(0.125)
     return model
+
+
+def _attention_modules(model) -> list:
+    """The stack's attention modules: one a layer, or one a super-block of a
+    hybrid stack."""
+    if model.cfg.family == "hybrid":
+        return [blk.attn.attn for blk in model.layers]
+    return [blk.attn for blk in model.layers]
 
 
 def _score_std(model, prompt) -> list:
@@ -2042,7 +2077,16 @@ FORCING_BOUNDS = {
     # written before its first run: tempered as stablelm-1.6b and on both
     # mixes (the WINDOW mix's 8192-token prompts and decode past the window)
     "h2o-danube-1.8b": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
+    # written before its first run: tempered as stablelm-1.6b (no QK-norm),
+    # one attention layer and 7 SSD layers a super-block, bf16 only (its
+    # float32 weights, 103 GB, do not fit the card)
+    "jamba-1.5-large-398b": {"bf16": (0.5, 0.9)},
 }
+#: jamba-1.5-large-398b's serving cut on one card, stated before its first
+#: run: 8 of its 72 layers (one super-block) and 8 of its 16 experts, top-2
+#: kept, every width the published one: 25.82 B parameters, 51.6 GB of bf16
+#: weights (one super-block with all 16 experts is 90.3 GB, over the card)
+HYBRID_SERVE_LAYERS, HYBRID_SERVE_EXPERTS = 8, 8
 #: mamba2-1.3b's two forms of one function on the card (float32): the
 #: chunked prefill of 8 prompts of 512 tokens (two 256-token chunks) and 512
 #: recurrent decode steps from a zero state, held to each other as the
@@ -2050,6 +2094,12 @@ FORCING_BOUNDS = {
 #: of the conv window and of the last logits (stated before the first run:
 #: float32 summation orders through 48 layers, ~1e-5 expected)
 SSM_FORMS_BOUND = 1e-2
+#: the two forms' depth, a cut: 12 of mamba2's 48 layers.  Its 512
+#: recurrent steps through 48 layers took 26.7 s of the script, which the
+#: hybrid stack's phases pushed past the 1050 s aim; every piece
+#: of the check (two chunks, the state carried between them, the conv
+#: window, the tied logits) runs at any depth
+SSM_FORMS_LAYERS = 12
 #: deepseek-v2-lite-16b's plain absorbed decode against the plain
 #: non-absorbed one (the reference's two forms of one function), teacher
 #: forced, bf16: the same bounds as the kernel path against the plain one
@@ -2191,17 +2241,22 @@ def phase_serving_swa_ssm(llm_errs: dict) -> list:
 
 
 def phase_serving_swa() -> tuple:
-    """h2o-danube-1.8b at full width and depth (24 layers, d 2560, GQA 32:8
-    at 80, a 4096-token sliding window, 1.84 B parameters), ``wq``/``wk``
+    """h2o-danube-1.8b at full width (d 2560, GQA 32:8 at 80, a 4096-token
+    sliding window) and ``SWA_SERVE_LAYERS`` of its 24 layers, ``wq``/``wk``
     tempered, on the FULL mix (contexts of at most 1056 tokens: the window
     never masks) and on the WINDOW mix (prompts of 8192 tokens, twice the
     window, and of 4065..4096, whose decode crosses position 4096), each
     with the checks of ``_serving_path`` (launches, isolation every step,
     the KV record, teacher forcing in bf16 and float32).  Returns both
     runs' results (``(full, window)``)."""
-    full = _serving_path("h2o-danube-1.8b", "serving_swa", temper=True)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    arch = "h2o-danube-1.8b"
+    cfg = serve.cut(get_config(arch), layers=SWA_SERVE_LAYERS)
+    full = _serving_path(arch, "serving_swa", temper=True, cfg=cfg)
     window = _serving_path(
-        "h2o-danube-1.8b", "serving_swa_window", temper=True, mix="WINDOW", model=full["model"]
+        arch, "serving_swa_window", temper=True, mix="WINDOW", model=full["model"], cfg=cfg
     )
     del full["model"]
     return full, window
@@ -2214,9 +2269,10 @@ def phase_serving_ssm() -> dict:
     reference's engine does (its KV access record held to a traffic-only
     engine's), isolation every step, no attention or ``banked_copy``
     launch, each slot's SSM state and conv window beside the pool.  Then
-    the two forms on the card in float32 (``SSM_FORMS_BOUND``): 8 prompts of
-    512 tokens through the chunked prefill at B = 8 and through 512
-    recurrent decode steps from a zero state."""
+    the two forms on the card in float32 (``SSM_FORMS_BOUND``) at
+    ``SSM_FORMS_LAYERS`` of its 48 layers: 8 prompts of 512 tokens through
+    the chunked prefill at B = 8 and through 512 recurrent decode steps from
+    a zero state."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2261,7 +2317,7 @@ def phase_serving_ssm() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     state_bytes = eng.ssm.nbytes()
     del eng
-    forms = _ssm_two_forms(cfg)
+    forms = _ssm_two_forms(replace(cfg, num_layers=SSM_FORMS_LAYERS))
     emit(
         "serving_ssm",
         arch=cfg.name,
@@ -2320,6 +2376,7 @@ def _ssm_two_forms(cfg) -> dict:
     out = {
         "prompts": 8,
         "tokens": 512,
+        "layers": cfg.num_layers,
         "chunk": cfg.ssm_chunk,
         "state_rel_err": _rel_err(rec.ssm, chunked.ssm),
         "conv_rel_err": _rel_err(rec.conv, chunked.conv),
@@ -2334,6 +2391,38 @@ def _ssm_two_forms(cfg) -> dict:
     for key in ("state_rel_err", "conv_rel_err", "logits_rel_err"):
         check(out[key] <= SSM_FORMS_BOUND, f"mamba2's two forms differ: {out}")
     return out
+
+
+def phase_serving_hybrid(llm_errs: dict) -> list:
+    """jamba-1.5-large-398b at the serving cut (``HYBRID_SERVE_LAYERS`` of 72
+    layers, one super-block: an attention layer of 64 query heads over 8 KV
+    groups at 128 and 7 SSD layers of 256 heads, state 128; a dense FFN at
+    even positions and ``HYBRID_SERVE_EXPERTS`` of 16 experts, top-2, at
+    odd ones; every width the published one) on the FULL_SSD mix, with the
+    checks of ``_serving_path``: launches (flash and ``banked_copy`` once an
+    admission, paged split and merge once a decode step: one attention
+    layer), isolation every step, the KV record, teacher forcing in bf16
+    (``wq``/``wk`` tempered); each slot's SSM state beside the pool.  Then
+    its decode profile and the timing rows of its kernels (flash at S 1024,
+    row 4c's shape; paged, row 3c's; ``banked_copy`` at W = 2048, row 2j).
+    Prints its seconds; returns the kernels-line rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    arch = "jamba-1.5-large-398b"
+    cfg = serve.cut(get_config(arch), layers=HYBRID_SERVE_LAYERS, experts=HYBRID_SERVE_EXPERTS)
+    serving = _serving_path(
+        arch, "serving_hybrid", temper=True, f32_forcing=False, mix="FULL_SSD", cfg=cfg
+    )
+    phase_serving_profile(serving)
+    rows = phase_llm_timing(serving, llm_errs, flash_lengths=(1024,))
+    emit("serving_hybrid_seconds", seconds=time.perf_counter() - t0)
+    del serving
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _swa_timing(window: dict, errs: dict) -> list:
@@ -2434,14 +2523,23 @@ def _swa_timing(window: dict, errs: dict) -> list:
 
 
 def _serving_path(
-    arch: str, phase: str, *, temper: bool, f32_forcing: bool = True, mix: str = "FULL", model=None
+    arch: str,
+    phase: str,
+    *,
+    temper: bool,
+    f32_forcing: bool = True,
+    mix: str = "FULL",
+    model=None,
+    cfg=None,
 ) -> dict:
     """One serving path at full width through ``repro_torch.launch.serve``
     on the request mix ``mix`` (``serve.MIXES``); returns what the later
     phases need (model, prompts, launch counts, host time per decode step).
     ``f32_forcing``: also teacher force a float32 model through the kernels
     and the plain path.  ``model``: a bf16 model of ``arch`` already built
-    (and tempered where ``temper``), in place of a new one."""
+    (and tempered where ``temper``), in place of a new one.  ``cfg``:
+    ``arch``'s config with a stated cut (``serve.cut``), in place of the
+    registry's."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2450,8 +2548,8 @@ def _serving_path(
     from repro_torch.models import model as M
     from repro_torch.serving.record import KVAccessRecorder
 
-    cfg, spec = get_config(arch), serve.MIXES[mix]
-    moe = cfg.is_moe_layer(0)
+    cfg, spec = cfg or get_config(arch), serve.MIXES[mix]
+    moe = bool(cfg.moe_num_experts)
     t0 = time.perf_counter()
     built = model is None
     model = M.init_params(cfg, 0) if built else model
@@ -2472,7 +2570,7 @@ def _serving_path(
     plan_rec = KVAccessRecorder()
     plan, _ = serve.new_engine(None, None, spec, prompts, recorder=plan_rec)
     plan.run()
-    L = cfg.num_layers
+    L = cfg.num_attn_layers
     want = {
         "flash_attention": L * plan.stats.admissions,
         "banked_copy": plan.stats.admissions,
@@ -2501,7 +2599,8 @@ def _serving_path(
     summary = serve.summarize(eng, reqs, wall)
     check(launches == want, f"{arch} serving launches {launches}, predicted {want}")
     check(eng.steps == plan.steps, f"{eng.steps} engine steps, traffic-only run took {plan.steps}")
-    routes_want = L * (plan.stats.admissions + plan.stats.decode_steps) if moe else 0
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    routes_want = n_moe * (plan.stats.admissions + plan.stats.decode_steps)
     check(len(kernel_routes) == routes_want, f"{len(kernel_routes)} route calls, {routes_want} due")
     record = recorder.record
     check(
@@ -2515,6 +2614,7 @@ def _serving_path(
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kernel_logits = eng.logits
     forced = {r.rid: list(r.out_tokens) for r in first_wave}
+    ssm_bytes = 0 if eng.ssm is None else eng.ssm.nbytes()
     del eng
 
     # teacher forcing: the first wave again, fed the kernel run's tokens, on
@@ -2587,6 +2687,7 @@ def _serving_path(
         out_tokens_per_s=summary["out_tokens_per_s"],
         pool_imbalance=summary["pool_imbalance"],
         peak_memory_gb=peak_gb,
+        ssm_state_mb_per_slot=ssm_bytes / spec.max_batch / 1e6,
         launches=launches,
         predicted=want,
         stats=summary["stats"],
@@ -2650,15 +2751,15 @@ def _expert_products(serving: dict, busy_us_per_step: float) -> dict:
     expert's weights read once (bytes) or the products' operations."""
     import torch
 
-    from repro_torch.models.moe import expert_capacity, expert_products
+    from repro_torch.models.moe import MoE, expert_capacity, expert_products
 
     model, spec = serving["model"], serving["spec"]
     cfg = model.cfg
-    E, d, f, L = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_layers
+    layers = [m for m in model.modules() if isinstance(m, MoE)]
+    E, d, f, L = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, len(layers)
     rows = spec.max_batch * expert_capacity(cfg, 1)
     gen = torch.Generator(device="cuda").manual_seed(2)
     buf = _cuda_randn(gen, (E, rows, d), model.embed.dtype)
-    layers = [blk.moe for blk in model.layers]
 
     def one_step():
         for m in layers:
@@ -3030,9 +3131,9 @@ TRAIN_B, TRAIN_S = 4, 4096
 #: parameters, gradients and moments take ~260 GB at 27, ~44 GB at 4) and
 #: train_4k's batch cut to 2 sequences of 4096
 MLA_TRAIN_LAYERS, MLA_TRAIN_B = 4, 2
-#: stablelm-3b's training run: full width and depth, train_4k's batch cut to
-#: the 4 sequences of 4096 that fit beside AdamW's 44.8 GB of float32 state
-#: (the peak predicted in PERF.md before the first run)
+#: stablelm-3b's training run: train_4k's batch cut to the 4 sequences of
+#: 4096 that fit at full depth beside AdamW's 44.8 GB of float32 state (the
+#: peak predicted in PERF.md before the first run)
 TRAIN_3B_B = 4
 #: h2o-danube-1.8b's training run (full width and depth): at train_4k's S =
 #: 4096 its 4096-token window never masks a key, so the sequences are 8192
@@ -3040,6 +3141,33 @@ TRAIN_3B_B = 4
 #: layer take 8.6 GB a sequence), a timed kernel run at B 2 (16384 tokens a
 #: step, as train_4k's 4 x 4096 a card)
 SWA_TRAIN_S, SWA_TRAIN_B, SWA_TIMED_B = 8192, 1, 2
+#: depth cuts of earlier full-depth paths (the hybrid stack's phases pushed
+#: the script past its 1050 s aim: 1143.1 s on one H100, PERF.md §4):
+#: h2o-danube-1.8b served and trained at 12 of its 24 layers,
+#: stablelm-3b trained at 16 of its 32; every kernel keeps its shapes
+SWA_SERVE_LAYERS = SWA_TRAIN_LAYERS = 12
+TRAIN_3B_LAYERS = 16
+#: mamba2-1.3b's training run: full width and depth (AdamW's float32
+#: parameters, gradients and moments 21.4 GB), train_4k's batch of 256 cut
+#: to 4 sequences of 4096, the default run (LR 3e-4 after 20 warm-up steps)
+#: on one batch three times: the first step's LR is 0, so the second step's
+#: loss equals the first's, and the third reads the second step's update
+#: (LR 1.5e-5) on the batch it was taken on, which must lower the loss.
+#: (With one warm-up step, LR 3e-4 at the second step, the loss rose from
+#: 11.24 to 14.40 at full width: Adam's first update moves every parameter
+#: by the LR in its gradient's sign; PERF.md, Findings.)
+SSM_TRAIN_B = 4
+#: jamba's training run at a reduced width, stated before its first run: no
+#: form of jamba trains on one card at full width (one super-block with 2
+#: experts is 11.3 B parameters, ~90 GB of float32 parameters and gradients
+#: under Adafactor), so one super-block at d 2048, 16 query heads over 2 KV
+#: groups at 128 (jamba's 8 : 1), FFN and expert width 6144 (jamba's 3 x d),
+#: 16 experts top-2, SSD heads of 64 at state 128 (64 heads), vocab 65536:
+#: 3.0 B parameters; B 2 x S 4096 (train_4k's batch of 256 cut to 2)
+HYBRID_TRAIN_WIDTHS = dict(
+    num_layers=8, d_model=2048, num_heads=16, num_kv_heads=2, head_dim=128, d_ff=6144, moe_d_ff=6144
+)
+HYBRID_TRAIN_B = 2
 
 
 def _window_pairs(S: int, window: int) -> int:
@@ -3107,6 +3235,11 @@ def _train_kernel_checks() -> dict:
         ("h2o_B2_S8192_window4096", 2, 8192, 8192, 32, 8, 80, 80, True, 4096, bf16),
         ("h2o_S8192_window4096_f32", 1, 8192, 8192, 32, 8, 80, 80, True, 4096, f32),
     ]
+    cases += [  # jamba's training heads: 16 over 2 groups at 128 (8 a group)
+        ("jamba_B2_S4096", HYBRID_TRAIN_B, TRAIN_S, TRAIN_S, 16, 2, 128, 128, True, 0, bf16),
+        ("jamba_S517", 1, 517, 517, 16, 2, 128, 128, True, 0, bf16),
+        ("jamba_S517_f32", 1, 517, 517, 16, 2, 128, 128, True, 0, f32),
+    ]
     rows, worst, fwd_err, repeat = [], {}, {}, {}
     for name, B, S, T, H, G, D, Dv, causal, window, dtype in cases:
         q = _cuda_randn(gen, (B, S, H, D), dtype)
@@ -3148,6 +3281,7 @@ def _train_kernel_checks() -> dict:
             "stablelm3b_B2_S4096",
             "d80_S517_f32",
             "h2o_B2_S8192_window4096",
+            "jamba_B2_S4096",
         ):
             again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -3167,28 +3301,31 @@ def _train_kernel_checks() -> dict:
 
 #: how ``_flops_per_step`` counts, for the lines that report the share
 FLOPS_SHARE_FORMULA = (
-    "(6 * (costs.active_params - Vp * d) + 6 * L * H * (Dqk + Dv) * pairs / S) * tokens "
-    "/ step_s / 989e12"
+    "(6 * (costs.active_params - Vp * d [untied]) + 6 * La * H * (Dqk + Dv) * pairs / S) "
+    "* tokens / step_s / 989e12"
 )
 
 
 def _flops_per_step(cfg, tokens: int, seq: int) -> float:
     """Model FLOPs of one training step (no remat recompute): 6 N per token
     for the N active parameters of the matrix products (``analysis.costs.
-    active_params``: MoE's top-k experts; all but the embedding table), and
-    6 L H (Dqk + Dv) pairs / S per token for attention's two products over
-    the live (query, key) pairs of a sequence (causal: S (S + 1) / 2, about
-    3 L H (Dqk + Dv) S, counted as S^2 / 2; a sliding window fewer,
-    ``_window_pairs``)."""
+    active_params``: MoE's top-k experts; all but the embedding table, which
+    tied embeddings also use as the output matrix), and 6 La H (Dqk + Dv)
+    pairs / S per token for attention's two products in the La attention
+    layers over the live (query, key) pairs of a sequence (causal: S (S +
+    1) / 2, about 3 La H (Dqk + Dv) S, counted as S^2 / 2; a sliding window
+    fewer, ``_window_pairs``).  SSD's chunk products are not counted, as
+    the reference's 6 N D yardstick counts none."""
     from repro_torch.analysis.costs import active_params
 
-    n = active_params(cfg) - cfg.padded_vocab * cfg.d_model
+    n = active_params(cfg) - (0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model)
+    La = cfg.num_attn_layers
     if cfg.use_mla:
         dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
     else:
         dqk = dv = cfg.resolved_head_dim
     pairs = _window_pairs(seq, cfg.sliding_window) if cfg.sliding_window else seq * seq / 2
-    attn = 6 * cfg.num_layers * cfg.num_heads * (dqk + dv) * pairs / seq
+    attn = 6 * La * cfg.num_heads * (dqk + dv) * pairs / seq
     return float((6 * n + attn) * tokens)
 
 
@@ -3453,12 +3590,16 @@ def _train_crash_resume() -> dict:
     return out
 
 
-def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool, impls=("kernel", "ref")) -> dict:
-    """Three AdamW steps (remat "full") of ``cfg`` through the kernels and
-    three through the plain attention path (``impls``), each from the same
-    seeded init (``wq`` and ``wk``/``w_uk`` x 1/8 where ``temper``) and the
-    same batches of B x S tokens; per run the metrics, step seconds, routing
-    decisions (call for call), launches and peak memory."""
+def _steps_kernel_vs_plain(
+    cfg, B: int, S: int, *, temper: bool, impls=("kernel", "ref"), run=None, batches=None
+) -> dict:
+    """Three steps of ``run`` (default: AdamW, remat "full") of ``cfg``
+    through the kernels and three through the plain attention path
+    (``impls``), each from the same seeded init (``wq`` and ``wk``/``w_uk``
+    x 1/8 where ``temper``) and the same batches of B x S tokens (the
+    pipeline's first three, or ``batches``); per run the metrics, step
+    seconds, routing decisions (call for call), launches (the training
+    kernels', and every kernel's) and peak memory."""
     import torch
 
     from repro_torch.configs.base import RunConfig
@@ -3466,10 +3607,11 @@ def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool, impls=("kernel"
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.train import step as S_
 
-    pipe = TokenPipeline(cfg.vocab_size, batch=B, seq_len=S, seed=0)
-    batches = [next(pipe) for _ in range(3)]
+    if batches is None:
+        pipe = TokenPipeline(cfg.vocab_size, batch=B, seq_len=S, seed=0)
+        batches = [next(pipe) for _ in range(3)]
     runs = {}
-    run = RunConfig(remat_policy="full")
+    run = run or RunConfig(remat_policy="full")
     for impl in impls:
         t0 = time.perf_counter()
         state = S_.init_train_state(cfg, run, seed=0)
@@ -3498,6 +3640,7 @@ def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool, impls=("kernel"
             wall_s=time.perf_counter() - t0,
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
             launches={k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")},
+            all_launches=dict(LAUNCHES),
         )
         del state, step
         torch.cuda.empty_cache()
@@ -3506,14 +3649,14 @@ def _steps_kernel_vs_plain(cfg, B: int, S: int, *, temper: bool, impls=("kernel"
 
 def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> dict:
     """The two runs of ``_steps_kernel_vs_plain`` side by side, checked:
-    launches (3 steps x 2 forward and 1 backward per layer through the
+    launches (3 steps x 2 forward and 1 backward per attention layer through the
     kernels, none through the plain path), finite metrics; for MoE a
     positive aux loss, the losses and routing decisions within
     ``TRAIN_MOE_BOUNDS``; for a dense stack the losses within
     ``TRAIN_STEP_BOUNDS``."""
     k, p = runs["kernel"], runs["ref"]
-    L = cfg.num_layers
-    moe = cfg.is_moe_layer(0)
+    L = cfg.num_attn_layers
+    moe = bool(cfg.moe_num_experts)
     want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
     loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(k["metrics"], p["metrics"])]
     agreement = _route_agreement(k["routes"], p["routes"]) if moe else None
@@ -3522,7 +3665,8 @@ def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> d
     flops = _flops_per_step(cfg, B * S, S)
     out = {
         "arch": cfg.name,
-        "layers": L,
+        "layers": cfg.num_layers,
+        "attention_layers": L,
         "params": cfg.num_params(),
         "reduced": reduced,
         "batch": B,
@@ -3596,25 +3740,30 @@ def _train_mla() -> dict:
 
 
 def _train_3b() -> dict:
-    """stablelm-3b at full width and depth (32 layers, 32 heads of 80, 2.80
-    B parameters; AdamW's float32 parameters, gradients and moments 44.8
-    GB), B = ``TRAIN_3B_B`` x S = 4096 (train_4k's sequence length), ``wq``
-    and ``wk`` tempered as its serving run tempers them: three steps through
+    """stablelm-3b at full width (32 heads of 80) and ``TRAIN_3B_LAYERS`` of
+    its 32 layers (at 32, 2.80 B parameters, AdamW's float32 parameters,
+    gradients and moments 44.8 GB), B = ``TRAIN_3B_B`` x S = 4096
+    (train_4k's sequence length), ``wq`` and ``wk`` tempered as its serving
+    run tempers them: three steps through
     the kernels (the flash forward with lse and the backward at D = 80) and
     three through the plain attention path from one state and batches."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("stablelm-3b")
+    cfg = replace(get_config("stablelm-3b"), num_layers=TRAIN_3B_LAYERS)
     runs = _steps_kernel_vs_plain(cfg, TRAIN_3B_B, TRAIN_S, temper=True)
-    reduced = f"train_4k's batch of 256 cut to {TRAIN_3B_B}; full width and depth"
+    reduced = (
+        f"train_4k's batch of 256 cut to {TRAIN_3B_B}; {TRAIN_3B_LAYERS} of 32 layers (a cut "
+        "of the script's time); full width"
+    )
     out = _kernel_vs_plain_summary(cfg, runs, TRAIN_3B_B, TRAIN_S, reduced)
     emit("train_3b", **out)
     return out
 
 
 def _train_swa() -> dict:
-    """h2o-danube-1.8b at full width and depth (24 layers, GQA 32:8 at 80,
-    window 4096, 1.84 B parameters; AdamW's float32 state 29.4 GB), remat
+    """h2o-danube-1.8b at full width (GQA 32:8 at 80, window 4096) and
+    ``SWA_TRAIN_LAYERS`` of its 24 layers (at 24, 1.84 B parameters and
+    29.4 GB of AdamW's float32 state), remat
     full, ``wq``/``wk`` tempered as its serving run tempers them, sequences
     of ``SWA_TRAIN_S`` = 8192 (at train_4k's 4096 the window never masks):
     three steps through the kernels and three through the plain path at B
@@ -3623,13 +3772,14 @@ def _train_swa() -> dict:
     window's live pairs, peak memory)."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("h2o-danube-1.8b")
+    cfg = replace(get_config("h2o-danube-1.8b"), num_layers=SWA_TRAIN_LAYERS)
     S = SWA_TRAIN_S
     runs = _steps_kernel_vs_plain(cfg, SWA_TRAIN_B, S, temper=True)
     reduced = (
         f"S {S} in place of train_4k's 4096 (its window of 4096 masks nothing there); kernel "
         f"against plain at B {SWA_TRAIN_B}, timed at B {SWA_TIMED_B} (train_4k's batch of 256 "
-        "cut); full width and depth"
+        f"cut); {SWA_TRAIN_LAYERS} of 24 layers (a cut of the script's time); "
+        "full width"
     )
     out = _kernel_vs_plain_summary(cfg, runs, SWA_TRAIN_B, S, reduced)
     timed = _steps_kernel_vs_plain(cfg, SWA_TIMED_B, S, temper=True, impls=("kernel",))["kernel"]
@@ -3656,6 +3806,163 @@ def _train_swa() -> dict:
     }
     emit("train_swa", **out)
     return out
+
+
+def _train_ssm() -> dict:
+    """mamba2-1.3b at full width and depth (48 SSD layers, tied embeddings,
+    1.34 B parameters; AdamW's float32 state 21.4 GB), the default run
+    (remat full), B ``SSM_TRAIN_B`` x S 4096: three steps through
+    ``make_train_step`` on one batch (``SSM_TRAIN_B`` says why) with no
+    kernel launch (SSD has no TPU kernel), finite losses and the third
+    below the first two (which read the same parameters); step time,
+    tokens/s, model-FLOPs share and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+
+    cfg = get_config("mamba2-1.3b")
+    run = RunConfig()
+    batch = next(TokenPipeline(cfg.vocab_size, batch=SSM_TRAIN_B, seq_len=TRAIN_S, seed=0))
+    r = _steps_kernel_vs_plain(
+        cfg, SSM_TRAIN_B, TRAIN_S, temper=False, impls=("kernel",), run=run, batches=[batch] * 3
+    )["kernel"]
+    losses = [m["loss"] for m in r["metrics"]]
+    step_s = statistics.median(r["step_s"])
+    flops = _flops_per_step(cfg, SSM_TRAIN_B * TRAIN_S, TRAIN_S)
+    out = {
+        "arch": cfg.name,
+        "layers": cfg.num_layers,
+        "params": cfg.num_params(),
+        "reduced": f"train_4k's batch of 256 cut to {SSM_TRAIN_B}; full width and depth",
+        "batch": SSM_TRAIN_B,
+        "seq": TRAIN_S,
+        "optimizer": run.optimizer,
+        "warmup_steps": run.warmup_steps,
+        "batches": "one batch, three times",
+        "first_two_losses_equal": losses[0] == losses[1],
+        "metrics": r["metrics"],
+        "init_s": r["init_s"],
+        "step_s": r["step_s"],
+        "step_s_median": step_s,
+        "tokens_per_s": SSM_TRAIN_B * TRAIN_S / step_s,
+        "peak_memory_gb": r["peak_memory_gb"],
+        "model_flops_per_step": flops,
+        "model_flops_share": flops / step_s / BF16_OPS_PER_S,
+        "model_flops_share_formula": FLOPS_SHARE_FORMULA,
+        "launches": r["all_launches"],
+    }
+    emit("train_ssm", **out)
+    check(sum(r["all_launches"].values()) == 0, f"mamba2 training launched {r['all_launches']}")
+    check(
+        all(math.isfinite(v) for m in r["metrics"] for v in m.values()), "mamba2 metrics not finite"
+    )
+    check(losses[2] < min(losses[:2]), f"mamba2's loss did not fall: {losses}")
+    return out
+
+
+def _train_hybrid() -> dict:
+    """jamba's super-block at the reduced width ``HYBRID_TRAIN_WIDTHS`` (one
+    attention layer, 7 SSD layers, 4 dense FFNs and 4 MoE layers of 16
+    experts top-2; 3.0 B parameters), the reference's per-arch defaults
+    (Adafactor, remat full: each position's mixer and FFN checkpointed),
+    ``wq``/``wk`` tempered, B ``HYBRID_TRAIN_B`` x S 4096: three steps
+    through the kernels and three through the plain path from one state and
+    batches (launches 6 / 3, losses within ``TRAIN_MOE_BOUNDS``, routing
+    agreement), step time and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import default_run_config
+
+    arch = "jamba-1.5-large-398b"
+    cfg = replace(get_config(arch), **HYBRID_TRAIN_WIDTHS)
+    run = default_run_config(arch)
+    runs = _steps_kernel_vs_plain(cfg, HYBRID_TRAIN_B, TRAIN_S, temper=True, run=run)
+    reduced = (
+        "one super-block at d 2048, 16 heads over 2 groups at 128, FFN and expert width 6144, "
+        "16 experts top-2, SSD heads of 64 at state 128, vocab 65536 (no form of jamba trains "
+        f"on one card at full width); train_4k's batch of 256 cut to {HYBRID_TRAIN_B}"
+    )
+    out = _kernel_vs_plain_summary(cfg, runs, HYBRID_TRAIN_B, TRAIN_S, reduced)
+    out["optimizer"], out["remat_policy"] = run.optimizer, run.remat_policy
+    emit("train_hybrid", **out)
+    return out
+
+
+def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
+    """Rows 4tj and 5j: the forward with its log-sum-exp and the backward at
+    the hybrid run's shape, B 2 x S 4096, 16 heads over 2 groups at 128
+    (8 a group), causal, bf16, against their plain versions and SDPA (K/V
+    repeated per query head; the backward under autograd); bounds by
+    operations over the causal pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bf16, rows = torch.bfloat16, []
+    B, S, H, G, D = HYBRID_TRAIN_B, TRAIN_S, 16, 2, 128
+    case, launches, path = "jamba_B2_S4096", hyb["launches"], "jamba-1.5-large-398b-train"
+    q, dout = (_cuda_randn(gen, (B, S, H, D), bf16) for _ in range(2))
+    k, v = (_cuda_randn(gen, (B, S, G, D), bf16) for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (
+        t.transpose(1, 2).repeat_interleave(H // G, dim=1).contiguous().requires_grad_(True)
+        for t in (k, v)
+    )
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = dout.transpose(1, 2).contiguous()
+    check(_rel_err(o.detach().transpose(1, 2), out) <= 2e-2, "SDPA forward yardstick at 16:2")
+    pairs = B * H * S * (S + 1) // 2
+    shape = dict(B=B, S=S, H=H, G=G, D=D, causal=True)
+    fwd = {
+        "kernel": lambda: flash_attention_fwd(q, k, v),
+        "plain": lambda: flash_attention_fwd_ref(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+    }
+    row = _timing_row(
+        "flash_attention",
+        fwd,
+        10,
+        2 * B * S * (H + 2 * G) * D + 2 * B * S * H * D + 4 * B * H * S,
+        4 * D * pairs,
+        launches["flash_attention"],
+        errs["fwd"][case],
+        "F.scaled_dot_product_attention(is_causal=True), K/V repeated per head",
+        shape=dict(shape, lse=True),
+        path=path,
+        queued=True,
+    )
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    rows.append(row)
+    bwd = {
+        "kernel": lambda: flash_attention_bwd(q, k, v, out, lse, dout),
+        "plain": lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout),
+        "library": lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+    }
+    row = _timing_row(
+        "flash_attention_bwd",
+        bwd,
+        10,
+        2 * B * S * (2 * H + 2 * G) * D * 2 + 4 * B * H * S,
+        10 * D * pairs,
+        launches["flash_attention_bwd"],
+        errs["bwd"][case],
+        "torch.autograd.grad of F.scaled_dot_product_attention(is_causal=True)",
+        shape=shape,
+        path=path,
+        queued=True,
+    )
+    row["tflops_7_products"] = 14 * D * pairs / (row["ms"] * 1e-3) / 1e12
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    rows.append(row)
+    del q, k, v, dout, out, lse, qt, kt, vt, o, dot
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _train_timing_swa(swa: dict, errs: dict) -> list:
@@ -3981,10 +4288,24 @@ def phase_training() -> list:
     tswa = time.perf_counter()
     swa = _train_swa()
     emit("train_swa_seconds", seconds=time.perf_counter() - tswa)
+    t = time.perf_counter()
+    _train_ssm()
+    emit("train_ssm_seconds", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    hyb = _train_hybrid()
+    emit("train_hybrid_seconds", seconds=time.perf_counter() - t)
     rows = _train_timing(main, moe, dense3b, errs) + _train_timing_mla(mla, errs)
-    rows += _train_timing_swa(swa, errs)
+    rows += _train_timing_swa(swa, errs) + _train_timing_hybrid(hyb, errs)
     emit("training", seconds=time.perf_counter() - t0)
     return rows
+
+
+def timed_phase(name: str, fn, *args):
+    """``fn(*args)``, printing the host seconds it took as ``<name>_seconds``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(f"{name}_seconds", seconds=time.perf_counter() - t0)
+    return out
 
 
 def main() -> int:
@@ -4003,42 +4324,40 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
-    max_abs_err = phase_kernels()
-    phase_golden()
-    main_path = phase_full_width()
-    phase_profile(main_path)
-    kernel = phase_timing(main_path["launches"], max_abs_err)
-    llm_errs = phase_llm_kernels()
-    phase_moe_whitening()
-    serving = phase_serving()
-    phase_serving_profile(serving)
-    rows = phase_llm_timing(serving, llm_errs)
-    del serving
-    torch.cuda.empty_cache()
-    serving = phase_serving_moe()
-    phase_serving_profile(serving)
-    rows += phase_llm_timing(serving, llm_errs, flash_lengths=(1024,))
-    del serving
-    torch.cuda.empty_cache()
-    serving = phase_serving_mla()
-    phase_serving_profile(serving)
-    rows += phase_llm_timing(serving, llm_errs, flash_lengths=(128, 517, 1024))
-    del serving
-    torch.cuda.empty_cache()
-    for phase in (phase_serving_dense7b, phase_serving_vlm, phase_serving_3b):
+    max_abs_err = timed_phase("kernels", phase_kernels)
+    timed_phase("golden", phase_golden)
+    main_path = timed_phase("fig4_table1", phase_full_width)
+    timed_phase("profile", phase_profile, main_path)
+    kernel = timed_phase("timing", phase_timing, main_path["launches"], max_abs_err)
+    llm_errs = timed_phase("llm_kernels", phase_llm_kernels)
+    timed_phase("moe_whitening", phase_moe_whitening)
+    rows = []
+    for phase, lengths in (
+        (phase_serving, (128, 517, 1024)),
+        (phase_serving_moe, (1024,)),
+        (phase_serving_mla, (128, 517, 1024)),
+        (phase_serving_dense7b, (1024,)),
+        (phase_serving_vlm, (1024,)),
+        (phase_serving_3b, (1024,)),
+    ):
         t0 = time.perf_counter()
         serving = phase()
         phase_serving_profile(serving)
-        rows += phase_llm_timing(serving, llm_errs, flash_lengths=(1024,))
+        rows += phase_llm_timing(serving, llm_errs, flash_lengths=lengths)
         emit(serving["phase"] + "_seconds", seconds=time.perf_counter() - t0)
         del serving
         torch.cuda.empty_cache()
     rows += phase_serving_swa_ssm(llm_errs)
+    rows += phase_serving_hybrid(llm_errs)
     rows += phase_training()
     torch.cuda.empty_cache()
     # the scale path last: its profiled windows hold ~10^5 kernel records each
-    sweep = phase_sweep()
-    cosim = {**phase_cosim(), **phase_cosim_scale(), **phase_fuzz()}
+    sweep = timed_phase("sweep", phase_sweep)
+    cosim = {
+        **timed_phase("cosim", phase_cosim),
+        **timed_phase("cosim_scale", phase_cosim_scale),
+        **timed_phase("fuzz", phase_fuzz),
+    }
     kernel["launches_by_path"] = {
         "fig4_x16": main_path["launches"],
         **{f"sweep_{k}": v["arbiter_launches"] for k, v in sweep.items()},

@@ -3,8 +3,9 @@ reference's ``analysis/costs.py``, with an H100's rates in place of the
 TPU's.
 
 The counts are the reference's, rule for rule, for the stacks the port runs
-(uniform GQA or MLA attention on every layer, dense or MoE, and uniform SSM
-stacks; ``configs.base.check_supported`` refuses the rest, so the
+(uniform GQA or MLA attention on every layer, dense or MoE, uniform SSM
+stacks, and hybrid stacks, layer by layer through ``is_attn_layer`` and
+``is_moe_layer``; ``configs.base.check_supported`` refuses the rest, so the
 reference's encoder-decoder terms have no counterpart here):
   * a matrix product [.., m, k] x [k, n] is 2 m k n FLOPs; elementwise work
     is not counted (under 1 %);
@@ -118,17 +119,16 @@ def forward_flops(
     check_supported(cfg)
     decode = kind == "decode"
     T = cache_len if decode else S
-    if cfg.family == "ssm":
-        attn = _ssm_flops(cfg, B, S, decode=decode)
-    elif cfg.use_mla:
-        attn = _mla_flops(
-            cfg, B, S, T, triangular=triangular, decode_absorbed=mla_absorbed and decode
-        )
-    else:
-        attn = _attn_flops(cfg, B, S, T, triangular=triangular)
     total = 0.0
     for li in range(cfg.num_layers):
-        total += attn
+        if not cfg.is_attn_layer(li):
+            total += _ssm_flops(cfg, B, S, decode=decode)
+        elif cfg.use_mla:
+            total += _mla_flops(
+                cfg, B, S, T, triangular=triangular, decode_absorbed=mla_absorbed and decode
+            )
+        else:
+            total += _attn_flops(cfg, B, S, T, triangular=triangular)
         if cfg.is_moe_layer(li):
             total += _moe_flops(cfg, B, S)
         elif cfg.d_ff:
@@ -195,9 +195,12 @@ def hbm_bytes_per_device(
     )
     d = cfg.d_model
     if shape.kind == "train":
-        # float32 parameters read, gradients written, AdamW's moments read
-        # and written (16 B), bf16 copies of the weights (4 B)
-        param_io = P / chips * (4 + 4 + 16 + 4)
+        # float32 parameters read, gradients written, the optimizer's state
+        # (AdamW's moments read and written, 16 B; Adafactor's factors, which
+        # the reference counts as 2 B for jamba, its Adafactor arch), bf16
+        # copies of the weights (4 B)
+        opt_bytes = 2 if "jamba" in cfg.name else 16
+        param_io = P / chips * (4 + 4 + opt_bytes + 4)
         act_io = tokens_local * d * 2 * 2 * (2 + 1) * cfg.num_layers / tp * 4
         return param_io + act_io
     if shape.kind == "prefill":
@@ -218,16 +221,15 @@ def cache_bytes_per_device(
     check_supported(cfg)
     T = cache_len or shape.seq_len
     dp = max(chips // tp, 1)
+    n_attn = cfg.num_attn_layers
+    per_tok = n_attn * (
+        cfg.latent_dim * 2 if cfg.use_mla else 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    )
     per_seq = 0
-    if cfg.family == "ssm":
+    if cfg.ssm_state_dim:
         state = cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state_dim * 4
-        per_seq = cfg.num_layers * (state + cfg.ssm_conv_dim * 3 * 2)
-        per_layer = 0
-    elif cfg.use_mla:
-        per_layer = cfg.latent_dim * 2
-    else:
-        per_layer = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
-    total = shape.global_batch * (T * cfg.num_layers * per_layer + per_seq)
+        per_seq = (cfg.num_layers - n_attn) * (state + cfg.ssm_conv_dim * 3 * 2)
+    total = shape.global_batch * (T * per_tok + per_seq)
     return total / min(chips, dp * tp)
 
 

@@ -96,6 +96,18 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab_size)
 
+    def is_attn_layer(self, layer_idx: int) -> bool:
+        """Hybrid stacks: which layers carry attention (the rest are SSM)."""
+        if not self.attn_layer_period:
+            return self.ssm_state_dim == 0
+        return layer_idx % self.attn_layer_period == self.attn_layer_offset
+
+    @property
+    def num_attn_layers(self) -> int:
+        """Layers with attention: all of a GQA or MLA stack, one a
+        super-block of a hybrid stack, none of an SSM stack."""
+        return sum(self.is_attn_layer(i) for i in range(self.num_layers))
+
     def is_moe_layer(self, layer_idx: int) -> bool:
         if not self.moe_num_experts:
             return False
@@ -123,61 +135,74 @@ class ModelConfig:
         return self.d_inner + 2 * self.ssm_num_groups * self.ssm_state_dim
 
     def num_params(self) -> int:
-        """The reference's analytic parameter count, for the uniform stacks
-        the port runs (it counts one scale vector per norm, no QK-norm
-        scales and no MLA ``kv_norm``; an SSM layer's projections, conv
-        taps, ``A_log``, ``D``, ``dt_bias``, gated norm and ``out_proj``; one
-        vocabulary matrix where the embeddings are tied)."""
+        """The reference's analytic parameter count, layer by layer, for the
+        stacks the port runs (it counts one scale vector per norm, no
+        QK-norm scales and no MLA ``kv_norm``; an SSM layer's projections,
+        conv taps, ``A_log``, ``D``, ``dt_bias``, gated norm and
+        ``out_proj``; one vocabulary matrix where the embeddings are tied).
+        A hybrid stack counts attention where ``is_attn_layer`` and SSM
+        elsewhere, MoE where ``is_moe_layer`` and a dense FFN elsewhere."""
         check_supported(self)
-        d, V, hd = self.d_model, self.padded_vocab, self.resolved_head_dim
-        h = self.num_heads
-        if self.family == "ssm":
-            di, gn, hs = self.d_inner, self.ssm_num_groups * self.ssm_state_dim, self.ssm_num_heads
-            mixer = d * (2 * di + 2 * gn + hs) + self.ssm_conv_dim * self.ssm_conv_width
-            mixer += 3 * hs + di + di * d
-        elif self.use_mla:
-            dn, dr, dv, r = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim, self.kv_lora_rank
-            mixer = d * h * (dn + dr) + d * (r + dr) + r * h * (dn + dv) + h * dv * d
-        else:
-            mixer = d * h * hd * 2 + 2 * d * self.num_kv_heads * hd
-        if self.is_moe_layer(0):
-            f = self.moe_d_ff or self.d_ff
-            ffn = self.moe_num_experts * 3 * d * f + d * self.moe_num_experts
-            ffn += 3 * d * self.moe_num_shared * f
-        else:
-            ffn = (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
-        vocab = (1 if self.tie_embeddings else 2) * V * d
-        return vocab + self.num_layers * (mixer + ffn + 2 * d)
+        d, hd, h = self.d_model, self.resolved_head_dim, self.num_heads
+        n = (1 if self.tie_embeddings else 2) * self.padded_vocab * d
+        for li in range(self.num_layers):
+            if not self.is_attn_layer(li):
+                di, hs = self.d_inner, self.ssm_num_heads
+                gn = self.ssm_num_groups * self.ssm_state_dim
+                n += d * (2 * di + 2 * gn + hs) + self.ssm_conv_dim * self.ssm_conv_width
+                n += 3 * hs + di + di * d
+            elif self.use_mla:
+                dn, dr, dv = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim
+                r = self.kv_lora_rank
+                n += d * h * (dn + dr) + d * (r + dr) + r * h * (dn + dv) + h * dv * d
+            else:
+                n += d * h * hd * 2 + 2 * d * self.num_kv_heads * hd
+            if self.is_moe_layer(li):
+                f = self.moe_d_ff or self.d_ff
+                n += self.moe_num_experts * 3 * d * f + d * self.moe_num_experts
+                n += 3 * d * self.moe_num_shared * f
+            elif self.d_ff:
+                n += (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
+            n += 2 * d
+        return n
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet: it
     carries uniform stacks of GQA or MLA attention, dense or with an MoE FFN
-    on every layer, with or without QK-norm and sliding windows, and
-    uniform SSM stacks (family ``ssm``: mamba2), with tied or separate
-    embeddings (ROADMAP Queue 1 lists the rest under "the remaining model
-    families", with the slice that brings each).  The attention stacks also
-    train; an SSM stack serves, and its training comes with the hybrid
-    stacks (``models.model.forward_train`` refuses it).  Family ``vlm``
-    (chameleon-34b) runs as a dense stack: the reference's model code
-    branches only on ``ssm`` and ``hybrid`` and never reads ``frontend``, so
-    its VQ front end is the embedding table and nothing more."""
+    on every layer, with or without QK-norm and sliding windows, uniform
+    SSM stacks (family ``ssm``: mamba2) and hybrid stacks (family
+    ``hybrid``: jamba's super-blocks of one attention and ``attn_layer_period
+    - 1`` SSM layers, MoE on every ``moe_layer_period``-th layer), with tied
+    or separate embeddings (ROADMAP Queue 1 lists the rest under "the
+    remaining model families", with the slice that brings each).  Every
+    stack it lets through also trains: dense, MoE, MLA, windowed, SSM and
+    hybrid.  MoE on every k-th layer is a hybrid stack's layout only: no
+    uniform stack of the registry has it.  Family ``vlm`` (chameleon-34b)
+    runs as a dense stack: the reference's model code branches only on
+    ``ssm`` and ``hybrid`` and never reads ``frontend``, so its VQ front end
+    is the embedding table and nothing more."""
     later = []
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+    hybrid = cfg.family == "hybrid"
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         later.append(f"family {cfg.family!r}")
     if cfg.use_mla and cfg.q_lora_rank:
         later.append("MLA with query compression")
-    if cfg.moe_num_experts and cfg.moe_layer_period != 1:
-        later.append("MoE on every k-th layer")
-    if cfg.attn_layer_period or (cfg.ssm_state_dim and cfg.family != "ssm"):
-        later.append("hybrid stacks")
+    if cfg.moe_num_experts and cfg.moe_layer_period != 1 and not hybrid:
+        later.append("MoE on every k-th layer of a uniform stack")
+    if not hybrid and (cfg.attn_layer_period or (cfg.ssm_state_dim and cfg.family != "ssm")):
+        later.append("attention and SSM layers outside a hybrid stack")
+    if hybrid and not (cfg.attn_layer_period and cfg.ssm_state_dim and cfg.num_heads):
+        later.append("a hybrid stack without attention, SSM or its period")
+    if hybrid and cfg.num_layers % max(cfg.attn_layer_period, 1):
+        later.append("a hybrid stack of a part super-block")
     if cfg.is_encoder_decoder:
         later.append("encoder-decoder")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet; the port runs uniform GQA or "
-            "MLA stacks (dense or MoE) and uniform SSM stacks, and the later slices of "
-            "ROADMAP Queue 1 (the remaining model families) bring the rest"
+            "MLA stacks (dense or MoE), uniform SSM stacks and hybrid stacks, and the later "
+            "slices of ROADMAP Queue 1 (the remaining model families) bring the rest"
         )
 
 
@@ -260,14 +285,15 @@ class RunConfig:
 
 def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU tests (tiny widths, real structure),
-    as the reference's ``smoke`` makes it for a uniform stack."""
+    as the reference's ``smoke`` makes it: two layers of a uniform stack, one
+    whole super-block (``attn_layer_period`` layers) of a hybrid one."""
     check_supported(cfg)
     changes = dict(
         name=cfg.name + "-smoke",
         d_model=64,
         vocab_size=256,
         d_ff=(128 if cfg.d_ff else 0),
-        num_layers=2,
+        num_layers=cfg.attn_layer_period or 2,
     )
     if cfg.num_heads:
         changes["num_heads"] = 4

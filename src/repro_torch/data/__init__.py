@@ -203,9 +203,11 @@ COSIM_GRID = dict(
     seed=0,
 )
 #: the co-sim's scale mode (``serving_cosim.py::serving_scale``): a recorded
-#: run of 1024 requests on the schedule pipeline with streaming percentiles
+#: run on the schedule pipeline with streaming percentiles, cut from the
+#: benchmark's 1024 requests to 512 (at 1024 it took 92.7 s of
+#: ``chip_smoke.py``, which the hybrid stack's phases pushed past its aim)
 COSIM_SCALE = dict(
-    num_requests=1024,
+    num_requests=512,
     max_batch=16,
     prompt_lo=16,
     prompt_hi=33,

@@ -91,7 +91,9 @@ def model_from_reference(
 
     ``tree`` is the reference's parameter tree with numpy leaves (its
     ``init_params`` output through ``np.asarray``): nested dicts, the layer
-    stack's leaves stacked ``[L, ...]``, layouts as in the reference
+    stack's leaves stacked ``[L, ...]`` (a hybrid stack's ``layers.attn``
+    leaves ``[nb, ...]`` and its ``layers.mamba``, ``layers.dense`` and
+    ``layers.moe`` leaves ``[nb, k, ...]``), layouts as in the reference
     (``wq [d, h, k]``, ``wo [h, k, d]``, ``embed [Vp, d]``, ``lm_head [d, Vp]``;
     an MoE layer's ``moe`` leaves ``router [d, E]``, ``w_gate``/``w_up
     [E, d, f]``, ``w_down [E, f, d]`` and the shared experts' ``ws_gate``/

@@ -8,6 +8,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b --mix WINDOW
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --mix FULL_SSD
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
+        --mix FULL_SSD --layers 8 --experts 8
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 By default it serves stablelm-1.6b at full width on the CUDA card (random
@@ -19,7 +21,14 @@ GB of bf16 weights; deepseek-7b, dense MHA at 32 heads of 128, 13.8 GB;
 chameleon-34b, dense GQA 64:8 at 128 with QK-norm, 68.6 GB, the largest that
 fits the card beside its pool; stablelm-3b, dense MHA at 32 heads of 80, 5.6
 GB; h2o-danube-1.8b, GQA 32:8 at 80 with a 4096-token sliding window, 3.67
-GB; mamba2-1.3b, 48 SSM layers with tied embeddings, 2.7 GB).
+GB; mamba2-1.3b, 48 SSM layers with tied embeddings, 2.7 GB;
+jamba-1.5-large-398b, super-blocks of one GQA 64:8 attention layer at 128
+and 7 SSD layers, MoE 16 experts top-2 on every second layer: 795 GB in
+full, so one card serves it cut with ``--layers 8 --experts 8``, one
+super-block with 8 of 16 experts, 51.6 GB, every width the published one).
+``--layers N`` (a hybrid stack: a multiple of ``attn_layer_period``) and
+``--experts E`` are the one-card cuts of a config too large for the card;
+each is printed as a cut when used.
 
 ``--mix`` picks the request mix (``MIXES``; default ``FULL``):
   FULL      16 requests with prompts of 128..1024 tokens, 32 new tokens
@@ -30,8 +39,8 @@ GB; mamba2-1.3b, 48 SSM layers with tied embeddings, 2.7 GB).
             whole number of windows) and 4 of 4065..4096 whose decode
             crosses position 4096; 8320-token contexts, 16-token blocks;
   FULL_SSD  FULL's seeded draws with every prompt longer than 256 tokens
-            cut to a multiple of 256 (mamba2's chunk: the reference's
-            ``ssd_chunked`` takes no other length);
+            cut to a multiple of 256 (mamba2's and jamba's chunk: the
+            reference's ``ssd_chunked`` takes no other length);
   SMOKE     the reference launcher's sizes (8 requests of 4..15 prompt
             tokens, 8 new tokens, 4 slots, 64-token contexts, 8-token
             blocks), the default with ``--smoke`` (the reduced config).
@@ -103,13 +112,14 @@ def make_prompts(cfg: ModelConfig, spec: ServeSpec, seed: int = 0):
 
 def check_mix(cfg: ModelConfig, spec: ServeSpec, prompts) -> None:
     """Refuse prompts the reference's model cannot run with ``cfg``
-    (``ValueError``): an SSM stack's prompt longer than its chunk must be a
-    whole number of chunks (``ssd_chunked``'s assert), and where contexts
-    outgrow a sliding window, a prompt longer than the window a whole
-    number of windows (the rolling prefill's assert)."""
+    (``ValueError``): where a stack has SSM layers (an SSM or hybrid stack),
+    a prompt longer than its chunk must be a whole number of chunks
+    (``ssd_chunked``'s assert), and where contexts outgrow a sliding window,
+    a prompt longer than the window a whole number of windows (the rolling
+    prefill's assert)."""
     for n in map(len, prompts):
         chunk = min(cfg.ssm_chunk, n)
-        if cfg.family == "ssm" and n % chunk:
+        if cfg.ssm_state_dim and n % chunk:
             raise ValueError(
                 f"{cfg.name}: a prompt of {n} tokens is no whole number of {cfg.ssm_chunk}-token "
                 "chunks, which the reference's ssd_chunked refuses; serve the FULL_SSD mix"
@@ -120,6 +130,21 @@ def check_mix(cfg: ModelConfig, spec: ServeSpec, prompts) -> None:
                 f"{cfg.name}: a prompt of {n} tokens past the {w}-token window is no whole "
                 "number of windows, which the reference's rolling prefill refuses"
             )
+
+
+def cut(cfg: ModelConfig, *, layers=None, experts=None) -> ModelConfig:
+    """``cfg`` cut to its first ``layers`` layers and ``experts`` experts
+    (top-k kept), every width the published one; each cut is printed."""
+    changes = {}
+    if layers is not None:
+        changes["num_layers"] = layers
+    if experts is not None:
+        changes["moe_num_experts"] = experts
+    if not changes:
+        return cfg
+    was = {k: getattr(cfg, k) for k in changes}
+    print(f"cut: {cfg.name}: " + ", ".join(f"{k} {was[k]} -> {v}" for k, v in changes.items()))
+    return replace(cfg, **changes)
 
 
 def new_engine(cfg, model, spec: ServeSpec, prompts, engine_cls=ServingEngine, recorder=None):
@@ -169,9 +194,13 @@ def main(argv=None) -> None:
         "--arch",
         default="stablelm-1.6b",
         help="one of repro_torch.configs.list_archs(): stablelm-1.6b, olmoe-1b-7b, "
-        "deepseek-v2-lite-16b, deepseek-7b, chameleon-34b, stablelm-3b, h2o-danube-1.8b "
-        "or mamba2-1.3b",
+        "deepseek-v2-lite-16b, deepseek-7b, chameleon-34b, stablelm-3b, h2o-danube-1.8b, "
+        "mamba2-1.3b or jamba-1.5-large-398b",
     )
+    ap.add_argument(
+        "--layers", type=int, help="a cut: the first N layers (hybrid: whole super-blocks)"
+    )
+    ap.add_argument("--experts", type=int, help="a cut: the first E experts (top-k kept)")
     ap.add_argument("--smoke", action="store_true", help="reduced config and sizes")
     ap.add_argument(
         "--mix", choices=sorted(MIXES), help="the request mix (default: FULL, SMOKE with --smoke)"
@@ -186,6 +215,7 @@ def main(argv=None) -> None:
     spec = MIXES[args.mix or ("SMOKE" if args.smoke else "FULL")]
     if args.smoke:
         cfg = smoke(cfg)
+    cfg = cut(cfg, layers=args.layers, experts=args.experts)
     for name in ("requests", "max_batch", "max_new_tokens"):
         if getattr(args, name) is not None:
             spec = replace(spec, **{name: getattr(args, name)})

@@ -5,18 +5,25 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --layers 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --steps 16
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-1.5-large-398b --smoke \
+        --device cpu
 
 ``--smoke`` trains the reduced config; without it the full config trains on
 the one CUDA card (stablelm-1.6b: 1.64 B float32 parameters with their AdamW
 moments, 26.3 GB; stablelm-3b: 2.80 B, 44.8 GB), where the reference
 launcher refuses for lack of a TPU runtime.  ``--arch`` takes any of
-``repro_torch.configs.list_archs()`` but mamba2-1.3b, whose SSM training
-comes with the hybrid stacks (the training forward refuses it): h2o-danube-
-1.8b trains with its 4096-token sliding window (1.84 B parameters, 29.4 GB
-with AdamW's moments).  ``--layers N`` cuts the stack to its
-first N layers at full width: deepseek-v2-lite-16b's float32 parameters,
-gradients and AdamW moments take ~260 GB at its 27 layers, ~44 GB at 4;
-deepseek-7b's ~111 GB at 30 layers, chameleon-34b's ~549 GB at 48.  The loop
+``repro_torch.configs.list_archs()``: h2o-danube-1.8b trains with its
+4096-token sliding window (1.84 B parameters, 29.4 GB with AdamW's
+moments), mamba2-1.3b (SSM, 1.34 B, 21.4 GB) at full width and depth, and
+jamba-1.5-large-398b (hybrid) with the reference's per-arch defaults
+(``default_run_config``: Adafactor, remat ``full``), at no full width on one
+card (one super-block with 2 experts is 11.3 B parameters, ~90 GB of
+float32 parameters and gradients): ``--smoke`` trains its reduced config.
+``--layers N`` cuts the stack to its first N layers at full width:
+deepseek-v2-lite-16b's float32 parameters, gradients and AdamW moments take
+~260 GB at its 27 layers, ~44 GB at 4; deepseek-7b's ~111 GB at 30 layers,
+chameleon-34b's ~549 GB at 48.  The loop
 is the reference's: sequences of 64 tokens, batches of ``max(2, 2 *
 microbatches)``, checkpoints every ``max(10, steps // 4)`` steps into
 ``--ckpt-dir`` (none without it), auto-resume.  Attention runs through the
@@ -36,6 +43,18 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.train.loop import train_loop
 
 
+def default_run_config(arch: str, shape: str = "train_4k", **overrides) -> RunConfig:
+    """Per-arch runtime defaults, the reference's: the 398B hybrid trains
+    with Adafactor and remat ``full`` (AdamW's 8 bytes a parameter of
+    moments would not fit)."""
+    kw = dict(arch=arch, shape=shape)
+    if arch == "jamba-1.5-large-398b":
+        kw["optimizer"] = "adafactor"
+        kw["remat_policy"] = "full"
+    kw.update(overrides)
+    return RunConfig(**kw)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b", help="one of configs.list_archs()")
@@ -43,20 +62,21 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0, help="cut the stack to N layers (0: all)")
     ap.add_argument("--ckpt-dir", default=RunConfig.checkpoint_dir)
-    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--optimizer", help="adamw or adafactor (default: the arch's)")
     ap.add_argument("--grad-compression", default="none")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' for the host")
     args = ap.parse_args(argv)
 
-    run = RunConfig(
-        arch=args.arch,
+    kw = {"optimizer": args.optimizer} if args.optimizer else {}
+    run = default_run_config(
+        args.arch,
         steps=args.steps,
-        optimizer=args.optimizer,
         grad_compression=args.grad_compression,
         microbatches=args.microbatches,
         checkpoint_dir=args.ckpt_dir,
         checkpoint_every=max(10, args.steps // 4),
+        **kw,
     )
     cfg = get_config(run.arch)
     if args.smoke:

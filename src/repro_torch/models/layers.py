@@ -6,10 +6,12 @@ layer stack's leaves stacked ``[L, ...]`` as the reference stacks them, and
 ``init_leaf`` draws each leaf.  Each leaf draws from its own
 ``torch.Generator``, seeded from a stable digest of the seed and the leaf's
 path, so a leaf's values do not depend on the order of the tree or on the
-process.  A stacked layer leaf is drawn one layer at a time, each layer from
-a generator of its own (the digest also takes the layer's index), so no
-float32 copy of a whole stack exists (chameleon-34b's ``w_gate`` alone would
-be 34.6 GB; one layer of it is 0.72 GB).  (The reference folds Python's
+process.  A stacked layer leaf is drawn one layer at a time (a hybrid
+stack's one block, or block and position, at a time), each from a generator
+of its own (the digest also takes the index), so no float32 copy of a whole
+stack exists (chameleon-34b's ``w_gate`` alone would be 34.6 GB; one layer
+of it is 0.72 GB; jamba's MoE ``w_gate`` at one position and 8 experts 6.4
+GB).  (The reference folds Python's
 salted ``hash`` of the path into its key, so its weights differ between
 processes; parity with it goes through ``repro_torch.interop``.)
 """
@@ -44,10 +46,12 @@ def keystr(keys) -> str:
     return "".join(f"['{k}']" for k in keys)
 
 
-def leaf_seed(seed: int, keys, layer: Optional[int] = None) -> int:
-    """The CRC of the seed and the leaf's path, and of the layer's index
-    for one layer of a stacked leaf."""
-    tag = f"{seed}:{keystr(keys)}" + ("" if layer is None else f"[{layer}]")
+def leaf_seed(seed: int, keys, layer=None) -> int:
+    """The CRC of the seed and the leaf's path, and of the slice's index
+    (an int, or a tuple such as a hybrid stack's ``(block, position)``) for
+    one slice of a stacked leaf."""
+    idx = () if layer is None else layer if isinstance(layer, tuple) else (layer,)
+    tag = f"{seed}:{keystr(keys)}" + "".join(f"[{i}]" for i in idx)
     return zlib.crc32(tag.encode())
 
 

@@ -1,12 +1,13 @@
 """Decoder stack of the port: the reference's ``models/model.py`` for
 uniform GQA or MLA architectures, dense or with an MoE FFN on every layer,
-with or without a sliding window, and for uniform SSM stacks (mamba2).
+with or without a sliding window, for uniform SSM stacks (mamba2) and for
+hybrid stacks of super-blocks (jamba).
 
 Public API (each mirrors the reference's function of the same name):
   param_specs(cfg)                         -> ParamSpec tree (layers stacked [L, ...])
   init_params(cfg, seed, device=...)       -> Transformer with seeded random weights
   prefill(model, tokens, kv_out, ssm_out=None) -> logits [B, 1, Vp] of the last position
-  decode_step(model, tokens, pos, cache, mla_absorbed=False) -> logits [B, 1, Vp]
+  decode_step(model, tokens, pos, cache, ssm_cache=None, mla_absorbed=False) -> logits [B, 1, Vp]
   forward_train(model, tokens, remat_policy=...) -> (logits [B, S, Vp], aux)
 
 The stack is a ``ModuleList`` of blocks run in a Python loop (the reference
@@ -24,11 +25,19 @@ attention call (``models.attention``).  An SSM stack (family ``ssm``) holds
 ``mixer_norm`` and ``ssm`` per layer and no FFN, as the reference's
 ``_uniform_layer_specs``; it keeps no KV rows (``kv_row_shape`` is ``(0,)``)
 and its state is an ``SSMCache`` (``models.ssm``) that ``prefill`` writes
-(``ssm_out``) and ``decode_step`` updates in place; its training comes with
-the hybrid stacks, and ``forward_train`` refuses it.  Tied embeddings
-(``cfg.tie_embeddings``, mamba2) keep no ``lm_head``: the logits are
-``x @ embed.T``, as the reference's ``_logits``.  The families the port does
-not carry yet raise ``NotImplementedError`` (``configs.base.check_supported``).
+(``ssm_out``) and ``decode_step`` updates in place.  A hybrid stack (family
+``hybrid``, jamba) is ``num_layers / attn_layer_period`` super-blocks
+(``HybridBlock``, the reference's ``_jamba_block``): attention at position
+0, SSM at the others, a dense FFN at even positions and MoE at odd ones;
+its tree is the reference's, ``layers.attn`` leaves ``[nb, ...]`` and
+``layers.mamba``/``dense``/``moe`` leaves ``[nb, k, ...]``; its pool rows
+hold the ``nb`` attention layers' K and V, and its SSM state is an
+``SSMCache`` of ``[nb, P - 1, B, ...]`` (batch on axis 2, as the
+reference's), passed to ``prefill`` as ``ssm_out`` and to ``decode_step``
+as ``ssm_cache`` beside the pool.  Tied embeddings (``cfg.tie_embeddings``,
+mamba2) keep no ``lm_head``: the logits are ``x @ embed.T``, as the
+reference's ``_logits``.  The families the port does not carry yet raise
+``NotImplementedError`` (``configs.base.check_supported``).
 
 Training takes a model built with ``param_dtype`` (float32, the reference's
 master parameters): every parameter is stored in that dtype with
@@ -38,9 +47,12 @@ under the reference's remat policies: ``"full"`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant, nothing saved), ``"minimal"``
 saves the layer's weight-matrix products (``aten.mm``: the reference's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
-saves everything; the three give the same values.  The embedding's backward
-adds the rows of repeated tokens in a fixed order (``embed_lookup``), so that
-two runs of a step agree to the bit.
+saves everything; the three give the same values.  A hybrid stack
+checkpoints each mixer and each FFN of a super-block on its own, nothing
+saved, under ``"minimal"`` and ``"full"`` alike (the reference's
+``remat_positions``).  The embedding's backward adds the rows of repeated
+tokens in a fixed order (``embed_lookup``), so that two runs of a step agree
+to the bit.
 """
 
 from __future__ import annotations
@@ -69,28 +81,55 @@ from repro_torch.models.moe import MoE, moe_specs
 from repro_torch.models.ssm import SSMBlock, SSMCache, init_ssm_cache, ssm_specs
 
 
+def _attn_layer_specs(cfg: ModelConfig) -> dict:
+    return {
+        "attn_norm": norm_spec(cfg, cfg.d_model),
+        "attn": mla_specs(cfg) if cfg.use_mla else gqa_specs(cfg),
+    }
+
+
+def _ffn_layer_specs(cfg: ModelConfig, moe: bool) -> dict:
+    if moe:
+        return {"ffn_norm": norm_spec(cfg, cfg.d_model), "moe": moe_specs(cfg)}
+    return {"ffn_norm": norm_spec(cfg, cfg.d_model), "ffn": mlp_specs(cfg, cfg.d_ff)}
+
+
+def _ssm_layer_specs(cfg: ModelConfig) -> dict:
+    return {"mixer_norm": norm_spec(cfg, cfg.d_model), "ssm": ssm_specs(cfg)}
+
+
+def _hybrid_block_specs(cfg: ModelConfig) -> dict:
+    """One super-block (the reference's ``_jamba_block_specs``): attention
+    at position 0, SSM at 1 .. P - 1, a dense FFN at even positions and MoE
+    at odd ones, each kind stacked over its positions."""
+    P = cfg.attn_layer_period
+    n_moe = P // 2
+    return {
+        "attn": _attn_layer_specs(cfg),
+        "mamba": _stack(_ssm_layer_specs(cfg), P - 1),
+        "dense": _stack(_ffn_layer_specs(cfg, moe=False), P - n_moe),
+        "moe": _stack(_ffn_layer_specs(cfg, moe=True), n_moe),
+    }
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     check_supported(cfg)
     d, Vp = cfg.d_model, cfg.padded_vocab
-    if cfg.family == "ssm":
-        layer = {"mixer_norm": norm_spec(cfg, d), "ssm": ssm_specs(cfg)}
-    else:
-        layer = {
-            "attn_norm": norm_spec(cfg, d),
-            "attn": mla_specs(cfg) if cfg.use_mla else gqa_specs(cfg),
-            "ffn_norm": norm_spec(cfg, d),
-        }
-        if cfg.is_moe_layer(0):
-            layer["moe"] = moe_specs(cfg)
-        else:
-            layer["ffn"] = mlp_specs(cfg, cfg.d_ff)
     specs = {
         "embed": ParamSpec((Vp, d), ("vocab", "embed_table"), stddev=0.02),
         "final_norm": norm_spec(cfg, d),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, Vp), ("embed", "vocab"), init="fan_in")
-    specs["layers"] = _stack(layer, cfg.num_layers)
+    if cfg.family == "hybrid":
+        nb = cfg.num_layers // cfg.attn_layer_period
+        specs["layers"] = _stack(_hybrid_block_specs(cfg), nb)
+    elif cfg.family == "ssm":
+        specs["layers"] = _stack(_ssm_layer_specs(cfg), cfg.num_layers)
+    else:
+        layer = _attn_layer_specs(cfg)
+        layer.update(_ffn_layer_specs(cfg, moe=cfg.is_moe_layer(0)))
+        specs["layers"] = _stack(layer, cfg.num_layers)
     return specs
 
 
@@ -110,6 +149,73 @@ class SSMLayer(torch.nn.Module):
 
     def forward(self, x, cache: Optional[SSMCache] = None, *, decode: bool = False):
         return x + self.ssm(self.mixer_norm(x), cache, decode=decode)
+
+
+class AttnLayer(torch.nn.Module):
+    """A hybrid stack's attention position: ``x + attn(attn_norm(x))``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        self.attn_norm = Norm(cfg, cfg.d_model)
+        self.attn = (MLAAttention if cfg.use_mla else GQAAttention)(cfg, dtype)
+
+    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str):
+        h = self.attn_norm(x)
+        return x + self.attn.prefill(h, positions, kv_out, kv_dtype=kv_dtype, impl=impl)
+
+    def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str):
+        return x + self.attn.decode(self.attn_norm(x), positions, cache, layer, impl=impl)
+
+    def forward_train(self, x, positions, *, impl: str):
+        return x + self.attn.forward_train(self.attn_norm(x), positions, impl=impl)
+
+
+class FFNLayer(torch.nn.Module):
+    """A hybrid stack's FFN position, dense or MoE: ``(x + out, aux)``, aux
+    float32 (0 for a dense FFN), as the reference's ``_apply_ffn``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, *, moe: bool):
+        super().__init__()
+        self.ffn_norm = Norm(cfg, cfg.d_model)
+        self.is_moe = moe
+        if moe:
+            self.moe = MoE(cfg, dtype)
+        else:
+            self.ffn = MLP(cfg, cfg.d_ff, dtype)
+
+    def forward(self, x: torch.Tensor):
+        h = self.ffn_norm(x)
+        if self.is_moe:
+            out, aux = self.moe.forward_aux(h)
+        else:
+            out, aux = self.ffn(h), torch.zeros((), device=x.device)
+        return x + out, aux
+
+
+class HybridBlock(torch.nn.Module):
+    """One super-block of a hybrid stack (the reference's ``_jamba_block``):
+    at each of its ``P = attn_layer_period`` positions a mixer (attention at
+    position 0, SSM layer ``pos - 1`` elsewhere), then an FFN (dense layer
+    ``pos // 2`` at even positions, MoE layer ``pos // 2`` at odd ones).
+    Its modules mirror the parameter tree: ``attn``, and ``mamba``,
+    ``dense`` and ``moe`` lists of the layers stacked ``[nb, k, ...]``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        P = cfg.attn_layer_period
+        self.attn = AttnLayer(cfg, dtype)
+        self.mamba = torch.nn.ModuleList(SSMLayer(cfg, dtype) for _ in range(P - 1))
+        self.dense = torch.nn.ModuleList(
+            FFNLayer(cfg, dtype, moe=False) for _ in range(P - P // 2)
+        )
+        self.moe = torch.nn.ModuleList(FFNLayer(cfg, dtype, moe=True) for _ in range(P // 2))
+
+    def positions(self):
+        """``(pos, mixer, ffn)`` for each position of the super-block."""
+        for pos in range(len(self.mamba) + 1):
+            mixer = self.attn if pos == 0 else self.mamba[pos - 1]
+            ffn = (self.dense if pos % 2 == 0 else self.moe)[pos // 2]
+            yield pos, mixer, ffn
 
 
 class Block(torch.nn.Module):
@@ -172,8 +278,9 @@ class Transformer(torch.nn.Module):
         self.lm_head = None  # tied: the logits read ``embed``
         if not cfg.tie_embeddings:
             self.lm_head = torch.nn.Parameter(torch.empty(d, Vp, dtype=wdt), False)
-        layer_cls = SSMLayer if cfg.family == "ssm" else Block
-        self.layers = torch.nn.ModuleList(layer_cls(cfg, wdt) for _ in range(cfg.num_layers))
+        layer_cls = {"ssm": SSMLayer, "hybrid": HybridBlock}.get(cfg.family, Block)
+        n = cfg.num_layers // (cfg.attn_layer_period if cfg.family == "hybrid" else 1)
+        self.layers = torch.nn.ModuleList(layer_cls(cfg, wdt) for _ in range(n))
         if param_dtype is not None:
             for p in self.parameters():
                 p.requires_grad_(True)
@@ -183,25 +290,42 @@ class Transformer(torch.nn.Module):
         return self.embed.device
 
     def kv_row_shape(self) -> tuple:
-        """How the engine views one token's pool row: ``(L, 2, G, D)``, every
-        layer's K and V, for GQA; ``(L, kv_lora_rank + qk_rope_dim)``, every
-        layer's latent row, for MLA; ``(0,)`` for an SSM stack, which keeps
-        no KV rows."""
-        cfg = self.cfg
-        if cfg.family == "ssm":
+        """How the engine views one token's pool row: ``(La, 2, G, D)``,
+        every attention layer's K and V, for GQA; ``(La, kv_lora_rank +
+        qk_rope_dim)``, every layer's latent row, for MLA; ``(0,)`` for an
+        SSM stack, which keeps no KV rows.  ``La`` counts the attention
+        layers only (a hybrid stack's one a super-block)."""
+        cfg, La = self.cfg, self.cfg.num_attn_layers
+        if not La:
             return (0,)
         if cfg.use_mla:
-            return (cfg.num_layers, cfg.latent_dim)
-        return (cfg.num_layers, 2, cfg.num_kv_heads, cfg.resolved_head_dim)
+            return (La, cfg.latent_dim)
+        return (La, 2, cfg.num_kv_heads, cfg.resolved_head_dim)
 
     def kv_width(self) -> int:
         """Elements of one token's cache across every layer (a pool row)."""
         return math.prod(self.kv_row_shape())
 
+    def stacked(self, keys) -> list:
+        """``(index, parameter)`` for every slice of the stacked layer leaf
+        at ``keys`` (``("layers", ...)``): index ``(i,)`` for layer ``i`` of
+        a uniform stack; in a hybrid stack ``(b,)`` for block ``b``'s
+        attention leaves and ``(b, j)`` for its ``j``-th SSM, dense or MoE
+        layer's (leaves stacked ``[nb, k, ...]``)."""
+        out = []
+        for i, layer in enumerate(self.layers):
+            sub = getattr(layer, keys[1])
+            if isinstance(sub, torch.nn.ModuleList):
+                out += [((i, j), _param(m, keys[2:])) for j, m in enumerate(sub)]
+            else:
+                out.append(((i,), _param(layer, keys[1:])))
+        return out
+
     def load_tree(self, tree: Mapping[str, Any]) -> "Transformer":
         """Copy a parameter tree laid out as ``param_specs`` (the reference's
-        tree: nested dicts, layer leaves stacked ``[L, ...]``, array-likes)
-        into the modules, casting each leaf to its parameter's dtype."""
+        tree: nested dicts, layer leaves stacked ``[L, ...]``, a hybrid
+        stack's ``[nb, ...]`` and ``[nb, k, ...]``, array-likes) into the
+        modules, casting each leaf to its parameter's dtype."""
         for keys, spec in iter_specs(param_specs(self.cfg)):
             leaf = tree
             for k in keys:
@@ -213,9 +337,9 @@ class Transformer(torch.nn.Module):
         """The parameters as a float32 numpy tree laid out as ``param_specs``
         (the inverse of ``load_tree``)."""
         tree: dict = {}
-        for keys, _ in iter_specs(param_specs(self.cfg)):
+        for keys, spec in iter_specs(param_specs(self.cfg)):
             if keys[0] == "layers":
-                val = torch.stack([_param(layer, keys[1:]) for layer in self.layers])
+                val = torch.stack([p for _, p in self.stacked(keys)]).reshape(spec.shape)
             else:
                 val = _param(self, keys)
             node = tree
@@ -230,8 +354,8 @@ class Transformer(torch.nn.Module):
         if tuple(value.shape) != spec.shape:
             raise ValueError(f"{keys}: shape {tuple(value.shape)}, expected {spec.shape}")
         if keys[0] == "layers":
-            for layer, v in zip(self.layers, value):
-                _param(layer, keys[1:]).copy_(v)
+            for idx, p in self.stacked(keys):
+                p.copy_(value[idx])
         else:
             _param(self, keys).copy_(value)
 
@@ -244,10 +368,16 @@ class Transformer(torch.nn.Module):
 
     def init_ssm_cache(self, batch: int) -> SSMCache:
         """A zero SSM state for ``batch`` sequences on the model's device:
-        float32 state, conv window in the KV dtype (bf16, the reference's)."""
-        return init_ssm_cache(
-            self.cfg, self.cfg.num_layers, batch, device=self.device, conv_dtype=self.kv_dtype
-        )
+        float32 state, conv window in the KV dtype (bf16, the reference's).
+        A hybrid stack's is ``[nb, P - 1, batch, ...]``, batch on axis 2,
+        and keeps its conv window in bf16 whatever the KV dtype, as the
+        reference's hybrid cache does beside an attention cache of any
+        dtype."""
+        cfg = self.cfg
+        lead, conv_dtype = cfg.num_layers, self.kv_dtype
+        if cfg.family == "hybrid":
+            lead, conv_dtype = (len(self.layers), cfg.attn_layer_period - 1), torch.bfloat16
+        return init_ssm_cache(cfg, lead, batch, device=self.device, conv_dtype=conv_dtype)
 
 
 def _param(module: torch.nn.Module, keys) -> torch.Tensor:
@@ -291,8 +421,10 @@ def init_params(
     """A :class:`Transformer` with random weights drawn on ``device``
     (default: CUDA) by the reference's init rules, each leaf from its own
     generator seeded from ``seed`` and the leaf's path; a stacked layer leaf
-    layer by layer, straight into that layer's parameter, each layer's
-    generator seeded from the path and the layer's index (``leaf_seed``)."""
+    slice by slice (a layer; a hybrid stack's block, or block and position),
+    straight into that slice's parameter, each slice's generator seeded from
+    the path and the slice's index (``leaf_seed``), so that no float32 copy
+    of a whole stack exists."""
     model = empty_model(
         cfg,
         device=device,
@@ -305,9 +437,9 @@ def init_params(
         if keys[0] != "layers":
             model._assign(keys, init_leaf(spec, leaf_seed(seed, keys), model.device), spec)
             continue
-        for i, layer in enumerate(model.layers):
-            x = init_leaf(spec, leaf_seed(seed, keys, i), model.device, spec.shape[1:])
-            _param(layer, keys[1:]).copy_(x)
+        for idx, p in model.stacked(keys):
+            x = init_leaf(spec, leaf_seed(seed, keys, idx), model.device, spec.shape[len(idx) :])
+            p.copy_(x)
     return model
 
 
@@ -316,24 +448,33 @@ def prefill(
     model: Transformer, tokens: torch.Tensor, kv_out=None, ssm_out: Optional[SSMCache] = None
 ) -> torch.Tensor:
     """Run the prompt ``tokens [B, S]``.  ``kv_out`` (``[B, S, *kv_row_shape]``,
-    or None) receives every layer's fresh K/V (MLA: latent rows).  An SSM
-    stack starts from ``ssm_out``'s state (a zero state if None), as the
-    reference's prefill starts from its cache's, and writes its final state
-    and conv window there.  Returns the last position's logits ``[B, 1,
-    Vp]`` in the compute dtype."""
+    or None) receives every attention layer's fresh K/V (MLA: latent rows).
+    An SSM or hybrid stack starts its SSM layers from ``ssm_out``'s state (a
+    zero state if None), as the reference's prefill starts from its cache's,
+    and writes their final state and conv window there.  Returns the last
+    position's logits ``[B, 1, Vp]`` in the compute dtype."""
     B, S = tokens.shape
     x = model._embed(tokens)
-    if model.cfg.family == "ssm":
+    family = model.cfg.family
+    if family in ("ssm", "hybrid"):
         cache = model.init_ssm_cache(B) if ssm_out is None else ssm_out
+    if family == "ssm":
         for layer, blk in enumerate(model.layers):
-            x = blk(x, SSMCache(cache.ssm[layer], cache.conv[layer]))
+            x = blk(x, cache.layer(layer))
         return model._logits(x[:, -1:])
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    kw = dict(kv_dtype=model.kv_dtype, impl=model.impl)
     for layer, blk in enumerate(model.layers):
         kv = None if kv_out is None else kv_out[:, :, layer]
-        x = x + blk.attn.prefill(
-            blk.attn_norm(x), positions, kv, kv_dtype=model.kv_dtype, impl=model.impl
-        )
+        if family == "hybrid":
+            for pos, mixer, ffn in blk.positions():
+                if pos == 0:
+                    x = mixer.prefill(x, positions, kv, **kw)
+                else:
+                    x = mixer(x, cache.layer(layer, pos - 1))
+                x, _ = ffn(x)
+            continue
+        x = x + blk.attn.prefill(blk.attn_norm(x), positions, kv, **kw)
         x = x + blk.feed_forward(x)
     return model._logits(x[:, -1:])
 
@@ -344,23 +485,35 @@ def decode_step(
     tokens: torch.Tensor,
     pos: torch.Tensor,
     cache,
+    ssm_cache: Optional[SSMCache] = None,
     *,
     mla_absorbed: bool = False,
 ) -> torch.Tensor:
     """One token per sequence: tokens ``[B, 1]``, pos ``[B]`` absolute index.
     Writes each active slot's K/V into the pool (``cache``, a ``PagedKV``)
     and returns ``[B, 1, Vp]``; an SSM stack takes an ``SSMCache`` of ``B``
-    sequences instead, updated in place (it reads no position).
-    ``mla_absorbed`` picks MLA's decode form, as the reference's does
-    (default: the non-absorbed form); GQA ignores it."""
+    sequences as ``cache`` instead, updated in place (it reads no position),
+    and a hybrid stack both: the pool as ``cache`` for its attention layers
+    and its SSM layers' state as ``ssm_cache``.  ``mla_absorbed`` picks
+    MLA's decode form, as the reference's does (default: the non-absorbed
+    form); GQA ignores it."""
     x = model._embed(tokens)
-    if model.cfg.family == "ssm":
+    family = model.cfg.family
+    if family == "ssm":
         for layer, blk in enumerate(model.layers):
-            x = blk(x, SSMCache(cache.ssm[layer], cache.conv[layer]), decode=True)
+            x = blk(x, cache.layer(layer), decode=True)
         return model._logits(x)
     positions = pos.reshape(-1, 1)
     kw = {"absorbed": mla_absorbed} if model.cfg.use_mla else {}
     for layer, blk in enumerate(model.layers):
+        if family == "hybrid":
+            for p, mixer, ffn in blk.positions():
+                if p == 0:
+                    x = mixer.decode(x, positions, cache, layer, impl=model.impl)
+                else:
+                    x = mixer(x, ssm_cache.layer(layer, p - 1), decode=True)
+                x, _ = ffn(x)
+            continue
         x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl, **kw)
         x = x + blk.feed_forward(x)
     return model._logits(x)
@@ -408,6 +561,9 @@ def _save_matmuls(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+REMAT_POLICIES = ("none", "minimal", "full")
+
+
 def _remat(fn, policy: str):
     """``fn`` under the reference's remat policy ``none``/``minimal``/``full``."""
     if policy == "none":
@@ -424,18 +580,34 @@ def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str
     """tokens ``[B, S]`` -> ``(logits [B, S, Vp]`` in the compute dtype,
     ``aux`` float32 scalar, the layers' summed MoE load-balancing loss``)``:
     the reference's ``forward_train`` for a decoder-only stack, with
-    gradients to every parameter of a training model.  An SSM stack raises
-    ``NotImplementedError``: its training comes with the hybrid stacks."""
-    if model.cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{model.cfg.name}: training an SSM stack is not ported yet; ROADMAP Queue 1, "
-            "hybrid stacks (jamba-1.5-large-398b), brings it (the port serves SSM stacks)"
-        )
+    gradients to every parameter of a training model.  A uniform stack
+    takes ``remat_policy`` per layer; a hybrid stack checkpoints each
+    mixer and each FFN of a super-block on its own under any policy but
+    ``"none"`` (the reference's ``remat_positions``: nothing saved, so the
+    backward holds one sub-layer's activations at a time)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_lookup(model.embed, tokens).to(model.compute_dtype)
     aux = torch.zeros((), device=tokens.device)
+    family = model.cfg.family
+    if family == "hybrid":
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}; got {remat_policy!r}")
+        policy = "none" if remat_policy == "none" else "full"
+        for blk in model.layers:
+            for pos, mixer, ffn in blk.positions():
+                if pos == 0:
+                    fn = functools.partial(mixer.forward_train, impl=model.impl)
+                    x = _remat(fn, policy)(x, positions)
+                else:
+                    x = _remat(mixer, policy)(x)
+                x, a = _remat(ffn, policy)(x)
+                aux = aux + a
+        return model._logits(x), aux
     for blk in model.layers:
+        if family == "ssm":
+            x = _remat(blk, remat_policy)(x)
+            continue
         x, a = _remat(functools.partial(blk.train_layer, impl=model.impl), remat_policy)(
             x, positions
         )
@@ -444,6 +616,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str
 
 
 __all__ = [
+    "HybridBlock",
     "PagedKV",
     "SSMCache",
     "Transformer",

@@ -13,7 +13,13 @@ there is no TPU kernel here to port.  Its einsums take bf16 operands with
 ``preferred_element_type=float32``; here the same operands (rounded to the
 compute dtype where the reference rounds them) are multiplied in float32,
 which is that contract.  All decay arithmetic is in log space: ``A < 0``,
-so every ``exp`` argument the result keeps is ``<= 0``.  The state is
+so every ``exp`` argument the result keeps is ``<= 0``; the intra-chunk
+segment sums above the diagonal, which the result drops, are set to
+``-inf`` before the exponent, where the reference exponentiates them (they
+are positive and overflow float32 once a chunk's decay passes ~88): the
+values are the same, and the gradients stay finite where the reference's
+turn NaN.  Under autograd (training, ``cache=None``) every piece is
+differentiable as it stands.  The state is
 float32, the conv window in the cache's dtype (bf16), as the reference's
 ``init_ssm_cache``.
 
@@ -26,6 +32,7 @@ reference's engine refuses.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -58,29 +65,40 @@ def ssm_specs(cfg: ModelConfig) -> dict:
 
 @dataclass
 class SSMCache:
-    """The recurrent state of a stack of SSM layers: ``ssm [L, B, h, p, n]``
-    float32 and the conv window ``conv [L, B, W - 1, conv_dim]`` (the raw x,
-    B and C of the last ``W - 1`` tokens), as the reference's cache."""
+    """The recurrent state of a stack of SSM layers: ``ssm [*layers, B, h,
+    p, n]`` float32 and the conv window ``conv [*layers, B, W - 1,
+    conv_dim]`` (the raw x, B and C of the last ``W - 1`` tokens), as the
+    reference's cache.  ``layers`` is ``(L,)`` for a uniform stack and
+    ``(nb, attn_layer_period - 1)`` for a hybrid one, whose SSM leaves carry
+    batch on axis 2 (the reference's hybrid cache)."""
 
     ssm: torch.Tensor
     conv: torch.Tensor
 
     def slot(self, b: int) -> "SSMCache":
         """Slot ``b``'s state as a ``B = 1`` view (writes go through)."""
-        return SSMCache(self.ssm[:, b : b + 1], self.conv[:, b : b + 1])
+        return SSMCache(self.ssm[..., b : b + 1, :, :, :], self.conv[..., b : b + 1, :, :])
+
+    def layer(self, *idx: int) -> "SSMCache":
+        """One layer's state (``[B, ...]`` views) at ``idx`` among the layers."""
+        return SSMCache(self.ssm[idx], self.conv[idx])
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (self.ssm, self.conv))
 
 
 def init_ssm_cache(
-    cfg: ModelConfig, num_layers: int, batch: int, *, device=None, conv_dtype=torch.bfloat16
+    cfg: ModelConfig, num_layers, batch: int, *, device=None, conv_dtype=torch.bfloat16
 ) -> SSMCache:
+    """A zero state of ``batch`` sequences; ``num_layers`` is the number of
+    layers or a tuple of the leading layer dims (a hybrid stack's ``(nb,
+    attn_layer_period - 1)``)."""
     h, ph, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim
+    lead = tuple(num_layers) if isinstance(num_layers, tuple) else (num_layers,)
     return SSMCache(
-        torch.zeros((num_layers, batch, h, ph, n), dtype=torch.float32, device=device),
+        torch.zeros((*lead, batch, h, ph, n), dtype=torch.float32, device=device),
         torch.zeros(
-            (num_layers, batch, cfg.ssm_conv_width - 1, cfg.ssm_conv_dim),
+            (*lead, batch, cfg.ssm_conv_width - 1, cfg.ssm_conv_dim),
             dtype=conv_dtype,
             device=device,
         ),
@@ -139,6 +157,10 @@ def ssd_chunked(
         Gm = torch.einsum("blgn,bkgn->bglk", Cc, Bc)
         lah = la.permute(0, 2, 3, 1)  # [b, g, m, l]
         seg = lah[..., :, None] - lah[..., None, :]  # [b, g, m, l, k]
+        # -inf above the diagonal before the exponent: there seg > 0 and
+        # exp(seg) overflows once a chunk's decay passes ~88, and the where's
+        # backward would carry 0 * inf = NaN into the kept cells' gradients
+        seg = seg.masked_fill(~mask, -math.inf)
         M = torch.where(mask, Gm[:, :, None] * torch.exp(seg), 0.0)
         y_intra = torch.einsum("bgmlk,bkgmp->blgmp", M.to(dt).float(), xc)
         y_inter = torch.einsum(

@@ -7,10 +7,12 @@ tensors.
 Updates are *subtracted* by the caller.  All state is float32.
 
 A leaf is one of the reference's parameter leaves, the layer stack's leaves
-stacked ``[L, ...]`` (``train.step`` keeps the parameters so), so every
-reduction spans the leaf as the reference's does: Adafactor's update
-clipping takes its RMS over the whole stacked leaf, and a stacked norm scale
-``[L, d]`` is factored across its layers.  The moments are updated in place
+stacked ``[L, ...]`` (a hybrid stack's ``[nb, ...]`` and ``[nb, k, ...]``,
+up to rank 5; ``train.step`` keeps the parameters so), so every reduction
+spans the leaf as the reference's does: Adafactor's update clipping takes
+its RMS over the whole stacked leaf, and factors the last two dims of every
+leaf of rank >= 2, so a stacked norm scale ``[L, d]`` is factored across its
+layers and a hybrid MoE leaf ``[nb, k, E, d, f]`` over ``(d, f)``.  The moments are updated in place
 (the reference builds new arrays), which keeps one copy of the optimizer
 state on the card; ``clip_by_global_norm`` scales the gradients in place.
 """

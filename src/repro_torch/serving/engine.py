@@ -39,9 +39,16 @@ the tokens are the reference's.  An SSM model (mamba2) keeps no KV rows: the
 engine holds each slot's SSM state and conv window (``models.ssm.SSMCache``,
 ``[L, max_batch, ...]``) beside the pool, prefill at B = 1 writes the slot's
 state (from zero, as the reference's fresh cache) and each decode step
-updates every slot's in place; there is no ``banked_copy`` launch.  The pool
-still allocates and frees blocks per request whatever the family, as the
-reference's does, so the KV access record is the reference's.
+updates every slot's in place (idle slots step theirs on token 0, as the
+reference's batched decode does, and are zeroed at their next admission);
+there is no ``banked_copy`` launch.  A hybrid model (jamba) keeps both: KV
+rows in the pool for its attention layers only (``W = nb * 2 * G * D``,
+one attention layer a super-block; prefill through flash and
+``banked_copy``, decode through paged attention) and each slot's SSM state
+beside it (``[nb, P - 1, max_batch, ...]``, batch on axis 2 as the
+reference's hybrid cache).  The pool still allocates and frees blocks per
+request whatever the family, as the reference's does, so the KV access
+record is the reference's.
 
 Tokens, slot assignment, block placement and step count equal the
 reference's.  Greedy argmax runs over the padded vocabulary, as there.
@@ -137,8 +144,9 @@ class ServingEngine:
         self.kv = self.ssm = None
         if params is None:  # traffic-only: no device store
             return
-        if cfg.family == "ssm":  # per-slot recurrent state, no KV rows
+        if cfg.family in ("ssm", "hybrid"):  # per-slot recurrent state beside the pool
             self.ssm = params.init_ssm_cache(max_batch)
+        if not cfg.num_attn_layers:  # an SSM stack keeps no KV rows
             return
         self.kv = torch.zeros(
             (nblocks, block_size, params.kv_width()), dtype=params.kv_dtype, device=params.device
@@ -193,17 +201,19 @@ class ServingEngine:
         t0 = time.perf_counter()
         model, bs = self.params, self.block_size
         tokens = self._device(r.prompt.astype(np.int64))[None]
-        if self.ssm is not None:
+        state = None
+        if self.ssm is not None:  # from a zero state, as the reference's fresh cache
             state = self.ssm.slot(slot)
             state.ssm.zero_()
             state.conv.zero_()
+        if self.kv is None:
             logits = M.prefill(model, tokens, ssm_out=state)
             self._admitted(slot, r, logits, t0)
             return
         nblk = -(-S // bs)
         burst = self.kv.new_zeros((1, nblk, bs, self.kv.shape[2]))
         kv_out = burst.view(1, nblk * bs, *self.kv_layers.shape[2:])[:, :S]
-        logits = M.prefill(model, tokens, kv_out)
+        logits = M.prefill(model, tokens, kv_out, ssm_out=state)
         table = self._device(np.asarray([self.pool.by_request[r.rid][:nblk]], np.int32))
         BANKED_COPY[model.impl](self.kv, burst, table)
         self._admitted(slot, r, logits, t0)
@@ -224,7 +234,7 @@ class ServingEngine:
         slots' next tokens."""
         model, bs, B = self.params, self.block_size, self.max_batch
         toks = np.zeros((B, 1), np.int64)
-        if self.ssm is not None:  # every slot steps its state; idle slots read token 0
+        if self.kv is None:  # every slot steps its state; idle slots read token 0
             for i in active:
                 toks[i, 0] = self.slot_req[i].out_tokens[-1]
             logits = M.decode_step(model, self._device(toks), None, self.ssm)  # no position
@@ -245,7 +255,12 @@ class ServingEngine:
             self.kv_layers, self._device(table), self._device(lengths), w[0], w[1], w[2]
         )
         logits = M.decode_step(
-            model, self._device(toks), self._device(self.slot_pos), cache, mla_absorbed=True
+            model,
+            self._device(toks),
+            self._device(self.slot_pos),
+            cache,
+            self.ssm,
+            mla_absorbed=True,
         )
         return self._pick([self.slot_req[i] for i in active], logits[active, 0])
 

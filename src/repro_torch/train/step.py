@@ -10,7 +10,8 @@ in the reference's order.  Metrics: ``loss``, ``aux_loss``, ``grad_norm``
 tensors.
 
 The state's parameters are the reference's tree: one float32 tensor per
-leaf, the layer stack's leaves stacked ``[L, ...]``.  The model's per-layer
+leaf, the layer stack's leaves stacked ``[L, ...]`` (a hybrid stack's
+``[nb, ...]`` and ``[nb, k, ...]``).  The model's per-layer
 parameters are views into those tensors and their ``.grad`` views into
 ``TrainState.grads``, so the forward runs the port's modules while the
 optimizer, the int8 scales and the checkpoints see the reference's leaves.
@@ -68,19 +69,20 @@ def _set(tree: dict, keys, value) -> None:
 @torch.no_grad()
 def bind_stacked(model: M.Transformer) -> Tuple[dict, dict]:
     """Gather the model's parameters into the reference's tree, one tensor
-    per leaf (layer leaves stacked ``[L, ...]``), and make every parameter a
-    view of its slice and its ``.grad`` a view of the same slice of a zeroed
-    gradient tree.  Returns ``(params, grads)``."""
+    per leaf (layer leaves stacked ``[L, ...]``; a hybrid stack's ``[nb,
+    ...]`` and ``[nb, k, ...]``), and make every parameter a view of its
+    slice and its ``.grad`` a view of the same slice of a zeroed gradient
+    tree.  Returns ``(params, grads)``."""
     params: dict = {}
     grads: dict = {}
-    for keys, _ in iter_specs(M.param_specs(model.cfg)):
+    for keys, spec in iter_specs(M.param_specs(model.cfg)):
         if keys[0] == "layers":
-            ps = [M._param(layer, keys[1:]) for layer in model.layers]
-            leaf = torch.stack([p.detach() for p in ps])
+            ps = model.stacked(keys)
+            leaf = torch.stack([p.detach() for _, p in ps]).reshape(spec.shape)
             grad = torch.zeros_like(leaf)
-            for p, pv, gv in zip(ps, leaf, grad):
-                p.data = pv
-                p.grad = gv
+            for idx, p in ps:
+                p.data = leaf[idx]
+                p.grad = grad[idx]
         else:
             p = M._param(model, keys)
             leaf = p.detach()

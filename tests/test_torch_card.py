@@ -441,12 +441,12 @@ def test_short_moe_serving_run_at_head_dim_128(card):
     _serve_reduced(head_dim=128, arch="olmoe-1b-7b")
 
 
-def _serve_reduced(head_dim, arch="stablelm-1.6b"):
+def _serve_reduced(head_dim, arch="stablelm-1.6b", **overrides):
     from repro_torch.configs import get_config, smoke
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = smoke(get_config(arch), head_dim=head_dim)
+    cfg = smoke(get_config(arch), head_dim=head_dim, **overrides)
     spec = serve.SMOKE
     prompts = serve.make_prompts(cfg, spec, seed=1)
     plan, _ = serve.new_engine(None, None, spec, prompts)
@@ -461,7 +461,7 @@ def _serve_reduced(head_dim, arch="stablelm-1.6b"):
         tokens[impl] = [r.out_tokens for r in reqs]
         launches = dict(LAUNCHES)
         if impl == "kernel":
-            L = cfg.num_layers
+            L = cfg.num_attn_layers
             assert launches["flash_attention"] == L * plan.stats.admissions
             assert launches["banked_copy"] == plan.stats.admissions
             assert launches["paged_attention"] == L * plan.stats.decode_steps
@@ -501,6 +501,7 @@ BWD_CASES = [
     (2, 300, 300, 8, 2, 80, True, 64),  # window at D = 80, GQA 4:1
     (1, 100, 333, 8, 1, 80, False, 0),  # ragged T at D = 80, no mask
     (1, 300, 500, 8, 8, 80, True, 0),  # causal, T > S, D = 80
+    (1, 517, 517, 16, 2, 128, True, 0),  # jamba's 8 heads a group at 128, ragged S
 ]
 
 
@@ -1150,3 +1151,98 @@ def test_short_training_run_with_a_window(card):
         want = (3 * 2 * cfg.num_layers, 3 * cfg.num_layers) if impl == "pallas" else (0, 0)
         assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
     np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid stacks (jamba-1.5-large-398b): one attention layer a super-block at
+# 8 query heads a KV group of 128, the SSM layers beside the pool
+# ---------------------------------------------------------------------------
+
+
+def test_short_hybrid_serving_run(card):
+    """smoke(jamba) at jamba's attention shape, 8 query heads over one KV
+    group at head dim 128, two super-blocks: flash, banked_copy and paged
+    launch once per attention layer as predicted (no launch for the SSM
+    layers), and the tokens equal the plain path's (float32)."""
+    _serve_reduced(
+        head_dim=128, arch="jamba-1.5-large-398b", num_heads=8, num_kv_heads=1, num_layers=16
+    )
+
+
+def test_banked_copy_at_the_hybrid_pool_row(card):
+    """banked_copy at jamba's serving cut's pool row: one attention layer's
+    K and V of 8 groups at 128, W = 2048 (a 65,536-byte tile), bit for bit
+    against the plain version and twice alike."""
+    from repro_torch.kernels.banked_copy.ops import banked_copy
+    from repro_torch.kernels.banked_copy.ref import banked_copy_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2048)
+    pool, new = _randn(gen, (256, 16, 2048), torch.bfloat16), _randn(
+        gen, (1, 64, 16, 2048), torch.bfloat16
+    )
+    tbl = _tables(gen, 1, 64, 256, [64])
+    got = banked_copy(pool.clone(), new, tbl)
+    assert torch.equal(got, banked_copy_ref(pool, new, tbl))
+    assert torch.equal(got, banked_copy(pool.clone(), new, tbl))
+
+
+def test_short_hybrid_training_run_through_the_kernels(card):
+    """Three Adafactor steps (jamba's optimizer) of smoke(jamba) with 16
+    heads over 2 groups at 128 (jamba's 8 : 1) and two super-blocks on the
+    card, float32 compute: the kernels launch once per attention layer each
+    way (twice forward: each position is checkpointed) and the losses equal
+    the plain path's within 1e-4."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import step as S
+
+    cfg = smoke(
+        get_config("jamba-1.5-large-398b"),
+        head_dim=128,
+        num_heads=16,
+        num_kv_heads=2,
+        num_layers=16,
+    )
+    losses = {}
+    for impl in ("pallas", "jnp"):
+        run = RunConfig(
+            compute_dtype="float32",
+            attn_impl=impl,
+            optimizer="adafactor",
+            learning_rate=1e-3,
+            warmup_steps=1,
+        )
+        state = S.init_train_state(cfg, run, 0)
+        fn = S.make_train_step(cfg, run, total_steps=3)
+        pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=64)
+        reset_launches()
+        losses[impl] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
+        want = (3 * 2 * 2, 3 * 2) if impl == "pallas" else (0, 0)
+        assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
+    np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)
+
+
+def test_short_ssm_training_run(card):
+    """Three AdamW steps of smoke(mamba2-1.3b) on the card (float32), from
+    the CPU's initial state: no kernel launch, and the losses equal the
+    CPU's within 1e-4."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.interop import load_train_state, train_state_to_reference
+    from repro_torch.train import step as S
+
+    cfg = smoke(get_config("mamba2-1.3b"))
+    run = RunConfig(compute_dtype="float32", learning_rate=1e-3, warmup_steps=1)
+    start = train_state_to_reference(S.init_train_state(cfg, run, 0, device="cpu"))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        state = S.init_train_state(cfg, run, 0, device=device)
+        load_train_state(state, start)
+        fn = S.make_train_step(cfg, run, total_steps=3)
+        pipe = TokenPipeline(cfg.vocab_size, batch=2, seq_len=64)
+        reset_launches()
+        losses[device] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
+        assert sum(LAUNCHES.values()) == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0, atol=1e-4)

@@ -29,7 +29,7 @@ from repro.models import model as RM  # noqa: E402
 from repro.models import ssm as RS  # noqa: E402
 from repro.serving import record as ref_record  # noqa: E402
 from repro_torch.configs import get_config, smoke  # noqa: E402
-from repro_torch.configs.base import RunConfig  # noqa: E402
+from repro_torch.configs.base import ModelConfig, RunConfig  # noqa: E402
 from repro_torch.interop import model_from_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -295,7 +295,17 @@ def test_the_engine_and_launcher_refuse_what_the_reference_asserts():
 
 
 def test_forward_train_is_refused():
+    """The SSM stack's training forward is no longer refused (it came with
+    the hybrid stacks): it runs, with no aux loss, and its logits are the
+    serving forward's; the encoder-decoder family is still refused."""
     cfg, _ = _cfgs()
     state = S.init_train_state(cfg, RunConfig(compute_dtype="float32"), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid stacks"):
-        M.forward_train(state.model, torch.zeros(1, 32, dtype=torch.int64))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(0))
+    logits, aux = M.forward_train(state.model, tokens)
+    assert float(aux) == 0.0 and logits.shape == (2, 32, cfg.padded_vocab)
+    with torch.no_grad():
+        last = M.prefill(state.model, tokens)
+    _close(logits[:, -1:].detach(), last.numpy(), 1e-5)
+    whisper = ModelConfig(**dataclasses.asdict(ref_get_config("whisper-base")))
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        M.param_specs(whisper)
