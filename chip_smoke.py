@@ -134,6 +134,25 @@ Phases, one JSON line each; any failure exits non-zero:
                 paged, row 3c's; banked_copy at W = 2048, row 2j); its
                 banked_copy tile is also held to its plain version in 2
                 (bit for bit, twice alike).  Prints its seconds
+  11w. serving_whisper  whisper-base at full width and depth (6 encoder
+                layers over 1500 frames, 6 decoder layers with
+                cross-attention, 8 heads of 64, 98.6 M parameters) on the
+                SPEECH mix (16 requests of 4..224 prompt tokens, 192 new
+                tokens, 8 slots, 448-token contexts): each admission encodes
+                zero frames; launches 18 flash (6 encoder, 6 cross, 6 self)
+                and one banked_copy an admission, 12 paged splits and
+                merges a decode step (6 over the pool, 6 over the slots'
+                cross K/V beside it); the checks of 8 in bf16 and float32,
+                every attention's ``wq``/``wk`` tempered with the scores'
+                std per flash call printed before and after; its decode
+                profile; rows 3e (paged self), 2e (banked_copy at W = 6144),
+                4e (the encoder's flash, S = T = 1500, non-causal), 4x
+                (cross-attention at prefill over 1500) and 3x (paged over
+                the cross buffer), each against SDPA, and the flash forward
+                at S = 1 over 1500 beside 3x.  Its kernels are also held to
+                their plain versions in 2 (flash at S = T = 1500, S 100 and
+                224 over 1500, S = 1 over 1500; paged over the 94-block
+                cross buffer; banked_copy at W = 6144).  Prints its seconds
   12. sweep     the scale path's main path, through the public entry points
                  with B lanes per arbiter launch: the golden ``"batch"`` entry
                  through ``simulate_batch`` and the three golden cases through
@@ -202,7 +221,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  2048, 16 heads over 2 groups at 128, 16 experts top-2, 3.0 B
                  parameters, B 2 x S 4096, Adafactor, three steps kernel
                  against plain, launches 6 / 3; its heads among the kernel
-                 checks, rows 4tj and 5j); and
+                 checks, rows 4tj and 5j); whisper-base at full width and
+                 depth (``train_whisper``: B 8 x 4096 decoder tokens beside
+                 8 x 1500 seeded frames, AdamW, remat full, three steps
+                 kernel against plain, launches 108 / 54, model-FLOPs share
+                 from the cost model's encoder-decoder terms; its non-causal
+                 shapes among the kernel checks: S = T = 1500, S 4096 and
+                 100 over 1500; rows 4te / 5e at the encoder's shape and
+                 4tx / 5x at the cross-attention's); and
                  the timing rows of the backward (with its rate on its own
                  products and its share of the 5-product bound) and of the
                  forward with its log-sum-exp, MLA's against SDPA's backend
@@ -1603,6 +1629,16 @@ def phase_llm_kernels() -> dict:
         # h2o-danube-1.8b's prefill at the WINDOW mix's longest prompt: 32
         # heads over 8 groups at 80, S 8192, its window of 4096
         ("h2o_S8192_window4096", 1, 8192, 8192, 32, 8, 80, True, 4096),
+        # whisper-base (8 heads of 64): the encoder over its 1500 frames, no
+        # multiple of a tile (non-causal: the padded key columns masked by
+        # the true length), cross-attention at prefill (a short prompt and
+        # the SPEECH mix's longest over the 1500 frames), at S = 1 (the
+        # route the paged kernel takes the place of), the causal prefill
+        ("whisper_enc_S1500", 1, 1500, 1500, 8, 8, 64, False, 0),
+        ("whisper_cross_S100", 1, 100, 1500, 8, 8, 64, False, 0),
+        ("whisper_cross_S224", 1, 224, 1500, 8, 8, 64, False, 0),
+        ("whisper_cross_S1_B8", 8, 1, 1500, 8, 8, 64, False, 0),
+        ("whisper_self_S224", 1, 224, 224, 8, 8, 64, True, 0),
     ]
     for name, B, S, T, H, G, D, causal, window in flash_cases:
         for dtype, tol in ((f32, 2e-5), (bf16, 2e-2)):
@@ -1633,6 +1669,8 @@ def phase_llm_kernels() -> dict:
         ("stablelm3b_8x32x80_pool_view", 8, 32, 32, 80, 2048, 16, 128, 32),
         ("d80_heads2_3_8_4", 3, 8, 4, 80, 64, 16, 8, 0),
         ("d80_heads4_3_8_2", 3, 8, 2, 80, 64, 16, 8, 0),
+        # whisper-base's decoder self-attention: 6 layers of 8 x 64
+        ("whisper_8x8x64_pool_view", 8, 8, 8, 64, 2048, 16, 128, 6),
     ]
     for name, B, H, G, D, NB, bs, mb, path_layers in paged_cases:
         path = path_layers > 0
@@ -1703,6 +1741,8 @@ def phase_llm_kernels() -> dict:
         ("deepseek7b_64_blocks", 1, 64, 512, 16, 30 * 2 * 32 * 128, (bf16,)),  # W = 245760
         # jamba's serving cut: one attention layer of 8 groups at 128, W = 2048
         ("jamba_64_blocks", 1, 64, 2048, 16, 1 * 2 * 8 * 128, (bf16,)),
+        # whisper-base: the SPEECH mix's longest prompt, 14 blocks, W = 6144
+        ("whisper_14_blocks", 1, 14, 448, 16, 6 * 2 * 8 * 64, (bf16,)),
     ]
     for name, B, nblk, NB, bs, W, dtypes in copy_cases:
         for dtype in dtypes:
@@ -1776,9 +1816,39 @@ def phase_llm_kernels() -> dict:
         )
         del pool, kp, vp
     _paged_window_checks(gen, record, repeat)
+    _paged_cross_checks(gen, record, repeat)
     check(all(repeat.values()), f"a kernel's second call differs from its first: {repeat}")
     emit("llm_kernels", cases=rows, max_abs_err=worst, repeats_bit_for_bit=repeat)
     return worst
+
+
+def _paged_cross_checks(gen, record, repeat) -> None:
+    """The paged kernel over whisper-base's cross buffer as the engine keeps
+    it (``CrossKV``: 8 slots x 94 blocks of 16 rows, 6 layers of K and V at
+    8 x 64, a layer's strided view, lengths 1500 with the last block part
+    full), float32 and bf16, and two bf16 calls bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.attention import CrossKV
+
+    cfg = get_config("whisper-base")
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        cross = CrossKV.empty(cfg, 8, 16, dtype=dtype, device="cuda")
+        check(tuple(cross.block_table.shape) == (8, 94), "whisper's cross table")
+        cross.kv.copy_(_cuda_randn(gen, tuple(cross.kv.shape), dtype))
+        kv = cross.kv[:, :, 3]
+        args = (kv[:, :, 0], kv[:, :, 1], cross.block_table, cross.lengths)
+        q = _cuda_randn(gen, (8, 8, 64), dtype)
+        got = paged_attention(q, *args)
+        torch.cuda.synchronize()
+        err = _max_err(got, paged_attention_ref(q, *args))
+        record("paged_attention", f"whisper_cross_94_blocks_{str(dtype)[6:]}", err, tol)
+        if dtype == torch.bfloat16:
+            repeat["paged_attention_whisper_cross"] = torch.equal(got, paged_attention(q, *args))
+        del cross, kv, args, q, got
 
 
 #: lengths against a window of 4096 over 256-token splits (16 blocks of 16):
@@ -2003,16 +2073,24 @@ def _tempered(model):
 
 def _attention_modules(model) -> list:
     """The stack's attention modules: one a layer, or one a super-block of a
-    hybrid stack."""
+    hybrid stack; whisper's encoder layers' and its decoder layers'
+    cross-attention too."""
     if model.cfg.family == "hybrid":
         return [blk.attn.attn for blk in model.layers]
-    return [blk.attn for blk in model.layers]
+    mods = [blk.attn for blk in model.layers]
+    if model.cfg.is_encoder_decoder:
+        mods += [layer.attn for layer in model.encoder.layers]
+        mods += [blk.cross for blk in model.layers]
+    return mods
 
 
 def _score_std(model, prompt) -> list:
-    """Per layer, the std of the prefill's attention scores (scaled, causal
-    entries, the first 256 query rows) of one prompt, read at the flash
-    call's inputs; its launches are not the main path's."""
+    """Per prefill flash call, in call order, the std of its attention scores
+    (scaled; causal entries of a causal call, every entry of another; the
+    first 256 query rows) of one prompt, read at the call's inputs (whisper:
+    over zero frames, as its engine encodes them: the encoder's layers, then
+    each decoder layer's self- and cross-attention); its launches are not
+    the main path's."""
     import torch
 
     from repro_torch.models import attention
@@ -2026,13 +2104,16 @@ def _score_std(model, prompt) -> list:
         qg = q[:, :256].unflatten(2, (G, -1)).float()
         scale_ = scale if scale is not None else q.shape[-1] ** -0.5
         s = torch.einsum("bsgmd,btgd->bgmst", qg, k.float()) * scale_
-        ok = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
-        stds.append(float(s[..., ok].std()))
+        ok = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device)
+        stds.append(float(s[..., ok.tril() if causal else ok].std()))
         return flash(q, k, v, causal=causal, window=window, scale=scale)
 
+    cfg, kw = model.cfg, {}
+    if cfg.is_encoder_decoder:
+        kw["frames"] = torch.zeros((1, cfg.encoder_seq_len, cfg.d_model), device="cuda")
     attention.ATTENTION["kernel"] = (spy, paged)
     try:
-        M.prefill(model, torch.as_tensor(prompt, device="cuda")[None])
+        M.prefill(model, torch.as_tensor(prompt, device="cuda")[None], **kw)
     finally:
         attention.ATTENTION["kernel"] = (flash, paged)
     return stds
@@ -2081,6 +2162,10 @@ FORCING_BOUNDS = {
     # one attention layer and 7 SSD layers a super-block, bf16 only (its
     # float32 weights, 103 GB, do not fit the card)
     "jamba-1.5-large-398b": {"bf16": (0.5, 0.9)},
+    # written before its first run: tempered as stablelm-1.6b (every
+    # attention's wq and wk: the encoder's, the decoder's self- and
+    # cross-attention), 6 + 6 layers, 192 decode steps a request
+    "whisper-base": {"bf16": (0.5, 0.9), "f32": (1e-2, 0.99)},
 }
 #: jamba-1.5-large-398b's serving cut on one card, stated before its first
 #: run: 8 of its 72 layers (one super-block) and 8 of its 16 experts, top-2
@@ -2425,6 +2510,155 @@ def phase_serving_hybrid(llm_errs: dict) -> list:
     return rows
 
 
+def phase_serving_whisper(llm_errs: dict) -> list:
+    """whisper-base at full width and depth (6 encoder layers over 1500
+    frames, 6 decoder layers with cross-attention, 8 heads of 64, 98.6 M
+    parameters) on the SPEECH mix, with the checks of ``_serving_path``:
+    launches (flash 6 encoder + 6 cross + 6 self and ``banked_copy`` once
+    an admission; paged split and merge 6 self + 6 cross a decode step),
+    isolation every step, the KV record, teacher forcing in bf16 and
+    float32, each slot's cross K/V beside the pool.  ``wq``/``wk`` of every
+    attention tempered, with the scores' std per flash call printed before
+    and after.  Then its decode profile, the timing rows of the decoder's
+    paged self-attention (3e) and ``banked_copy`` at W = 6144 (2e), and
+    ``_whisper_timing``'s.  Prints its seconds; returns the kernels-line
+    rows."""
+    import torch
+
+    t0 = time.perf_counter()
+    serving = _serving_path("whisper-base", "serving_whisper", temper=True, mix="SPEECH")
+    phase_serving_profile(serving)
+    bs = serving["spec"].block_size
+    nblk = max(-(-len(p) // bs) for p in serving["prompts"])
+    rows = phase_llm_timing(serving, llm_errs, flash_lengths=(), copy_blocks=nblk)
+    rows += _whisper_timing(serving, llm_errs)
+    emit("serving_whisper_seconds", seconds=time.perf_counter() - t0)
+    del serving
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _flash_bytes_ops(B, S, T, H, G, D, *, lse=False, bwd=False) -> tuple:
+    """Bytes and operations of one non-causal flash call: each input read
+    once and each output written once (bf16; lse float32), and 2 flop a
+    multiply-add over the S x T pairs of each head: 2 products forward, 5
+    backward (P recomputed, dV, dP, dQ, dK)."""
+    pairs = B * H * S * T
+    if not bwd:
+        nbytes = 2 * B * (2 * S * H * D + 2 * T * G * D) + (4 * B * H * S if lse else 0)
+        return nbytes, 4 * D * pairs
+    nbytes = 2 * B * (4 * S * H * D + 4 * T * G * D) + 4 * B * H * S
+    return nbytes, 10 * D * pairs
+
+
+def _whisper_timing(serving: dict, errs: dict) -> list:
+    """whisper's non-causal flash and cross-attention rows (bf16, 8 heads of
+    64), each against its plain version and one PyTorch call of the same
+    function: row 4e, the encoder's self-attention (B 1, S = T = 1500;
+    SDPA non-causal); row 4x, cross-attention at prefill (the mix's longest
+    prompt over T = 1500; SDPA non-causal); row 3x, the paged kernel over
+    the cross buffer (8 slots x 94 blocks of 16 rows, lengths 1500, a
+    layer's strided view; SDPA at S = 1 over the same K/V gathered
+    beforehand).  Then a timing line of the flash forward at S = 1 over
+    the same 8 x 1500 rows, the route the paged kernel takes the place of
+    at decode."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    model, spec, launches = serving["model"], serving["spec"], serving["launches"]
+    cfg, stats = model.cfg, serving["plan_stats"]
+    H, G, D, T, L = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 1500, cfg.num_layers
+    bf16, gen = torch.bfloat16, torch.Generator(device="cuda").manual_seed(26)
+    rows = []
+    S_cross = max(len(p) for p in serving["prompts"])
+    for name, S, n in (
+        ("encoder", T, cfg.num_encoder_layers * stats.admissions),
+        ("cross", S_cross, L * stats.admissions),
+    ):
+        q = _cuda_randn(gen, (1, S, H, D), bf16)
+        k, v = (_cuda_randn(gen, (1, T, G, D), bf16) for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2)
+        check(_max_err(lib, flash_attention_ref(q, k, v, causal=False)) <= 2e-2, "SDPA yardstick")
+        nbytes, ops = _flash_bytes_ops(1, S, T, H, G, D)
+        rows.append(
+            _timing_row(
+                "flash_attention",
+                {
+                    "kernel": lambda: flash_attention(q, k, v, causal=False),
+                    "plain": lambda: flash_attention_ref(q, k, v, causal=False),
+                    "library": lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                },
+                100,
+                nbytes,
+                ops,
+                n,
+                errs["flash_attention"],
+                "F.scaled_dot_product_attention (non-causal)",
+                shape=dict(B=1, S=S, T=T, H=H, G=G, D=D, causal=False),
+                path=f"{cfg.name}-{name}",
+                queued=True,
+            )
+        )
+        del q, k, v, qt, kt, vt, lib
+
+    # row 3x: the cross buffer as the engine keeps it, every layer's K and V
+    B, bs = spec.max_batch, spec.block_size
+    cross = model.init_cross_kv(B, bs)
+    cross.kv.copy_(_cuda_randn(gen, tuple(cross.kv.shape), bf16))
+    kv = cross.kv[:, :, 0]
+    kp, vp, tbl, ln = kv[:, :, 0], kv[:, :, 1], cross.block_table, cross.lengths
+    q = _cuda_randn(gen, (B, H, D), bf16)
+    idx = tbl.long()
+    kg = kp[idx].reshape(B, -1, G, D)[:, :T].transpose(1, 2).contiguous()
+    vg = vp[idx].reshape(B, -1, G, D)[:, :T].transpose(1, 2).contiguous()
+    q4 = q[:, :, None]
+    lib = F.scaled_dot_product_attention(q4, kg, vg)[:, :, 0]
+    want = paged_attention_ref(q, kp, vp, tbl, ln)
+    check(_max_err(lib, want) <= 3e-2, "paged cross yardstick")
+    nbytes = B * T * G * 2 * D * 2 + 2 * B * H * D * 2 + tbl.numel() * 4 + B * 4
+    rows.append(
+        _timing_row(
+            "paged_attention",
+            {
+                "kernel": lambda: paged_attention(q, kp, vp, tbl, ln),
+                "plain": lambda: paged_attention_ref(q, kp, vp, tbl, ln),
+                "library": lambda: F.scaled_dot_product_attention(q4, kg, vg),
+            },
+            200,
+            nbytes,
+            4 * D * H * B * T,
+            launches["paged_attention"] // 2,
+            errs["paged_attention"],
+            "F.scaled_dot_product_attention at S = 1 on the cross K/V gathered beforehand",
+            shape=dict(B=B, H=H, G=G, D=D, block_size=bs, blocks=tbl.shape[1], lengths=T),
+            path=f"{cfg.name}-cross-decode",
+            queued=True,
+        )
+    )
+    # the flash forward at S = 1 over the same rows: what the paged route saves
+    qf = q[:, None].contiguous()
+    kf, vf = (t.transpose(1, 2).contiguous() for t in (kg, vg))
+    check(_max_err(flash_attention(qf, kf, vf, causal=False)[:, 0], want) <= 3e-2, "flash S = 1")
+    flash_ms = queued_ms(lambda: flash_attention(qf, kf, vf, causal=False), 200)
+    paged_ms = queued_ms(lambda: paged_attention(q, kp, vp, tbl, ln), 200)
+    emit(
+        "whisper_cross_decode_routes",
+        shape=dict(B=B, S=1, T=T, H=H, G=G, D=D),
+        flash_us=None if flash_ms is None else flash_ms * 1e3,
+        paged_us=None if paged_ms is None else paged_ms * 1e3,
+        bound_us=nbytes / HBM_BYTES_PER_S * 1e6,
+    )
+    del cross, kv, kp, vp, q, kg, vg, q4, lib, qf, kf, vf
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _swa_timing(window: dict, errs: dict) -> list:
     """h2o-danube-1.8b's windowed kernels at its WINDOW mix's shapes (bf16):
     paged over 8 slots at the mix's mid-decode lengths, window 4096 (row
@@ -2559,10 +2793,10 @@ def _serving_path(
     serve.check_mix(cfg, spec, prompts)
     score_std = {}
     if temper and built:
-        if cfg.use_mla:
+        if cfg.use_mla or cfg.is_encoder_decoder:
             score_std["untempered"] = _score_std(model, prompts[0])
         model = _tempered(model)
-        if cfg.use_mla:
+        if cfg.use_mla or cfg.is_encoder_decoder:
             score_std["tempered"] = _score_std(model, prompts[0])
     engine_cls = _serving_engine_cls()
 
@@ -2570,13 +2804,17 @@ def _serving_path(
     plan_rec = KVAccessRecorder()
     plan, _ = serve.new_engine(None, None, spec, prompts, recorder=plan_rec)
     plan.run()
-    L = cfg.num_attn_layers
+    # attention calls a prefill and a decode step: one a layer; whisper also
+    # each encoder layer's at prefill and each decoder layer's cross-attention
+    La = cfg.num_attn_layers
+    L_prefill = La + (cfg.num_encoder_layers + La if cfg.is_encoder_decoder else 0)
+    L_decode = La * (2 if cfg.is_encoder_decoder else 1)
     want = {
-        "flash_attention": L * plan.stats.admissions,
+        "flash_attention": L_prefill * plan.stats.admissions,
         "banked_copy": plan.stats.admissions,
-        "paged_attention": L * plan.stats.decode_steps,
+        "paged_attention": L_decode * plan.stats.decode_steps,
         # the bf16 latent call merges inside its one launch
-        "paged_attention_merge": 0 if cfg.use_mla else L * plan.stats.decode_steps,
+        "paged_attention_merge": 0 if cfg.use_mla else L_decode * plan.stats.decode_steps,
         "bank_arbiter": 0,
     }
 
@@ -2615,6 +2853,7 @@ def _serving_path(
     kernel_logits = eng.logits
     forced = {r.rid: list(r.out_tokens) for r in first_wave}
     ssm_bytes = 0 if eng.ssm is None else eng.ssm.nbytes()
+    cross_bytes = 0 if eng.cross is None else eng.cross.nbytes()
     del eng
 
     # teacher forcing: the first wave again, fed the kernel run's tokens, on
@@ -2688,6 +2927,7 @@ def _serving_path(
         pool_imbalance=summary["pool_imbalance"],
         peak_memory_gb=peak_gb,
         ssm_state_mb_per_slot=ssm_bytes / spec.max_batch / 1e6,
+        cross_kv_mb_per_slot=cross_bytes / spec.max_batch / 1e6,
         launches=launches,
         predicted=want,
         stats=summary["stats"],
@@ -2701,6 +2941,7 @@ def _serving_path(
         launches=launches,
         decode_ms_per_step=summary["decode_ms_per_step"],
         phase=phase,
+        plan_stats=plan.stats,
     )
 
 
@@ -2941,15 +3182,19 @@ def _latent_timing(q, kp, tbl, ln, scale) -> None:
     )
 
 
-def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) -> list:
+def phase_llm_timing(
+    serving: dict, errs: dict, flash_lengths=(128, 517, 1024), copy_blocks: int = 64
+) -> list:
     """Timing rows of the serving kernels at a serving path's shapes (bf16;
     stablelm-1.6b, olmoe-1b-7b or deepseek-v2-lite-16b): flash at the longest
     prompt (S = 1024; shorter ``flash_lengths`` on timing lines of their
     own), paged attention over 8 slots at the first wave's mid-decode
-    lengths, banked_copy of a 64-block burst into the 2048-block pool.  MLA's
-    flash has QK width 192 and V width 128 at scale 192^-0.5, and its paged
-    call is the latent one (16 heads, K rows of 576, V their first 512
-    columns)."""
+    lengths, banked_copy of a ``copy_blocks``-block burst into the
+    2048-block pool.  MLA's flash has QK width 192 and V width 128 at scale
+    192^-0.5, and its paged call is the latent one (16 heads, K rows of 576,
+    V their first 512 columns).  On whisper's path half of the paged
+    launches are the cross-attention's (``_whisper_timing``): this row
+    counts the self-attention's."""
     import torch
     import torch.nn.functional as F
 
@@ -3065,7 +3310,7 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
             200,
             nbytes,
             2 * (Dk + Dv) * H * tokens,
-            launches["paged_attention"],
+            launches["paged_attention"] // (2 if cfg.is_encoder_decoder else 1),
             errs["paged_attention"],
             "F.scaled_dot_product_attention on K/V gathered beforehand",
             shape=dict(B=B, H=H, G=G, D=Dk, Dv=Dv, block_size=bs, lengths=lens),
@@ -3077,7 +3322,7 @@ def phase_llm_timing(serving: dict, errs: dict, flash_lengths=(128, 517, 1024)) 
         _latent_timing(q, kp, tbl, ln, scale)
     del pool, kp, vp, kg, vg, lib
 
-    nblk, W = 64, model.kv_width()
+    nblk, W = copy_blocks, model.kv_width()
     pool = _cuda_randn(gen, (NB, bs, W), bf16)
     burst = _cuda_randn(gen, (1, nblk, bs, W), bf16)
     tbl = _unique_tables(gen, 1, nblk, NB, [nblk])
@@ -3168,6 +3413,13 @@ HYBRID_TRAIN_WIDTHS = dict(
     num_layers=8, d_model=2048, num_heads=16, num_kv_heads=2, head_dim=128, d_ff=6144, moe_d_ff=6144
 )
 HYBRID_TRAIN_B = 2
+#: whisper-base's training run at full width and depth, stated before its
+#: first run: train_4k's 4096 decoder tokens a sequence beside 1500 frames
+#: (the audio stub's input, drawn from a seeded generator), its batch of
+#: 256 cut to 8 sequences (a first guess at what one card holds: the
+#: logits, 8 x 4096 x 53248, are 3.5 GB in bf16 and twice that in float32
+#: for the loss), AdamW, remat full
+WHISPER_TRAIN_B = 8
 
 
 def _window_pairs(S: int, window: int) -> int:
@@ -3240,6 +3492,17 @@ def _train_kernel_checks() -> dict:
         ("jamba_S517", 1, 517, 517, 16, 2, 128, 128, True, 0, bf16),
         ("jamba_S517_f32", 1, 517, 517, 16, 2, 128, 128, True, 0, f32),
     ]
+    wb, enc = WHISPER_TRAIN_B, 1500
+    cases += [  # whisper's non-causal shapes, 8 heads of 64: the encoder over its
+        # 1500 frames (no multiple of a tile), cross-attention over them
+        ("whisper_enc_B8", wb, enc, enc, 8, 8, 64, 64, False, 0, bf16),
+        ("whisper_enc_S1500", 1, enc, enc, 8, 8, 64, 64, False, 0, bf16),
+        ("whisper_enc_S1500_f32", 1, enc, enc, 8, 8, 64, 64, False, 0, f32),
+        ("whisper_cross_B8_S4096", wb, TRAIN_S, enc, 8, 8, 64, 64, False, 0, bf16),
+        ("whisper_cross_S4096", 1, TRAIN_S, enc, 8, 8, 64, 64, False, 0, bf16),
+        ("whisper_cross_S100", 1, 100, enc, 8, 8, 64, 64, False, 0, bf16),
+        ("whisper_cross_S100_f32", 1, 100, enc, 8, 8, 64, 64, False, 0, f32),
+    ]
     rows, worst, fwd_err, repeat = [], {}, {}, {}
     for name, B, S, T, H, G, D, Dv, causal, window, dtype in cases:
         q = _cuda_randn(gen, (B, S, H, D), dtype)
@@ -3282,6 +3545,8 @@ def _train_kernel_checks() -> dict:
             "d80_S517_f32",
             "h2o_B2_S8192_window4096",
             "jamba_B2_S4096",
+            "whisper_enc_B8",
+            "whisper_cross_B8_S4096",
         ):
             again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -3304,6 +3569,10 @@ FLOPS_SHARE_FORMULA = (
     "(6 * (costs.active_params - Vp * d [untied]) + 6 * La * H * (Dqk + Dv) * pairs / S) "
     "* tokens / step_s / 989e12"
 )
+#: the same for an encoder-decoder stack (``_flops_per_step``)
+FLOPS_SHARE_FORMULA_ENCDEC = (
+    "3 * costs.forward_flops(cfg, B, S, kind='train', triangular=True) / step_s / 989e12"
+)
 
 
 def _flops_per_step(cfg, tokens: int, seq: int) -> float:
@@ -3315,8 +3584,19 @@ def _flops_per_step(cfg, tokens: int, seq: int) -> float:
     layers over the live (query, key) pairs of a sequence (causal: S (S +
     1) / 2, about 3 La H (Dqk + Dv) S, counted as S^2 / 2; a sliding window
     fewer, ``_window_pairs``).  SSD's chunk products are not counted, as
-    the reference's 6 N D yardstick counts none."""
+    the reference's 6 N D yardstick counts none.  An encoder-decoder stack
+    (whisper) reads its encoder's frames beside the tokens, so 6 N D does
+    not apply: its model FLOPs are 3 forwards (forward and backward, no
+    remat recompute) of ``analysis.costs.forward_flops`` with the causal
+    triangle, the reference's encoder-decoder terms (the encoder over
+    ``encoder_seq_len`` frames a sequence, cross-attention in every decoder
+    layer)."""
+    from repro_torch.analysis import costs
     from repro_torch.analysis.costs import active_params
+
+    if cfg.is_encoder_decoder:
+        B = tokens // seq
+        return 3 * costs.forward_flops(cfg, B, seq, kind="train", triangular=True)
 
     n = active_params(cfg) - (0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model)
     La = cfg.num_attn_layers
@@ -3432,7 +3712,9 @@ def _train_step_check() -> dict:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "model_flops_per_step": flops,
         "model_flops_share": flops / step_s / BF16_OPS_PER_S,
-        "model_flops_share_formula": FLOPS_SHARE_FORMULA,
+        "model_flops_share_formula": FLOPS_SHARE_FORMULA_ENCDEC
+        if cfg.is_encoder_decoder
+        else FLOPS_SHARE_FORMULA,
         "metrics": metrics,
         "launches": launches,
         "predicted": want,
@@ -3650,12 +3932,15 @@ def _steps_kernel_vs_plain(
 def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> dict:
     """The two runs of ``_steps_kernel_vs_plain`` side by side, checked:
     launches (3 steps x 2 forward and 1 backward per attention layer through the
-    kernels, none through the plain path), finite metrics; for MoE a
+    kernels, whisper's encoder layers and cross-attentions counted as
+    attention layers; none through the plain path), finite metrics; for MoE a
     positive aux loss, the losses and routing decisions within
     ``TRAIN_MOE_BOUNDS``; for a dense stack the losses within
     ``TRAIN_STEP_BOUNDS``."""
     k, p = runs["kernel"], runs["ref"]
     L = cfg.num_attn_layers
+    if cfg.is_encoder_decoder:  # each encoder layer's and each cross-attention
+        L += cfg.num_encoder_layers + cfg.num_layers
     moe = bool(cfg.moe_num_experts)
     want = {"flash_attention": 3 * 2 * L, "flash_attention_bwd": 3 * L}
     loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(k["metrics"], p["metrics"])]
@@ -3683,7 +3968,9 @@ def _kernel_vs_plain_summary(cfg, runs: dict, B: int, S: int, reduced: str) -> d
         "peak_memory_gb": {"kernel": k["peak_memory_gb"], "plain": p["peak_memory_gb"]},
         "model_flops_per_step": flops,
         "model_flops_share": flops / step_s / BF16_OPS_PER_S,
-        "model_flops_share_formula": FLOPS_SHARE_FORMULA,
+        "model_flops_share_formula": FLOPS_SHARE_FORMULA_ENCDEC
+        if cfg.is_encoder_decoder
+        else FLOPS_SHARE_FORMULA,
         "launches": k["launches"],
         "predicted": want,
         "bounds": bounds,
@@ -3848,7 +4135,9 @@ def _train_ssm() -> dict:
         "peak_memory_gb": r["peak_memory_gb"],
         "model_flops_per_step": flops,
         "model_flops_share": flops / step_s / BF16_OPS_PER_S,
-        "model_flops_share_formula": FLOPS_SHARE_FORMULA,
+        "model_flops_share_formula": FLOPS_SHARE_FORMULA_ENCDEC
+        if cfg.is_encoder_decoder
+        else FLOPS_SHARE_FORMULA,
         "launches": r["all_launches"],
     }
     emit("train_ssm", **out)
@@ -3885,6 +4174,125 @@ def _train_hybrid() -> dict:
     out["optimizer"], out["remat_policy"] = run.optimizer, run.remat_policy
     emit("train_hybrid", **out)
     return out
+
+
+def _train_whisper() -> dict:
+    """whisper-base at full width and depth, B ``WHISPER_TRAIN_B`` x 4096
+    decoder tokens, each sequence beside 1500 frames drawn from a seeded
+    generator (the audio stub's input), AdamW, remat full (each encoder
+    layer checkpointed on its own, weight products saved, as the
+    reference's), every attention's ``wq``/``wk`` tempered as in serving:
+    three steps through the kernels and three through the plain path from
+    one state and batches (launches 108 / 54: 18 attentions a step, each
+    forward twice under remat), losses within ``TRAIN_STEP_BOUNDS``, step
+    time, tokens/s, model-FLOPs share, peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+
+    cfg, B = get_config("whisper-base"), WHISPER_TRAIN_B
+    pipe = TokenPipeline(cfg.vocab_size, batch=B, seq_len=TRAIN_S, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1500)
+    shape = (B, cfg.encoder_seq_len, cfg.d_model)
+    batches = []
+    for _ in range(3):
+        batch = dict(next(pipe))
+        batch["frames"] = torch.randn(shape, generator=gen, device="cuda")
+        batches.append(batch)
+    runs = _steps_kernel_vs_plain(cfg, B, TRAIN_S, temper=True, batches=batches)
+    reduced = f"train_4k's batch of 256 cut to {B}; full width and depth"
+    out = _kernel_vs_plain_summary(cfg, runs, B, TRAIN_S, reduced)
+    out["frames_per_sequence"] = cfg.encoder_seq_len
+    emit("train_whisper", **out)
+    return out
+
+
+def _train_timing_whisper(wh: dict, errs: dict) -> list:
+    """Rows 4te / 5e (the encoder's forward with its log-sum-exp and the
+    backward: B ``WHISPER_TRAIN_B`` x S = T = 1500, non-causal) and 4tx /
+    5x (cross-attention: B x S 4096 over T 1500), 8 heads of 64, bf16,
+    against their plain versions and SDPA (the backward under autograd);
+    bounds by operations over the S x T pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+    )
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-base")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    bf16, rows, kw = torch.bfloat16, [], dict(causal=False)
+    B, H, G, D = WHISPER_TRAIN_B, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    T, launches, path = cfg.encoder_seq_len, wh["launches"], "whisper-base-train"
+    # backward launches of each kind in the 3 steps: one a layer a step
+    per_kind = {"encoder": cfg.num_encoder_layers * 3, "cross": cfg.num_layers * 3}
+    check(
+        launches["flash_attention_bwd"] == per_kind["encoder"] + 2 * per_kind["cross"],
+        f"whisper train launches {launches}: the rows count a third of them each",
+    )
+    cases = (("encoder", T, "whisper_enc_B8"), ("cross", TRAIN_S, "whisper_cross_B8_S4096"))
+    for kind, S, case in cases:
+        q, dout = (_cuda_randn(gen, (B, S, H, D), bf16) for _ in range(2))
+        k, v = (_cuda_randn(gen, (B, T, G, D), bf16) for _ in range(2))
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = dout.transpose(1, 2).contiguous()
+        check(_rel_err(o.detach().transpose(1, 2), out) <= 2e-2, f"SDPA yardstick, {kind}")
+        shape = dict(B=B, S=S, T=T, H=H, G=G, D=D, causal=False)
+        nbytes, ops = _flash_bytes_ops(B, S, T, H, G, D, lse=True)
+        fwd = {
+            "kernel": lambda: flash_attention_fwd(q, k, v, **kw),
+            "plain": lambda: flash_attention_fwd_ref(q, k, v, **kw),
+            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        }
+        row = _timing_row(
+            "flash_attention",
+            fwd,
+            10,
+            nbytes,
+            ops,
+            2 * per_kind[kind],
+            errs["fwd"][case],
+            "F.scaled_dot_product_attention (non-causal)",
+            shape=dict(shape, lse=True),
+            path=f"{path}-{kind}",
+            queued=True,
+        )
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        nbytes, ops = _flash_bytes_ops(B, S, T, H, G, D, bwd=True)
+        bwd = {
+            "kernel": lambda: flash_attention_bwd(q, k, v, out, lse, dout, **kw),
+            "plain": lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw),
+            "library": lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+        }
+        row = _timing_row(
+            "flash_attention_bwd",
+            bwd,
+            10,
+            nbytes,
+            ops,
+            per_kind[kind],
+            errs["bwd"][case],
+            "torch.autograd.grad of F.scaled_dot_product_attention (non-causal)",
+            shape=shape,
+            path=f"{path}-{kind}",
+            queued=True,
+        )
+        row["tflops_7_products"] = 14 * D * B * H * S * T / (row["ms"] * 1e-3) / 1e12
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        del q, k, v, dout, out, lse, qt, kt, vt, o, dot
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
@@ -4294,8 +4702,12 @@ def phase_training() -> list:
     t = time.perf_counter()
     hyb = _train_hybrid()
     emit("train_hybrid_seconds", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    wh = _train_whisper()
+    emit("train_whisper_seconds", seconds=time.perf_counter() - t)
     rows = _train_timing(main, moe, dense3b, errs) + _train_timing_mla(mla, errs)
     rows += _train_timing_swa(swa, errs) + _train_timing_hybrid(hyb, errs)
+    rows += _train_timing_whisper(wh, errs)
     emit("training", seconds=time.perf_counter() - t0)
     return rows
 
@@ -4349,6 +4761,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     rows += phase_serving_swa_ssm(llm_errs)
     rows += phase_serving_hybrid(llm_errs)
+    rows += phase_serving_whisper(llm_errs)
     rows += phase_training()
     torch.cuda.empty_cache()
     # the scale path last: its profiled windows hold ~10^5 kernel records each

@@ -2,11 +2,10 @@
 reference's ``analysis/costs.py``, with an H100's rates in place of the
 TPU's.
 
-The counts are the reference's, rule for rule, for the stacks the port runs
+The counts are the reference's, rule for rule, for every stack the port runs
 (uniform GQA or MLA attention on every layer, dense or MoE, uniform SSM
-stacks, and hybrid stacks, layer by layer through ``is_attn_layer`` and
-``is_moe_layer``; ``configs.base.check_supported`` refuses the rest, so the
-reference's encoder-decoder terms have no counterpart here):
+stacks, hybrid stacks, layer by layer through ``is_attn_layer`` and
+``is_moe_layer``, and encoder-decoder stacks):
   * a matrix product [.., m, k] x [k, n] is 2 m k n FLOPs; elementwise work
     is not counted (under 1 %);
   * attention's scores and P V count the rectangle they visit: S T, or
@@ -24,6 +23,12 @@ reference's encoder-decoder terms have no counterpart here):
     cache holds the float32 state and a conv window per sequence, whatever
     the context (a sliding window does not shorten the reference's count:
     it counts ``cache_len`` rows);
+  * an encoder-decoder stack (whisper) adds, outside decode, its encoder
+    layers' attention over ``encoder_seq_len`` frames (non-causal: the full
+    rectangle) and FFN, and in every decoder layer, decode included, the
+    cross-attention: the q projection of the decoder's tokens (the
+    reference counts no output projection there), the K and V projections
+    of every frame, scores and P V over the frames;
   * a training step is 3 forwards (4 with ``remat="full"``).
 
 ``model_flops`` is the 6 N D yardstick (2 N D for inference) over the
@@ -133,6 +138,14 @@ def forward_flops(
             total += _moe_flops(cfg, B, S)
         elif cfg.d_ff:
             total += _ffn_flops(cfg, B, S)
+    if cfg.is_encoder_decoder:
+        Te = cfg.encoder_seq_len
+        if not decode:
+            total += cfg.num_encoder_layers * (_attn_flops(cfg, B, Te, Te) + _ffn_flops(cfg, B, Te))
+        d, h, g, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        total += cfg.num_layers * (
+            2 * 2 * B * h * hd * S * Te + 2 * B * S * d * h * hd + 2 * B * Te * d * 2 * g * hd
+        )
     logit_rows = B * S if kind == "train" else B
     return total + 2 * logit_rows * cfg.d_model * cfg.padded_vocab
 

@@ -19,6 +19,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
 

@@ -141,7 +141,10 @@ class ModelConfig:
         conv taps, ``A_log``, ``D``, ``dt_bias``, gated norm and
         ``out_proj``; one vocabulary matrix where the embeddings are tied).
         A hybrid stack counts attention where ``is_attn_layer`` and SSM
-        elsewhere, MoE where ``is_moe_layer`` and a dense FFN elsewhere."""
+        elsewhere, MoE where ``is_moe_layer`` and a dense FFN elsewhere.  An
+        encoder-decoder stack adds its encoder layers (attention, FFN, two
+        norms) and each decoder layer's cross-attention and its norm (the
+        FFN's biases uncounted, as there)."""
         check_supported(self)
         d, hd, h = self.d_model, self.resolved_head_dim, self.num_heads
         n = (1 if self.tie_embeddings else 2) * self.padded_vocab * d
@@ -164,28 +167,42 @@ class ModelConfig:
             elif self.d_ff:
                 n += (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
             n += 2 * d
+        if self.is_encoder_decoder:
+            n += self.num_encoder_layers * (4 * d * h * hd + 2 * d * self.d_ff + 2 * d)
+            n += self.num_layers * (4 * d * h * hd + d)
         return n
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet: it
-    carries uniform stacks of GQA or MLA attention, dense or with an MoE FFN
-    on every layer, with or without QK-norm and sliding windows, uniform
-    SSM stacks (family ``ssm``: mamba2) and hybrid stacks (family
-    ``hybrid``: jamba's super-blocks of one attention and ``attn_layer_period
-    - 1`` SSM layers, MoE on every ``moe_layer_period``-th layer), with tied
-    or separate embeddings (ROADMAP Queue 1 lists the rest under "the
-    remaining model families", with the slice that brings each).  Every
-    stack it lets through also trains: dense, MoE, MLA, windowed, SSM and
-    hybrid.  MoE on every k-th layer is a hybrid stack's layout only: no
-    uniform stack of the registry has it.  Family ``vlm`` (chameleon-34b)
-    runs as a dense stack: the reference's model code branches only on
-    ``ssm`` and ``hybrid`` and never reads ``frontend``, so its VQ front end
-    is the embedding table and nothing more."""
+    """Raise ``NotImplementedError`` for a stack the port does not run.  It
+    carries every config of the reference's registry: uniform stacks of GQA
+    or MLA attention, dense or with an MoE FFN on every layer, with or
+    without QK-norm and sliding windows; uniform SSM stacks (family
+    ``ssm``: mamba2); hybrid stacks (family ``hybrid``: jamba's super-blocks
+    of one attention and ``attn_layer_period - 1`` SSM layers, MoE on every
+    ``moe_layer_period``-th layer); and encoder-decoder stacks (family
+    ``encdec``: whisper, a non-causal encoder over ``encoder_seq_len``
+    frames and decoder layers of causal self-attention, cross-attention and
+    a dense FFN, no RoPE); with tied or separate embeddings.  Every stack it
+    lets through also trains.  What it refuses is no config of the
+    registry: MLA with query compression, MoE on every k-th layer of a
+    uniform stack, SSM layers outside an SSM or hybrid stack, a part
+    super-block, and an encoder-decoder stack that is not dense MHA or GQA.
+    Family ``vlm`` (chameleon-34b) runs as a dense stack: the reference's
+    model code branches only on ``ssm``, ``hybrid`` and
+    ``is_encoder_decoder`` and never reads ``frontend``, so its VQ front end
+    is the embedding table and nothing more (whisper's audio front end is a
+    stub too: the encoder takes frame embeddings)."""
     later = []
     hybrid = cfg.family == "hybrid"
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
         later.append(f"family {cfg.family!r}")
+    if (cfg.family == "encdec") != cfg.is_encoder_decoder:
+        later.append("family 'encdec' without is_encoder_decoder, or the reverse")
+    if cfg.is_encoder_decoder and (
+        cfg.use_mla or cfg.moe_num_experts or cfg.ssm_state_dim or not cfg.num_heads
+    ):
+        later.append("an encoder-decoder stack that is not dense MHA or GQA")
     if cfg.use_mla and cfg.q_lora_rank:
         later.append("MLA with query compression")
     if cfg.moe_num_experts and cfg.moe_layer_period != 1 and not hybrid:
@@ -196,13 +213,11 @@ def check_supported(cfg: ModelConfig) -> None:
         later.append("a hybrid stack without attention, SSM or its period")
     if hybrid and cfg.num_layers % max(cfg.attn_layer_period, 1):
         later.append("a hybrid stack of a part super-block")
-    if cfg.is_encoder_decoder:
-        later.append("encoder-decoder")
     if later:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} not ported yet; the port runs uniform GQA or "
-            "MLA stacks (dense or MoE), uniform SSM stacks and hybrid stacks, and the later "
-            "slices of ROADMAP Queue 1 (the remaining model families) bring the rest"
+            f"{cfg.name}: {', '.join(later)} not carried by the port: it runs uniform GQA "
+            "or MLA stacks (dense or MoE), uniform SSM stacks, hybrid stacks and "
+            "encoder-decoder stacks, every config of the reference's registry"
         )
 
 
@@ -286,7 +301,9 @@ class RunConfig:
 def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU tests (tiny widths, real structure),
     as the reference's ``smoke`` makes it: two layers of a uniform stack, one
-    whole super-block (``attn_layer_period`` layers) of a hybrid one."""
+    whole super-block (``attn_layer_period`` layers) of a hybrid one, two
+    encoder and two decoder layers over 16 frames of an encoder-decoder
+    one."""
     check_supported(cfg)
     changes = dict(
         name=cfg.name + "-smoke",
@@ -305,6 +322,8 @@ def smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         changes.update(moe_num_experts=4, moe_top_k=min(2, cfg.moe_top_k), moe_d_ff=64)
     if cfg.ssm_state_dim:
         changes.update(ssm_state_dim=16, ssm_head_dim=16, ssm_chunk=32)
+    if cfg.is_encoder_decoder:
+        changes.update(num_encoder_layers=2, encoder_seq_len=16)
     if cfg.sliding_window:
         changes["sliding_window"] = 16
     changes.update(overrides)

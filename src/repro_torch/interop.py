@@ -104,7 +104,13 @@ def model_from_reference(
     and ``ssm`` leaves ``w_z``/``w_x [d, d_inner]``, ``w_B``/``w_C [d, g n]``,
     ``w_dt [d, h]``, ``conv_x``/``conv_B``/``conv_C [W, ...]``, ``A_log``,
     ``D``, ``dt_bias [h]``, ``norm [d_inner]``, ``out_proj [d_inner, d]``).
-    A config that ties its embeddings (mamba2) has no ``lm_head`` leaf.
+    An encoder-decoder stack (whisper) adds ``encoder.layers`` stacked
+    ``[Le, ...]`` (``attn_norm``, ``attn`` ``wq``/``wk``/``wv``/``wo``,
+    ``ffn_norm``, ``ffn`` ``w_in [d, f]``, ``b_in [f]``, ``w_out [f, d]``,
+    ``b_out [d]``) and ``encoder.final_norm``, and its decoder layers carry
+    ``cross_norm`` and ``cross`` (a second ``wq``/``wk``/``wv``/``wo``)
+    beside ``attn`` and ``ffn``.  A config that ties its embeddings (mamba2)
+    has no ``lm_head`` leaf.
     Weight matrices are cast to ``compute_dtype`` once here; norm scales and
     biases stay float32.  ``device`` defaults to CUDA."""
     model = empty_model(
@@ -120,7 +126,9 @@ def load_train_state(state, tree: Mapping) -> None:
     ``np.asarray`` of the reference's ``init_train_state``) into the port's
     ``train.step.TrainState``, in place: parameters (so also the model's
     views of them), the optimizer's moments and count (AdamW or Adafactor),
-    the step and the error-feedback buffers."""
+    the step and the error-feedback buffers.  The parameters and moments
+    are the trees ``model_from_reference`` lists, whisper's encoder and
+    cross-attention leaves included."""
     from repro_torch.tree import leaves_with_path
 
     ours = list(leaves_with_path(state.tree()))
@@ -138,7 +146,9 @@ def load_train_state(state, tree: Mapping) -> None:
 
 
 def train_state_to_reference(state) -> dict:
-    """The port's train state as the reference's tree of numpy arrays."""
+    """The port's train state as the reference's tree of numpy arrays (the
+    leaves ``model_from_reference`` lists, ``encoder`` and ``cross``
+    included)."""
     from repro_torch.checkpoint.manager import to_host
 
     return to_host(state.tree())

@@ -10,6 +10,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --mix FULL_SSD
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
         --mix FULL_SSD --layers 8 --experts 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --mix SPEECH
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 By default it serves stablelm-1.6b at full width on the CUDA card (random
@@ -25,7 +26,10 @@ GB; mamba2-1.3b, 48 SSM layers with tied embeddings, 2.7 GB;
 jamba-1.5-large-398b, super-blocks of one GQA 64:8 attention layer at 128
 and 7 SSD layers, MoE 16 experts top-2 on every second layer: 795 GB in
 full, so one card serves it cut with ``--layers 8 --experts 8``, one
-super-block with 8 of 16 experts, 51.6 GB, every width the published one).
+super-block with 8 of 16 experts, 51.6 GB, every width the published one;
+whisper-base, an encoder of 6 layers over 1500 audio frames and a decoder of
+6 layers with cross-attention, 8 heads of 64, 98.6 M parameters, whose
+admissions encode zero frames as the reference's engine does).
 ``--layers N`` (a hybrid stack: a multiple of ``attn_layer_period``) and
 ``--experts E`` are the one-card cuts of a config too large for the card;
 each is printed as a cut when used.
@@ -41,6 +45,10 @@ each is printed as a cut when used.
   FULL_SSD  FULL's seeded draws with every prompt longer than 256 tokens
             cut to a multiple of 256 (mamba2's and jamba's chunk: the
             reference's ``ssd_chunked`` takes no other length);
+  SPEECH    whisper's decoder context: 16 requests with previous-text
+            prompts of 4..224 tokens (at most half of the 448 positions),
+            192 new tokens each, 8 slots, 448-token contexts, 16-token
+            blocks;
   SMOKE     the reference launcher's sizes (8 requests of 4..15 prompt
             tokens, 8 new tokens, 4 slots, 64-token contexts, 8-token
             blocks), the default with ``--smoke`` (the reduced config).
@@ -92,7 +100,10 @@ WINDOW = ServeSpec(
     prompt_ranges=((8192, 8193),) * 4 + ((4065, 4097),) * 4,
 )
 FULL_SSD = replace(FULL, chunk=256)
-MIXES = {"FULL": FULL, "WINDOW": WINDOW, "FULL_SSD": FULL_SSD, "SMOKE": SMOKE}
+#: whisper's decoder context (its learned position table's length, arXiv:2212.04356)
+DECODER_CONTEXT = 448
+SPEECH = ServeSpec(prompt_lo=4, prompt_hi=225, max_new_tokens=192, max_len=DECODER_CONTEXT)
+MIXES = {"FULL": FULL, "WINDOW": WINDOW, "FULL_SSD": FULL_SSD, "SPEECH": SPEECH, "SMOKE": SMOKE}
 
 
 def make_prompts(cfg: ModelConfig, spec: ServeSpec, seed: int = 0):
@@ -116,7 +127,15 @@ def check_mix(cfg: ModelConfig, spec: ServeSpec, prompts) -> None:
     a prompt longer than its chunk must be a whole number of chunks
     (``ssd_chunked``'s assert), and where contexts outgrow a sliding window,
     a prompt longer than the window a whole number of windows (the rolling
-    prefill's assert)."""
+    prefill's assert; the model's prefill refuses it too).  An
+    encoder-decoder stack (whisper) takes contexts of at most its decoder's
+    ``DECODER_CONTEXT`` positions: FULL's 1024-token prompts are no request
+    whisper is given."""
+    if cfg.is_encoder_decoder and spec.max_len > DECODER_CONTEXT:
+        raise ValueError(
+            f"{cfg.name}: {spec.max_len}-token contexts past the decoder's {DECODER_CONTEXT} "
+            "positions; serve the SPEECH mix"
+        )
     for n in map(len, prompts):
         chunk = min(cfg.ssm_chunk, n)
         if cfg.ssm_state_dim and n % chunk:
@@ -195,7 +214,7 @@ def main(argv=None) -> None:
         default="stablelm-1.6b",
         help="one of repro_torch.configs.list_archs(): stablelm-1.6b, olmoe-1b-7b, "
         "deepseek-v2-lite-16b, deepseek-7b, chameleon-34b, stablelm-3b, h2o-danube-1.8b, "
-        "mamba2-1.3b or jamba-1.5-large-398b",
+        "mamba2-1.3b, jamba-1.5-large-398b or whisper-base",
     )
     ap.add_argument(
         "--layers", type=int, help="a cut: the first N layers (hybrid: whole super-blocks)"

@@ -23,7 +23,10 @@ float32 parameters and gradients): ``--smoke`` trains its reduced config.
 ``--layers N`` cuts the stack to its first N layers at full width:
 deepseek-v2-lite-16b's float32 parameters, gradients and AdamW moments take
 ~260 GB at its 27 layers, ~44 GB at 4; deepseek-7b's ~111 GB at 30 layers,
-chameleon-34b's ~549 GB at 48.  The loop
+chameleon-34b's ~549 GB at 48.  whisper-base is refused: its training step
+takes audio frames beside the tokens (``train.step``), and the reference's
+``TokenPipeline`` yields none, so the reference's launcher cannot train it
+either.  The loop
 is the reference's: sequences of 64 tokens, batches of ``max(2, 2 *
 microbatches)``, checkpoints every ``max(10, steps // 4)`` steps into
 ``--ckpt-dir`` (none without it), auto-resume.  Attention runs through the
@@ -79,6 +82,12 @@ def main(argv=None) -> None:
         **kw,
     )
     cfg = get_config(run.arch)
+    if cfg.is_encoder_decoder:
+        ap.error(
+            f"--arch {run.arch}: an encoder-decoder step needs audio frames beside the tokens, "
+            "and the token pipeline (the reference's TokenPipeline) yields none; train it "
+            "through train.step.make_train_step with a batch that holds 'frames'"
+        )
     if args.smoke:
         cfg = smoke(cfg)
     if args.layers:

@@ -1,5 +1,6 @@
-"""Grouped-query attention (+ partial RoPE, optional QK-norm) and Multi-head
-Latent Attention (DeepSeek-V2) over the banked KV pool.
+"""Grouped-query attention (+ partial RoPE, optional QK-norm), whisper's
+cross-attention and Multi-head Latent Attention (DeepSeek-V2) over the
+banked KV pool.
 
 The reference's ``models/attention.py``, with its layouts at the public
 functions (``wq [d, h, k]``, ``wo [h, k, d]``, K/V ``[.., T, G, D]``).
@@ -21,7 +22,16 @@ window``, the reference's mask.  The reference's decode rolls a cache of
 than the window attends over the whole prompt under the mask and keeps the
 last ``window`` rows; here the pool keeps every row of a request, and the
 paged kernel masks the rows before ``pos - window + 1`` itself, so both
-compute the reference's function over the same keys.
+compute the reference's function over the same keys.  A prompt past the
+window must be a whole number of windows, as the reference's rolling
+prefill asserts (``GQAAttention.prefill`` raises ``ValueError``).
+
+Whisper (``cfg.is_encoder_decoder``) attends without RoPE: its encoder's
+self-attention is non-causal over the fresh K/V of its frames
+(``GQAAttention.forward``, flash with ``causal=False``), and each decoder
+layer's ``CrossAttention`` attends to the encoder's output: through the
+flash kernel at prefill and in training, and at decode through the paged
+kernel over each slot's cross K/V (``CrossKV``, kept beside the pool).
 
 K/V are stored in the KV dtype (bfloat16, as the reference's cache) and
 attention reads them back from there, so a float32 run rounds them exactly
@@ -127,28 +137,36 @@ class PagedKV:
 
 class GQAAttention(torch.nn.Module):
     """Projections in the compute dtype; the QK-norm scales (``use_qk_norm``)
-    stay float32, as the reference's norms read them."""
+    stay float32, as the reference's norms read them.  q and k are rotated
+    unless the stack is an encoder-decoder one (whisper: the reference's
+    ``use_rope=not cfg.is_encoder_decoder``); ``causal=False`` lets every
+    query see every key (whisper's encoder)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, *, causal: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.causal = causal
         for name, spec in gqa_specs(cfg).items():
             dt = dtype if len(spec.shape) > 1 else torch.float32
             self.register_parameter(
                 name, torch.nn.Parameter(torch.empty(spec.shape, dtype=dt), requires_grad=False)
             )
 
+    @staticmethod
+    def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x [B, S, d]`` times ``w [d, heads, k]`` -> ``[B, S, heads, k]``."""
+        B, S, d = x.shape
+        return (x @ w.to(x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
+
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
-        B, S, d = x.shape
-        q = (x @ self.wq.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_heads, -1)
-        k = (x @ self.wk.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
-        v = (x @ self.wv.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_kv_heads, -1)
+        q, k, v = self._proj(x, self.wq), self._proj(x, self.wk), self._proj(x, self.wv)
         if cfg.use_qk_norm:  # per head over head_dim, before RoPE, as the reference
             q = rmsnorm(q, self.q_norm, cfg.norm_eps)
             k = rmsnorm(k, self.k_norm, cfg.norm_eps)
-        q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-        k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        if not cfg.is_encoder_decoder:  # the reference's use_rope
+            q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+            k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
         return q, k, v
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
@@ -157,12 +175,21 @@ class GQAAttention(torch.nn.Module):
 
     def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str) -> torch.Tensor:
         """x ``[B, S, d]``, positions ``[B, S]``; ``kv_out`` (``[B, S, 2, G, D]``
-        or None) receives the fresh K/V in ``kv_dtype``."""
+        or None) receives the fresh K/V in ``kv_dtype``.  A prompt longer
+        than the sliding window must be a whole number of windows
+        (``ValueError``): the reference's rolling prefill, into the
+        window-sized cache its engine gives a context past the window,
+        asserts it."""
+        window = self.cfg.sliding_window
+        if window and x.shape[1] > window and x.shape[1] % window:
+            raise ValueError(
+                f"a prompt of {x.shape[1]} tokens past the {window}-token window must be a whole "
+                "number of windows (the reference's rolling prefill asserts S % window == 0)"
+            )
         q, k, v = self._qkv(x, positions)
         if kv_out is not None:
             kv_out[:, :, 0] = k
             kv_out[:, :, 1] = v
-        window = self.cfg.sliding_window
         if not (window and x.shape[1] > window):
             # attention reads the K/V back as stored, as the reference reads its
             # cache; its rolling prefill (a prompt past the window) attends over
@@ -171,12 +198,21 @@ class GQAAttention(torch.nn.Module):
         flash = ATTENTION[impl][0]
         return self._out(flash(q, k, v, causal=True, window=window))
 
+    def forward(self, x, positions, *, impl: str) -> torch.Tensor:
+        """Self-attention over the fresh K/V of ``x [B, S, d]`` in its dtype,
+        with no cache (whisper's encoder: the reference's ``gqa_attention``
+        without one)."""
+        q, k, v = self._qkv(x, positions)
+        flash = ATTENTION[impl][0]
+        return self._out(flash(q, k, v, causal=self.causal, window=self.cfg.sliding_window))
+
     def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
-        """Causal (and windowed) self-attention over ``x [B, S, d]``, differentiable."""
+        """Self-attention over ``x [B, S, d]`` (causal unless built
+        otherwise, windowed where the config says), differentiable."""
         q, k, v = self._qkv(x, positions)
         flash = TRAIN_ATTENTION[impl]
         qkv = (q.contiguous(), k.contiguous(), v.contiguous())
-        return self._out(flash(*qkv, causal=True, window=self.cfg.sliding_window))
+        return self._out(flash(*qkv, causal=self.causal, window=self.cfg.sliding_window))
 
     def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str) -> torch.Tensor:
         """x ``[B, 1, d]``, positions ``[B, 1]``."""
@@ -193,6 +229,92 @@ class GQAAttention(torch.nn.Module):
             cache.lengths,
             window=self.cfg.sliding_window,
         )
+        return self._out(o[:, None])
+
+
+@dataclass
+class CrossKV:
+    """Each decode slot's cross-attention K/V, kept beside the pool as an SSM
+    stack's state is (the reference's ``ck``/``cv``, ``[L, B, T_enc, G,
+    D]``, in the KV dtype).
+
+    ``kv`` ``[slots * nb, bs, L, 2, G, D]`` holds slot ``s``'s encoder rows
+    in blocks ``s * nb .. s * nb + nb - 1`` (``nb = ceil(T_enc / bs)``), K at
+    index 0 and V at 1 of every decoder layer, so one layer's K (or V) is a
+    strided view laid out as the pool's, and the paged kernel reads it
+    through ``block_table [slots, nb]`` with ``lengths [slots]`` = ``T_enc``
+    (every slot attends to all its encoder rows, as the reference's batched
+    decode does; an idle slot's rows are those of its last request, or
+    zeros).  The pool's blocks, placement and KV record stay the
+    reference's: these rows are no pool blocks."""
+
+    kv: torch.Tensor
+    block_table: torch.Tensor
+    lengths: torch.Tensor
+    enc_len: int
+
+    @classmethod
+    def empty(cls, cfg: ModelConfig, slots: int, block_size: int, *, dtype, device) -> "CrossKV":
+        nb = -(-cfg.encoder_seq_len // block_size)
+        shape = (slots * nb, block_size, cfg.num_layers, 2, cfg.num_kv_heads)
+        kv = torch.zeros((*shape, cfg.resolved_head_dim), dtype=dtype, device=device)
+        table = torch.arange(slots * nb, dtype=torch.int32, device=device).view(slots, nb)
+        lengths = torch.full((slots,), cfg.encoder_seq_len, dtype=torch.int32, device=device)
+        return cls(kv, table, lengths, cfg.encoder_seq_len)
+
+    def slot(self, s: int) -> torch.Tensor:
+        """Slot ``s``'s rows as prefill writes them: ``[1, T_enc, L, 2, G, D]``."""
+        nb = self.block_table.shape[1]
+        rows = self.kv[s * nb : (s + 1) * nb]
+        return rows.reshape(1, -1, *rows.shape[2:])[:, : self.enc_len]
+
+    def nbytes(self) -> int:
+        return self.kv.numel() * self.kv.element_size()
+
+
+class CrossAttention(GQAAttention):
+    """Whisper's cross-attention (the reference's ``_encdec_layer``, its
+    cross part): queries from the decoder, K and V from the encoder's
+    output, no RoPE, never causal; ``gqa_specs`` parameters.
+
+      prefill, training : K/V projected from ``encoder_out`` and attended
+                in the compute dtype through the flash kernel (non-causal,
+                keys masked by their true length ``T_enc``; the reference:
+                ``chunked_attention``), as the reference attends over the
+                fresh K/V; prefill also writes them to the slot's rows of the
+                cross buffer in the KV dtype (the reference's ``ck``/``cv``).
+      decode  : the paged kernel over the cross buffer's K/V of the layer,
+                read back in the KV dtype through ``CrossKV``'s block table
+                (the reference: ``direct_attention`` over ``ck``/``cv``):
+                one query a slot over its ``T_enc`` rows, split over the
+                rows' spans as the pool's decode is.
+    """
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__(cfg, dtype, causal=False)
+
+    def prefill(self, x, encoder_out, cross_out, *, impl: str) -> torch.Tensor:
+        """x ``[B, S, d]``, encoder_out ``[B, T_enc, d]``; ``cross_out``
+        (``[B, T_enc, 2, G, D]`` or None) receives the K/V in its dtype."""
+        k, v = self._proj(encoder_out, self.wk), self._proj(encoder_out, self.wv)
+        if cross_out is not None:
+            cross_out[:, :, 0] = k
+            cross_out[:, :, 1] = v
+        flash = ATTENTION[impl][0]
+        return self._out(flash(self._proj(x, self.wq), k, v, causal=False))
+
+    def forward_train(self, x, encoder_out, *, impl: str) -> torch.Tensor:
+        """Differentiable, over the fresh K/V of ``encoder_out``."""
+        k, v = self._proj(encoder_out, self.wk), self._proj(encoder_out, self.wv)
+        flash = TRAIN_ATTENTION[impl]
+        return self._out(flash(self._proj(x, self.wq), k, v, causal=False))
+
+    def decode(self, x, cross: CrossKV, layer: int, *, impl: str) -> torch.Tensor:
+        """x ``[B, 1, d]`` for the ``B`` slots of ``cross``."""
+        paged = ATTENTION[impl][1]
+        kv = cross.kv[:, :, layer]
+        q = self._proj(x, self.wq)[:, 0].contiguous()
+        o = paged(q, kv[:, :, 0], kv[:, :, 1], cross.block_table, cross.lengths)
         return self._out(o[:, None])
 
 

@@ -159,6 +159,25 @@ def apply_rope(
     return torch.cat([out.to(x.dtype), xp], dim=-1)
 
 
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    inv = 1.0 / (10_000.0 ** (torch.arange(0, d, 2, dtype=torch.float32) / d))
+    ang = positions.float()[..., None] * inv.to(positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(num_pos: int, d: int, device=None) -> torch.Tensor:
+    """The classic sin/cos table ``[num_pos, d]``, float32, sines then
+    cosines (whisper's encoder; the reference's ``sinusoidal_positions``)."""
+    return _sinusoid(torch.arange(num_pos, device=device), d)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The same table at integer ``positions [..., S]`` -> ``[..., S, d]``
+    (whisper's decoder, at absolute positions in decode; the reference's
+    ``sinusoidal_at``)."""
+    return _sinusoid(positions, d)
+
+
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
-"""Decoder stack of the port: the reference's ``models/model.py`` for
+"""Model stacks of the port: the reference's ``models/model.py`` for
 uniform GQA or MLA architectures, dense or with an MoE FFN on every layer,
-with or without a sliding window, for uniform SSM stacks (mamba2) and for
-hybrid stacks of super-blocks (jamba).
+with or without a sliding window, for uniform SSM stacks (mamba2), for
+hybrid stacks of super-blocks (jamba) and for encoder-decoder stacks
+(whisper).
 
 Public API (each mirrors the reference's function of the same name):
   param_specs(cfg)                         -> ParamSpec tree (layers stacked [L, ...])
   init_params(cfg, seed, device=...)       -> Transformer with seeded random weights
-  prefill(model, tokens, kv_out, ssm_out=None) -> logits [B, 1, Vp] of the last position
-  decode_step(model, tokens, pos, cache, ssm_cache=None, mla_absorbed=False) -> logits [B, 1, Vp]
-  forward_train(model, tokens, remat_policy=...) -> (logits [B, S, Vp], aux)
+  prefill(model, tokens, kv_out, ssm_out=None, frames=, cross_out=) -> logits [B, 1, Vp]
+  decode_step(model, tokens, pos, cache, ssm_cache=None, cross=, mla_absorbed=) -> [B, 1, Vp]
+  forward_train(model, tokens, frames=None, remat_policy=...) -> (logits [B, S, Vp], aux)
 
 The stack is a ``ModuleList`` of blocks run in a Python loop (the reference
 scans stacked params).  Weight matrices and the embedding are stored in the
@@ -36,7 +37,16 @@ hold the ``nb`` attention layers' K and V, and its SSM state is an
 reference's), passed to ``prefill`` as ``ssm_out`` and to ``decode_step``
 as ``ssm_cache`` beside the pool.  Tied embeddings (``cfg.tie_embeddings``,
 mamba2) keep no ``lm_head``: the logits are ``x @ embed.T``, as the
-reference's ``_logits``.  The families the port does not carry yet raise
+reference's ``_logits``.  An encoder-decoder stack (whisper) adds an
+``Encoder`` (``encoder.layers`` stacked ``[Le, ...]``: non-causal
+self-attention over ``encoder_seq_len`` frames and a GELU FFN, then
+``encoder.final_norm``; the reference's ``_whisper_encode``) and gives each
+decoder layer ``cross_norm`` and ``cross`` (``CrossAttention``) between its
+self-attention and its FFN (the reference's ``_encdec_layer``); neither
+side rotates q and k, and the decoder's embedding adds the sin/cos table
+at each token's absolute position.  ``prefill`` encodes ``frames`` and
+writes the cross K/V to ``cross_out``; ``decode_step`` reads them from a
+``CrossKV`` beside the pool.  What the port does not carry raises
 ``NotImplementedError`` (``configs.base.check_supported``).
 
 Training takes a model built with ``param_dtype`` (float32, the reference's
@@ -69,23 +79,38 @@ import torch.utils.checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.models.attention import (
     ATTENTION,
+    CrossAttention,
+    CrossKV,
     GQAAttention,
     MLAAttention,
     PagedKV,
     gqa_specs,
     mla_specs,
 )
-from repro_torch.models.layers import Norm, ParamSpec, init_leaf, iter_specs, leaf_seed, norm_spec
+from repro_torch.models.layers import (
+    Norm,
+    ParamSpec,
+    init_leaf,
+    iter_specs,
+    leaf_seed,
+    norm_spec,
+    sinusoidal_at,
+    sinusoidal_positions,
+)
 from repro_torch.models.mlp import MLP, mlp_specs
 from repro_torch.models.moe import MoE, moe_specs
 from repro_torch.models.ssm import SSMBlock, SSMCache, init_ssm_cache, ssm_specs
 
 
-def _attn_layer_specs(cfg: ModelConfig) -> dict:
-    return {
+def _attn_layer_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    spec = {
         "attn_norm": norm_spec(cfg, cfg.d_model),
         "attn": mla_specs(cfg) if cfg.use_mla else gqa_specs(cfg),
     }
+    if cross:
+        spec["cross_norm"] = norm_spec(cfg, cfg.d_model)
+        spec["cross"] = gqa_specs(cfg)
+    return spec
 
 
 def _ffn_layer_specs(cfg: ModelConfig, moe: bool) -> dict:
@@ -121,16 +146,33 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, Vp), ("embed", "vocab"), init="fan_in")
+    if cfg.is_encoder_decoder:
+        enc_layer = {
+            "attn_norm": norm_spec(cfg, d),
+            "attn": gqa_specs(cfg),
+            "ffn_norm": norm_spec(cfg, d),
+            "ffn": mlp_specs(cfg, cfg.d_ff),
+        }
+        specs["encoder"] = {
+            "layers": _stack(enc_layer, cfg.num_encoder_layers),
+            "final_norm": norm_spec(cfg, d),
+        }
     if cfg.family == "hybrid":
         nb = cfg.num_layers // cfg.attn_layer_period
         specs["layers"] = _stack(_hybrid_block_specs(cfg), nb)
     elif cfg.family == "ssm":
         specs["layers"] = _stack(_ssm_layer_specs(cfg), cfg.num_layers)
     else:
-        layer = _attn_layer_specs(cfg)
+        layer = _attn_layer_specs(cfg, cross=cfg.is_encoder_decoder)
         layer.update(_ffn_layer_specs(cfg, moe=cfg.is_moe_layer(0)))
         specs["layers"] = _stack(layer, cfg.num_layers)
     return specs
+
+
+def is_stacked(keys) -> bool:
+    """Whether the leaf at ``keys`` is stacked over layers: the decoder's
+    ``layers`` and an encoder-decoder stack's ``encoder.layers``."""
+    return keys[0] == "layers" or tuple(keys[:2]) == ("encoder", "layers")
 
 
 def _stack(tree: dict, n: int) -> dict:
@@ -218,11 +260,48 @@ class HybridBlock(torch.nn.Module):
             yield pos, mixer, ffn
 
 
+class EncoderLayer(torch.nn.Module):
+    """One layer of whisper's encoder (the reference's ``_whisper_encode``
+    scan body): ``x + attn(attn_norm(x))`` non-causal and unrotated, then
+    ``x + ffn(ffn_norm(x))``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        self.attn_norm = Norm(cfg, cfg.d_model)
+        self.attn = GQAAttention(cfg, dtype, causal=False)
+        self.ffn_norm = Norm(cfg, cfg.d_model)
+        self.ffn = MLP(cfg, cfg.d_ff, dtype)
+
+    def forward(self, x, positions, impl: str, train: bool = False):
+        h = self.attn_norm(x)
+        x = x + (self.attn.forward_train if train else self.attn)(h, positions, impl=impl)
+        return x + self.ffn(self.ffn_norm(x))
+
+
+class Encoder(torch.nn.Module):
+    """Whisper's encoder: frames plus the sin/cos table, the layers, the
+    final norm (``encoder.layers`` stacked ``[Le, ...]``, ``encoder.final_norm``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            EncoderLayer(cfg, dtype) for _ in range(cfg.num_encoder_layers)
+        )
+        self.final_norm = Norm(cfg, cfg.d_model)
+
+
 class Block(torch.nn.Module):
+    """One layer of a uniform stack: attention, then (whisper's decoder)
+    cross-attention over the encoder's output, then the FFN."""
+
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
         self.attn_norm = Norm(cfg, cfg.d_model)
         self.attn = (MLAAttention if cfg.use_mla else GQAAttention)(cfg, dtype)
+        self.cross = None
+        if cfg.is_encoder_decoder:
+            self.cross_norm = Norm(cfg, cfg.d_model)
+            self.cross = CrossAttention(cfg, dtype)
         self.ffn_norm = Norm(cfg, cfg.d_model)
         self.is_moe = cfg.is_moe_layer(0)
         if self.is_moe:
@@ -235,10 +314,13 @@ class Block(torch.nn.Module):
         h = self.ffn_norm(x)
         return self.moe(h) if self.is_moe else self.ffn(h)
 
-    def train_layer(self, x, positions, impl: str):
+    def train_layer(self, x, positions, impl: str, encoder_out=None):
         """One layer of the training forward: ``(x, aux)``, aux float32 (0
-        for a dense FFN, as the reference's ``_apply_ffn``)."""
+        for a dense FFN, as the reference's ``_apply_ffn``); whisper's
+        decoder attends to ``encoder_out`` after its self-attention."""
         x = x + self.attn.forward_train(self.attn_norm(x), positions, impl=impl)
+        if self.cross is not None:
+            x = x + self.cross.forward_train(self.cross_norm(x), encoder_out, impl=impl)
         h = self.ffn_norm(x)
         if self.is_moe:
             out, aux = self.moe.forward_aux(h)
@@ -278,6 +360,7 @@ class Transformer(torch.nn.Module):
         self.lm_head = None  # tied: the logits read ``embed``
         if not cfg.tie_embeddings:
             self.lm_head = torch.nn.Parameter(torch.empty(d, Vp, dtype=wdt), False)
+        self.encoder = Encoder(cfg, wdt) if cfg.is_encoder_decoder else None
         layer_cls = {"ssm": SSMLayer, "hybrid": HybridBlock}.get(cfg.family, Block)
         n = cfg.num_layers // (cfg.attn_layer_period if cfg.family == "hybrid" else 1)
         self.layers = torch.nn.ModuleList(layer_cls(cfg, wdt) for _ in range(n))
@@ -308,10 +391,13 @@ class Transformer(torch.nn.Module):
 
     def stacked(self, keys) -> list:
         """``(index, parameter)`` for every slice of the stacked layer leaf
-        at ``keys`` (``("layers", ...)``): index ``(i,)`` for layer ``i`` of
-        a uniform stack; in a hybrid stack ``(b,)`` for block ``b``'s
-        attention leaves and ``(b, j)`` for its ``j``-th SSM, dense or MoE
-        layer's (leaves stacked ``[nb, k, ...]``)."""
+        at ``keys`` (``("layers", ...)``, or ``("encoder", "layers", ...)``
+        for whisper's encoder): index ``(i,)`` for layer ``i`` of a uniform
+        stack or of the encoder; in a hybrid stack ``(b,)`` for block
+        ``b``'s attention leaves and ``(b, j)`` for its ``j``-th SSM, dense
+        or MoE layer's (leaves stacked ``[nb, k, ...]``)."""
+        if keys[0] == "encoder":
+            return [((i,), _param(m, keys[2:])) for i, m in enumerate(self.encoder.layers)]
         out = []
         for i, layer in enumerate(self.layers):
             sub = getattr(layer, keys[1])
@@ -338,7 +424,7 @@ class Transformer(torch.nn.Module):
         (the inverse of ``load_tree``)."""
         tree: dict = {}
         for keys, spec in iter_specs(param_specs(self.cfg)):
-            if keys[0] == "layers":
+            if is_stacked(keys):
                 val = torch.stack([p for _, p in self.stacked(keys)]).reshape(spec.shape)
             else:
                 val = _param(self, keys)
@@ -353,14 +439,46 @@ class Transformer(torch.nn.Module):
         value = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
         if tuple(value.shape) != spec.shape:
             raise ValueError(f"{keys}: shape {tuple(value.shape)}, expected {spec.shape}")
-        if keys[0] == "layers":
+        if is_stacked(keys):
             for idx, p in self.stacked(keys):
                 p.copy_(value[idx])
         else:
             _param(self, keys).copy_(value)
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()]
+    def _embed(self, tokens: torch.Tensor, positions=None) -> torch.Tensor:
+        """Token rows; whisper's decoder adds the sin/cos table at the
+        tokens' absolute ``positions`` (the reference's ``_embed_tokens``)."""
+        x = self.embed[tokens.long()]
+        return x if self.encoder is None else self._add_sinusoid(x, positions)
+
+    def _add_sinusoid(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return x + sinusoidal_at(positions, self.cfg.d_model).to(x.dtype)
+
+    def encode(self, frames: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """Whisper's encoder over ``frames [B, T_enc, d]`` (the audio front
+        end's stub: frame embeddings, cast to the compute dtype): the
+        sin/cos table added, each layer, the final norm (the reference's
+        ``_whisper_encode``).  ``train``: differentiable, each layer
+        checkpointed on its own under the ``"minimal"`` policy, as the
+        reference checkpoints its scan body (weight products saved)."""
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder stack: it needs frames")
+        x = frames.to(self.compute_dtype)
+        B, T, _ = x.shape
+        x = x + sinusoidal_positions(T, self.cfg.d_model, x.device).to(x.dtype)
+        positions = torch.arange(T, device=x.device).expand(B, T)
+        for layer in self.encoder.layers:
+            if train:
+                x = _remat(layer, "minimal")(x, positions, self.impl, True)
+            else:
+                x = layer(x, positions, self.impl)
+        return self.encoder.final_norm(x)
+
+    def init_cross_kv(self, slots: int, block_size: int) -> CrossKV:
+        """A zero cross buffer (``attention.CrossKV``) for ``slots`` decode
+        slots in blocks of ``block_size`` rows, in the KV dtype, on the
+        model's device."""
+        return CrossKV.empty(self.cfg, slots, block_size, dtype=self.kv_dtype, device=self.device)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.lm_head is None else self.lm_head
@@ -434,7 +552,7 @@ def init_params(
         param_dtype=param_dtype,
     )
     for keys, spec in iter_specs(param_specs(cfg)):
-        if keys[0] != "layers":
+        if not is_stacked(keys):
             model._assign(keys, init_leaf(spec, leaf_seed(seed, keys), model.device), spec)
             continue
         for idx, p in model.stacked(keys):
@@ -445,24 +563,35 @@ def init_params(
 
 @torch.no_grad()
 def prefill(
-    model: Transformer, tokens: torch.Tensor, kv_out=None, ssm_out: Optional[SSMCache] = None
+    model: Transformer,
+    tokens: torch.Tensor,
+    kv_out=None,
+    ssm_out: Optional[SSMCache] = None,
+    *,
+    frames: Optional[torch.Tensor] = None,
+    cross_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the prompt ``tokens [B, S]``.  ``kv_out`` (``[B, S, *kv_row_shape]``,
     or None) receives every attention layer's fresh K/V (MLA: latent rows).
     An SSM or hybrid stack starts its SSM layers from ``ssm_out``'s state (a
     zero state if None), as the reference's prefill starts from its cache's,
-    and writes their final state and conv window there.  Returns the last
+    and writes their final state and conv window there.  An encoder-decoder
+    stack (whisper) encodes ``frames [B, T_enc, d]`` (the reference's
+    ``batch["frames"]``), and ``cross_out`` (``[B, T_enc, L, 2, G, D]``,
+    ``CrossKV.slot``, or None) receives every decoder layer's cross K/V in
+    the KV dtype (the reference's ``ck``/``cv``).  Returns the last
     position's logits ``[B, 1, Vp]`` in the compute dtype."""
     B, S = tokens.shape
-    x = model._embed(tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = model._embed(tokens, positions)
     family = model.cfg.family
+    enc = model.encode(frames) if model.encoder is not None else None
     if family in ("ssm", "hybrid"):
         cache = model.init_ssm_cache(B) if ssm_out is None else ssm_out
     if family == "ssm":
         for layer, blk in enumerate(model.layers):
             x = blk(x, cache.layer(layer))
         return model._logits(x[:, -1:])
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
     kw = dict(kv_dtype=model.kv_dtype, impl=model.impl)
     for layer, blk in enumerate(model.layers):
         kv = None if kv_out is None else kv_out[:, :, layer]
@@ -475,6 +604,9 @@ def prefill(
                 x, _ = ffn(x)
             continue
         x = x + blk.attn.prefill(blk.attn_norm(x), positions, kv, **kw)
+        if blk.cross is not None:
+            cross = None if cross_out is None else cross_out[:, :, layer]
+            x = x + blk.cross.prefill(blk.cross_norm(x), enc, cross, impl=model.impl)
         x = x + blk.feed_forward(x)
     return model._logits(x[:, -1:])
 
@@ -487,6 +619,7 @@ def decode_step(
     cache,
     ssm_cache: Optional[SSMCache] = None,
     *,
+    cross: Optional[CrossKV] = None,
     mla_absorbed: bool = False,
 ) -> torch.Tensor:
     """One token per sequence: tokens ``[B, 1]``, pos ``[B]`` absolute index.
@@ -494,16 +627,19 @@ def decode_step(
     and returns ``[B, 1, Vp]``; an SSM stack takes an ``SSMCache`` of ``B``
     sequences as ``cache`` instead, updated in place (it reads no position),
     and a hybrid stack both: the pool as ``cache`` for its attention layers
-    and its SSM layers' state as ``ssm_cache``.  ``mla_absorbed`` picks
-    MLA's decode form, as the reference's does (default: the non-absorbed
-    form); GQA ignores it."""
-    x = model._embed(tokens)
+    and its SSM layers' state as ``ssm_cache``.  An encoder-decoder stack
+    (whisper) reads its ``B`` slots' cross K/V from ``cross`` (a
+    ``CrossKV``, written at prefill) and adds the sin/cos table at ``pos``.
+    ``mla_absorbed`` picks MLA's decode form, as the reference's does
+    (default: the non-absorbed form); GQA ignores it."""
     family = model.cfg.family
     if family == "ssm":
+        x = model._embed(tokens)
         for layer, blk in enumerate(model.layers):
             x = blk(x, cache.layer(layer), decode=True)
         return model._logits(x)
     positions = pos.reshape(-1, 1)
+    x = model._embed(tokens, positions)
     kw = {"absorbed": mla_absorbed} if model.cfg.use_mla else {}
     for layer, blk in enumerate(model.layers):
         if family == "hybrid":
@@ -515,6 +651,8 @@ def decode_step(
                 x, _ = ffn(x)
             continue
         x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl, **kw)
+        if blk.cross is not None:
+            x = x + blk.cross.decode(blk.cross_norm(x), cross, layer, impl=model.impl)
         x = x + blk.feed_forward(x)
     return model._logits(x)
 
@@ -576,18 +714,31 @@ def _remat(fn, policy: str):
     raise ValueError(f"remat_policy must be none, minimal or full; got {policy!r}")
 
 
-def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str = "minimal"):
+def forward_train(
+    model: Transformer,
+    tokens: torch.Tensor,
+    *,
+    frames: Optional[torch.Tensor] = None,
+    remat_policy: str = "minimal",
+):
     """tokens ``[B, S]`` -> ``(logits [B, S, Vp]`` in the compute dtype,
     ``aux`` float32 scalar, the layers' summed MoE load-balancing loss``)``:
-    the reference's ``forward_train`` for a decoder-only stack, with
-    gradients to every parameter of a training model.  A uniform stack
-    takes ``remat_policy`` per layer; a hybrid stack checkpoints each
-    mixer and each FFN of a super-block on its own under any policy but
-    ``"none"`` (the reference's ``remat_positions``: nothing saved, so the
-    backward holds one sub-layer's activations at a time)."""
+    the reference's ``forward_train``, with gradients to every parameter of
+    a training model.  A uniform stack takes ``remat_policy`` per layer; a
+    hybrid stack checkpoints each mixer and each FFN of a super-block on its
+    own under any policy but ``"none"`` (the reference's
+    ``remat_positions``: nothing saved, so the backward holds one
+    sub-layer's activations at a time).  An encoder-decoder stack (whisper)
+    encodes ``frames [B, T_enc, d]`` (the reference's ``batch["frames"]``),
+    each encoder layer checkpointed on its own whatever the policy, as the
+    reference's, and its decoder layers attend to the encoder's output."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_lookup(model.embed, tokens).to(model.compute_dtype)
+    enc = None
+    if model.encoder is not None:
+        x = model._add_sinusoid(x, positions)
+        enc = model.encode(frames, train=True)
     aux = torch.zeros((), device=tokens.device)
     family = model.cfg.family
     if family == "hybrid":
@@ -609,13 +760,14 @@ def forward_train(model: Transformer, tokens: torch.Tensor, *, remat_policy: str
             x = _remat(blk, remat_policy)(x)
             continue
         x, a = _remat(functools.partial(blk.train_layer, impl=model.impl), remat_policy)(
-            x, positions
+            x, positions, encoder_out=enc
         )
         aux = aux + a
     return model._logits(x), aux
 
 
 __all__ = [
+    "CrossKV",
     "HybridBlock",
     "PagedKV",
     "SSMCache",

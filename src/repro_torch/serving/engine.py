@@ -46,9 +46,17 @@ rows in the pool for its attention layers only (``W = nb * 2 * G * D``,
 one attention layer a super-block; prefill through flash and
 ``banked_copy``, decode through paged attention) and each slot's SSM state
 beside it (``[nb, P - 1, max_batch, ...]``, batch on axis 2 as the
-reference's hybrid cache).  The pool still allocates and frees blocks per
-request whatever the family, as the reference's does, so the KV access
-record is the reference's.
+reference's hybrid cache).  An encoder-decoder model (whisper) keeps its
+decoder's self-attention K/V in the pool as a GQA stack does and each
+slot's cross-attention K/V beside it (``models.attention.CrossKV``: the
+reference's ``ck``/``cv``, ``nb = ceil(T_enc / bs)`` blocks of its own a
+slot): each admission encodes zero frames ``[1, T_enc, d]`` (the
+reference's engine feeds no audio: ``engine.py``'s zeros), and its prefill
+writes the slot's cross rows there, while ``banked_copy`` scatters the
+prompt's self K/V into the pool; each decode step then reads both, the
+pool and the cross buffer, through the paged kernel, every layer.  The
+pool still allocates and frees blocks per request whatever the family, as
+the reference's does, so the KV access record is the reference's.
 
 Tokens, slot assignment, block placement and step count equal the
 reference's.  Greedy argmax runs over the padded vocabulary, as there.
@@ -141,11 +149,13 @@ class ServingEngine:
         self._next_rid = 0
         self.steps = 0
         self.stats = EngineStats()
-        self.kv = self.ssm = None
+        self.kv = self.ssm = self.cross = None
         if params is None:  # traffic-only: no device store
             return
         if cfg.family in ("ssm", "hybrid"):  # per-slot recurrent state beside the pool
             self.ssm = params.init_ssm_cache(max_batch)
+        if cfg.is_encoder_decoder:  # per-slot cross K/V beside the pool
+            self.cross = params.init_cross_kv(max_batch, block_size)
         if not cfg.num_attn_layers:  # an SSM stack keeps no KV rows
             return
         self.kv = torch.zeros(
@@ -213,7 +223,12 @@ class ServingEngine:
         nblk = -(-S // bs)
         burst = self.kv.new_zeros((1, nblk, bs, self.kv.shape[2]))
         kv_out = burst.view(1, nblk * bs, *self.kv_layers.shape[2:])[:, :S]
-        logits = M.prefill(model, tokens, kv_out, ssm_out=state)
+        kw = {}
+        if self.cross is not None:  # zero frames, as the reference's engine
+            cfg = self.cfg
+            frames = torch.zeros((1, cfg.encoder_seq_len, cfg.d_model), device=model.device)
+            kw = dict(frames=frames, cross_out=self.cross.slot(slot))
+        logits = M.prefill(model, tokens, kv_out, ssm_out=state, **kw)
         table = self._device(np.asarray([self.pool.by_request[r.rid][:nblk]], np.int32))
         BANKED_COPY[model.impl](self.kv, burst, table)
         self._admitted(slot, r, logits, t0)
@@ -260,6 +275,7 @@ class ServingEngine:
             self._device(self.slot_pos),
             cache,
             self.ssm,
+            cross=self.cross,
             mla_absorbed=True,
         )
         return self._pick([self.slot_req[i] for i in active], logits[active, 0])

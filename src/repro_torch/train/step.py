@@ -76,7 +76,7 @@ def bind_stacked(model: M.Transformer) -> Tuple[dict, dict]:
     params: dict = {}
     grads: dict = {}
     for keys, spec in iter_specs(M.param_specs(model.cfg)):
-        if keys[0] == "layers":
+        if M.is_stacked(keys):
             ps = model.stacked(keys)
             leaf = torch.stack([p.detach() for _, p in ps]).reshape(spec.shape)
             grad = torch.zeros_like(leaf)
@@ -122,10 +122,15 @@ def make_grad_fn(cfg: ModelConfig, run: RunConfig):
     """``grad_fn(state, batch) -> (grads, metrics)``: the loss's gradients
     accumulated into ``state.grads`` (zeroed first; with ``microbatches > 1``
     summed over the microbatches in float32, then divided, as the
-    reference's scan) and ``{"loss", "aux_loss"}`` (their means)."""
+    reference's scan) and ``{"loss", "aux_loss"}`` (their means).  An
+    encoder-decoder stack reads its ``frames [B, T_enc, d]`` from the batch
+    beside ``tokens`` and ``labels``, as the reference's step passes the
+    batch to its ``forward_train``."""
 
     def loss_fn(model, batch):
-        logits, aux = M.forward_train(model, batch["tokens"], remat_policy=run.remat_policy)
+        logits, aux = M.forward_train(
+            model, batch["tokens"], frames=batch.get("frames"), remat_policy=run.remat_policy
+        )
         loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         total = loss + cfg.moe_aux_loss_weight * aux
         return total, {"loss": loss.detach(), "aux_loss": aux.detach()}

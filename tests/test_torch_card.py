@@ -264,6 +264,9 @@ def _tables(gen, B, width, NB, used):
         (1, 1, 1, 4, 4, 80, True, 0),  # S = 1 at D = 80
         (1, 100, 333, 8, 1, 80, False, 0),  # ragged T, GQA 8:1, D = 80
         (1, 300, 300, 8, 2, 80, True, 64),  # window, D = 80
+        (1, 1500, 1500, 8, 8, 64, False, 0),  # whisper's encoder: 1500 frames, no mask
+        (1, 100, 1500, 8, 8, 64, False, 0),  # whisper's cross-attention at prefill
+        (8, 1, 1500, 8, 8, 64, False, 0),  # cross-attention at S = 1 over 1500
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, B, S, T, H, G, D, causal, window, dtype, tol):
@@ -502,6 +505,9 @@ BWD_CASES = [
     (1, 100, 333, 8, 1, 80, False, 0),  # ragged T at D = 80, no mask
     (1, 300, 500, 8, 8, 80, True, 0),  # causal, T > S, D = 80
     (1, 517, 517, 16, 2, 128, True, 0),  # jamba's 8 heads a group at 128, ragged S
+    (1, 1500, 1500, 8, 8, 64, False, 0),  # whisper's encoder: 1500 frames, no mask
+    (1, 100, 1500, 8, 8, 64, False, 0),  # whisper's cross-attention, a short prompt
+    (1, 4096, 1500, 8, 8, 64, False, 0),  # cross-attention at training's 4096 tokens
 ]
 
 
@@ -1246,3 +1252,104 @@ def test_short_ssm_training_run(card):
         losses[device] = [float(fn(state, next(pipe))[1]["loss"]) for _ in range(3)]
         assert sum(LAUNCHES.values()) == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder stack (whisper-base)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+def test_paged_attention_over_the_whisper_cross_buffer(card, dtype, tol):
+    """The paged kernel over whisper-base's cross buffer as the engine keeps
+    it (8 slots x 94 blocks of 16 rows, 6 layers of K and V at 8 x 64, a
+    layer's strided view, lengths 1500: the last block part full) against
+    its plain version, and two calls alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.attention import CrossKV
+
+    gen = torch.Generator(device="cuda").manual_seed(1500)
+    cross = CrossKV.empty(get_config("whisper-base"), 8, 16, dtype=dtype, device="cuda")
+    assert cross.block_table.shape == (8, 94) and bool((cross.lengths == 1500).all())
+    cross.kv.copy_(_randn(gen, tuple(cross.kv.shape), dtype))
+    kv = cross.kv[:, :, 4]
+    args = (kv[:, :, 0], kv[:, :, 1], cross.block_table, cross.lengths)
+    q = _randn(gen, (8, 8, 64), dtype)
+    before = LAUNCHES["paged_attention"]
+    got = paged_attention(q, *args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_attention"] == before + 1
+    want = paged_attention_ref(q, *args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, paged_attention(q, *args))
+
+
+def test_short_whisper_serving_run(card):
+    """smoke(whisper-base) at its head dim of 64 over 100 frames (a ragged
+    last key tile) served on the card, float32: flash launches once per
+    encoder layer, self- and cross-attention at each admission, paged twice
+    a layer at each decode step (self and cross), banked_copy once an
+    admission, as the traffic-only run predicts; the tokens equal the plain
+    path's."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = smoke(get_config("whisper-base"), head_dim=64, encoder_seq_len=100)
+    spec = serve.SMOKE
+    prompts = serve.make_prompts(cfg, spec, seed=1)
+    plan, _ = serve.new_engine(None, None, spec, prompts)
+    plan.run()
+    model = M.init_params(cfg, 0, compute_dtype=torch.float32, kv_dtype=torch.float32)
+    tokens = {}
+    for impl in ("kernel", "ref"):
+        model.impl = impl
+        reset_launches()
+        eng, reqs = serve.new_engine(cfg, model, spec, prompts)
+        eng.run()
+        tokens[impl] = [r.out_tokens for r in reqs]
+        launches = dict(LAUNCHES)
+        if impl == "kernel":
+            L, Le = cfg.num_layers, cfg.num_encoder_layers
+            assert launches["flash_attention"] == (2 * L + Le) * plan.stats.admissions
+            assert launches["banked_copy"] == plan.stats.admissions
+            assert launches["paged_attention"] == 2 * L * plan.stats.decode_steps
+            assert launches["paged_attention_merge"] == 2 * L * plan.stats.decode_steps
+            assert eng.steps == plan.steps and all(r.done for r in reqs)
+        else:
+            assert sum(launches.values()) == 0
+    assert tokens["kernel"] == tokens["ref"]
+
+
+def test_short_whisper_training_run_through_the_kernels(card):
+    """Three AdamW steps of smoke(whisper-base) at head dim 64 over 100
+    frames on the card, float32 compute, remat full: the flash forward
+    launches twice and the backward once per attention a step (2 encoder
+    layers, 2 decoder layers' self- and cross-attention), and the losses
+    equal the plain path's within 1e-4."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import step as S
+
+    cfg = smoke(get_config("whisper-base"), head_dim=64, encoder_seq_len=100)
+    rng = np.random.default_rng(0)
+    batches = [
+        {
+            "tokens": rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32),
+            "frames": rng.normal(size=(2, 100, cfg.d_model)).astype(np.float32),
+        }
+        for _ in range(3)
+    ]
+    losses = {}
+    for impl in ("pallas", "jnp"):
+        run = RunConfig(compute_dtype="float32", attn_impl=impl, learning_rate=1e-3, warmup_steps=1)
+        state = S.init_train_state(cfg, run, 0)
+        fn = S.make_train_step(cfg, run, total_steps=3)
+        reset_launches()
+        losses[impl] = [float(fn(state, b)[1]["loss"]) for b in batches]
+        want = (3 * 2 * 6, 3 * 6) if impl == "pallas" else (0, 0)
+        assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == want
+    np.testing.assert_allclose(losses["pallas"], losses["jnp"], rtol=0, atol=1e-4)

@@ -49,10 +49,11 @@ def test_configs_match_reference(overrides):
     ],
 )
 def test_later_slices_raise(arch):
-    """Only the encoder-decoder family (whisper) is still refused; every
-    other config of the reference is in the registry and builds a training
-    model (float32 parameters with gradients), the SSM and hybrid stacks
-    included, whose training forward runs and backpropagates."""
+    """No config of the reference is refused any more: each is in the
+    registry, equal to the reference's, and builds a training model
+    (float32 parameters with gradients); the SSM, hybrid and
+    encoder-decoder stacks' training forwards run and backpropagate
+    (whisper's from frames of its smoke encoder length)."""
     assert list_archs() == [
         ARCH,
         "olmoe-1b-7b",
@@ -63,19 +64,17 @@ def test_later_slices_raise(arch):
         "h2o-danube-1.8b",
         "mamba2-1.3b",
         "jamba-1.5-large-398b",
+        "whisper-base",
     ]
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
-    if cfg.is_encoder_decoder:
-        with pytest.raises(KeyError):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="later slices"):
-            init_params(cfg, device="cpu")
-        return
     assert get_config(arch) == cfg
     model = init_params(smoke(cfg), device="cpu", param_dtype=torch.float32)
     assert all(p.requires_grad and p.dtype == torch.float32 for p in model.parameters())
-    if cfg.ssm_state_dim:  # the SSM and hybrid stacks: served and trained
-        logits, aux = forward_train(model, torch.zeros(1, 32, dtype=torch.int64))
+    if cfg.ssm_state_dim or cfg.is_encoder_decoder:  # served and trained
+        kw = {}
+        if cfg.is_encoder_decoder:
+            kw["frames"] = torch.ones(1, smoke(cfg).encoder_seq_len, smoke(cfg).d_model)
+        logits, aux = forward_train(model, torch.zeros(1, 32, dtype=torch.int64), **kw)
         assert logits.shape == (1, 32, smoke(cfg).padded_vocab)
         (logits.float().square().mean() + aux).backward()
         assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())

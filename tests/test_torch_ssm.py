@@ -34,6 +34,7 @@ from repro_torch.interop import model_from_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.layers import iter_specs, keystr  # noqa: E402
 from repro_torch.serving import record  # noqa: E402
 from repro_torch.train import step as S  # noqa: E402
 from test_torch_record import _key  # noqa: E402
@@ -297,7 +298,8 @@ def test_the_engine_and_launcher_refuse_what_the_reference_asserts():
 def test_forward_train_is_refused():
     """The SSM stack's training forward is no longer refused (it came with
     the hybrid stacks): it runs, with no aux loss, and its logits are the
-    serving forward's; the encoder-decoder family is still refused."""
+    serving forward's; nor is the encoder-decoder family (whisper), whose
+    parameter specs are the reference's tree."""
     cfg, _ = _cfgs()
     state = S.init_train_state(cfg, RunConfig(compute_dtype="float32"), 0, device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(0))
@@ -307,5 +309,7 @@ def test_forward_train_is_refused():
         last = M.prefill(state.model, tokens)
     _close(logits[:, -1:].detach(), last.numpy(), 1e-5)
     whisper = ModelConfig(**dataclasses.asdict(ref_get_config("whisper-base")))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        M.param_specs(whisper)
+    specs = sorted((keystr(k), v.shape) for k, v in iter_specs(M.param_specs(whisper)))
+    ref_tree = RM.abstract_params(ref_get_config("whisper-base"))
+    leaves = jax.tree_util.tree_leaves_with_path(ref_tree)
+    assert specs == sorted((jax.tree_util.keystr(p), tuple(x.shape)) for p, x in leaves)

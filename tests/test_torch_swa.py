@@ -20,6 +20,10 @@ package on the CPU.
     reference engine, whose cache is ``cache_length(cfg, 64) = 16`` slots:
     slots per step, blocks, step count, the KV access record and every
     token, in float32;
+  * the whole-window contract in the model: a 24-token prompt into the
+    reference's window-sized cache fails its rolling prefill's assert, and
+    the port's prefill refuses it with a ``ValueError``; a 32-token prompt
+    (two windows) runs on both sides and agrees (float32, 1e-4);
   * ``forward_train``'s gradients at the smoke size against
     ``jax.value_and_grad`` of the reference run in float64, sequences of 40
     tokens (2.5 windows), within 2e-4 of a leaf's largest entry
@@ -227,6 +231,26 @@ def test_engine_matches_reference_across_the_window(monkeypatch):
     assert ours.steps == ref.steps
     assert _key(rec.record) == _key(ref_rec.record)
     assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+
+
+@pytest.mark.parametrize("n", [24, 32], ids=["part-window", "two-windows"])
+def test_prefill_past_the_window_keeps_the_reference_contract(n):
+    ref_cfg, ref_params, cfg, model = _pair("float32")
+    win = cfg.sliding_window
+    tokens = np.random.default_rng(13).integers(0, cfg.vocab_size, (1, n))
+    batch = {"tokens": jnp.asarray(tokens, jnp.int32)}
+    cache = RM.init_cache(ref_cfg, 1, RM.cache_length(ref_cfg, 64), dtype=jnp.float32)
+    assert cache["k"].shape[2] == win < n
+    kv_out = torch.zeros(1, n, *model.kv_row_shape())
+    if n % win:
+        with pytest.raises(AssertionError):
+            RM.prefill(ref_cfg, ref_params, batch, cache, compute_dtype=jnp.float32)
+        with pytest.raises(ValueError, match="whole number of windows"):
+            M.prefill(model, torch.from_numpy(tokens), kv_out)
+        return
+    want, _ = RM.prefill(ref_cfg, ref_params, batch, cache, compute_dtype=jnp.float32)
+    got = M.prefill(model, torch.from_numpy(tokens), kv_out)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=TOL["float32"])
 
 
 def test_forward_train_gradients_match_jax_grad():
