@@ -228,7 +228,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  from the cost model's encoder-decoder terms; its non-causal
                  shapes among the kernel checks: S = T = 1500, S 4096 and
                  100 over 1500; rows 4te / 5e at the encoder's shape and
-                 4tx / 5x at the cross-attention's); and
+                 4tx / 5x at the cross-attention's); deepseek-7b at full
+                 width and 4 of 30 layers (``train_dense7b``: B 2 x S 4096,
+                 32 heads of 128, ``wq``/``wk`` tempered, three steps kernel
+                 against plain, launches 24 / 12; rows 4tk / 5k) and
+                 chameleon-34b at full width and 2 of 48 layers
+                 (``train_vlm``: B 1 x S 4096, 64 heads over 8 groups at 128
+                 with QK-norm, untempered, launches 12 / 6; rows 4tc / 5c),
+                 both shapes among the kernel checks; and
                  the timing rows of the backward (with its rate on its own
                  products and its share of the 5-product bound) and of the
                  forward with its log-sum-exp, MLA's against SDPA's backend
@@ -238,6 +245,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  float32, a repeat at the main shape), and D = 80 (B 2 x S
                  4096 bf16, S 517, S 300 / T 500, a window, bf16 and float32,
                  repeats)
+  16m. multi_device  (after 16, before 12) the multi-device layer on a
+                 one-rank NCCL group and a 1 x 1 ``DeviceMesh``:
+                 ``simulate_batch(shard=True)`` on the golden batch against
+                 ``shard=False``, olmoe-1b-7b's MoE layer at full width on the
+                 expert-parallel path against the unsharded path (both bit
+                 for bit: every collective of a world of one is the
+                 identity), the collectives that layer issues, and
+                 ``launch.specs.build_cell`` for stablelm-1.6b at train_4k,
+                 whose per-rank state bytes must equal the unsharded state's.
+                 Prints its seconds
 The serving phases (8, 11) also record each full-width run's KV access stream and
 hold it to a traffic-only engine's on the same prompts: the stream the
 co-sim replays.  Then the kernels line, the card's name and power limit, and as the last line
@@ -3420,6 +3437,18 @@ HYBRID_TRAIN_B = 2
 #: logits, 8 x 4096 x 53248, are 3.5 GB in bf16 and twice that in float32
 #: for the loss), AdamW, remat full
 WHISPER_TRAIN_B = 8
+#: deepseek-7b's training run, stated before its first run: full width (32
+#: heads of 128, MHA) and 4 of its 30 layers (1.65 B parameters, 0.84 B of
+#: them the embedding and head: AdamW's float32 parameters, gradients and
+#: moments ~26 GB; all 30 layers would be ~111 GB), train_4k's batch of 256
+#: cut to 2 sequences of 4096
+DENSE7B_TRAIN_LAYERS, DENSE7B_TRAIN_B = 4, 2
+#: chameleon-34b's training run, stated before its first run: full width (64
+#: query heads over 8 groups at 128, QK-norm) and 2 of its 48 layers (2.46 B
+#: parameters, ~39 GB of AdamW's float32 state; all 48 would be ~549 GB),
+#: train_4k's batch cut to 1 sequence of 4096: the plain path's float32
+#: scores take 4.3 GB a sequence and layer
+VLM_TRAIN_LAYERS, VLM_TRAIN_B = 2, 1
 
 
 def _window_pairs(S: int, window: int) -> int:
@@ -3487,6 +3516,12 @@ def _train_kernel_checks() -> dict:
         ("h2o_B2_S8192_window4096", 2, 8192, 8192, 32, 8, 80, 80, True, 4096, bf16),
         ("h2o_S8192_window4096_f32", 1, 8192, 8192, 32, 8, 80, 80, True, 4096, f32),
     ]
+    cases += [  # deepseek-7b's training heads (32 of 128, MHA) and chameleon-34b's
+        # (64 over 8 groups at 128), B x 4096 as their steps run them
+        ("dense7b_B2_S4096", DENSE7B_TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 128, 128, True, 0, bf16),
+        ("vlm_B1_S4096", VLM_TRAIN_B, TRAIN_S, TRAIN_S, 64, 8, 128, 128, True, 0, bf16),
+        ("vlm_S517_f32", 1, 517, 517, 64, 8, 128, 128, True, 0, f32),
+    ]
     cases += [  # jamba's training heads: 16 over 2 groups at 128 (8 a group)
         ("jamba_B2_S4096", HYBRID_TRAIN_B, TRAIN_S, TRAIN_S, 16, 2, 128, 128, True, 0, bf16),
         ("jamba_S517", 1, 517, 517, 16, 2, 128, 128, True, 0, bf16),
@@ -3547,6 +3582,8 @@ def _train_kernel_checks() -> dict:
             "jamba_B2_S4096",
             "whisper_enc_B8",
             "whisper_cross_B8_S4096",
+            "dense7b_B2_S4096",
+            "vlm_B1_S4096",
         ):
             again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             repeat[name] = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -4047,6 +4084,45 @@ def _train_3b() -> dict:
     return out
 
 
+def _train_dense7b() -> dict:
+    """deepseek-7b at full width (32 heads of 128, MHA) with
+    ``DENSE7B_TRAIN_LAYERS`` of its 30 layers, B = ``DENSE7B_TRAIN_B`` x S =
+    4096, ``wq``/``wk`` tempered as ``serving_dense7b`` tempers them: three
+    steps through the kernels and three through the plain attention path
+    from one state and batches."""
+    from repro_torch.configs import get_config
+
+    cfg = replace(get_config("deepseek-7b"), num_layers=DENSE7B_TRAIN_LAYERS)
+    runs = _steps_kernel_vs_plain(cfg, DENSE7B_TRAIN_B, TRAIN_S, temper=True)
+    reduced = (
+        f"{DENSE7B_TRAIN_LAYERS} of 30 layers (AdamW's float32 parameters, gradients and "
+        f"moments: ~111 GB at 30, ~26 GB at 4); train_4k's batch of 256 cut to {DENSE7B_TRAIN_B}"
+    )
+    out = _kernel_vs_plain_summary(cfg, runs, DENSE7B_TRAIN_B, TRAIN_S, reduced)
+    emit("train_dense7b", **out)
+    return out
+
+
+def _train_vlm() -> dict:
+    """chameleon-34b at full width (64 query heads over 8 groups at 128 with
+    QK-norm) with ``VLM_TRAIN_LAYERS`` of its 48 layers, B =
+    ``VLM_TRAIN_B`` x S = 4096, untempered as ``serving_vlm`` runs it: three
+    steps through the kernels and three through the plain attention path
+    from one state and batches."""
+    from repro_torch.configs import get_config
+
+    cfg = replace(get_config("chameleon-34b"), num_layers=VLM_TRAIN_LAYERS)
+    runs = _steps_kernel_vs_plain(cfg, VLM_TRAIN_B, TRAIN_S, temper=False)
+    reduced = (
+        f"{VLM_TRAIN_LAYERS} of 48 layers (AdamW's float32 parameters, gradients and moments: "
+        f"~549 GB at 48, ~39 GB at 2); train_4k's batch of 256 cut to {VLM_TRAIN_B} (the "
+        "plain path's float32 scores: 4.3 GB a sequence and layer)"
+    )
+    out = _kernel_vs_plain_summary(cfg, runs, VLM_TRAIN_B, TRAIN_S, reduced)
+    emit("train_vlm", **out)
+    return out
+
+
 def _train_swa() -> dict:
     """h2o-danube-1.8b at full width (GQA 32:8 at 80, window 4096) and
     ``SWA_TRAIN_LAYERS`` of its 24 layers (at 24, 1.84 B parameters and
@@ -4295,12 +4371,23 @@ def _train_timing_whisper(wh: dict, errs: dict) -> list:
     return rows
 
 
-def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
-    """Rows 4tj and 5j: the forward with its log-sum-exp and the backward at
-    the hybrid run's shape, B 2 x S 4096, 16 heads over 2 groups at 128
-    (8 a group), causal, bf16, against their plain versions and SDPA (K/V
-    repeated per query head; the backward under autograd); bounds by
-    operations over the causal pairs."""
+def _train_timing_heads(
+    path: str,
+    case: str,
+    launches: dict,
+    errs: dict,
+    B: int,
+    H: int,
+    G: int,
+    D: int,
+    seed: int,
+    **shape,
+) -> list:
+    """Timing rows of the training forward with its log-sum-exp and of the
+    backward at B x 4096, H query heads over G groups of D, causal, bf16,
+    against their plain versions and SDPA (K/V repeated per query head where
+    G < H; the backward under autograd); bounds by operations over the
+    causal pairs.  ``shape`` adds notes to each row's shape."""
     import torch
     import torch.nn.functional as F
 
@@ -4310,10 +4397,8 @@ def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
         flash_attention_fwd_ref,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    bf16, rows = torch.bfloat16, []
-    B, S, H, G, D = HYBRID_TRAIN_B, TRAIN_S, 16, 2, 128
-    case, launches, path = "jamba_B2_S4096", hyb["launches"], "jamba-1.5-large-398b-train"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16, rows, S = torch.bfloat16, [], TRAIN_S
     q, dout = (_cuda_randn(gen, (B, S, H, D), bf16) for _ in range(2))
     k, v = (_cuda_randn(gen, (B, S, G, D), bf16) for _ in range(2))
     out, lse = flash_attention_fwd(q, k, v)
@@ -4324,9 +4409,10 @@ def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
     )
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = dout.transpose(1, 2).contiguous()
-    check(_rel_err(o.detach().transpose(1, 2), out) <= 2e-2, "SDPA forward yardstick at 16:2")
+    check(_rel_err(o.detach().transpose(1, 2), out) <= 2e-2, f"SDPA forward yardstick at {path}")
+    repeated = ", K/V repeated per head" if G < H else ""
     pairs = B * H * S * (S + 1) // 2
-    shape = dict(B=B, S=S, H=H, G=G, D=D, causal=True)
+    shape = dict(B=B, S=S, H=H, G=G, D=D, causal=True, **shape)
     fwd = {
         "kernel": lambda: flash_attention_fwd(q, k, v),
         "plain": lambda: flash_attention_fwd_ref(q, k, v),
@@ -4340,7 +4426,7 @@ def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
         4 * D * pairs,
         launches["flash_attention"],
         errs["fwd"][case],
-        "F.scaled_dot_product_attention(is_causal=True), K/V repeated per head",
+        "F.scaled_dot_product_attention(is_causal=True)" + repeated,
         shape=dict(shape, lse=True),
         path=path,
         queued=True,
@@ -4371,6 +4457,22 @@ def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
     del q, k, v, dout, out, lse, qt, kt, vt, o, dot
     torch.cuda.empty_cache()
     return rows
+
+
+def _train_timing_hybrid(hyb: dict, errs: dict) -> list:
+    """Rows 4tj and 5j: the hybrid run's shape, B 2 x S 4096, 16 heads over
+    2 groups at 128 (8 a group)."""
+    return _train_timing_heads(
+        "jamba-1.5-large-398b-train",
+        "jamba_B2_S4096",
+        hyb["launches"],
+        errs,
+        HYBRID_TRAIN_B,
+        16,
+        2,
+        128,
+        17,
+    )
 
 
 def _train_timing_swa(swa: dict, errs: dict) -> list:
@@ -4705,11 +4807,138 @@ def phase_training() -> list:
     t = time.perf_counter()
     wh = _train_whisper()
     emit("train_whisper_seconds", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    d7 = _train_dense7b()
+    emit("train_dense7b_seconds", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    vlm = _train_vlm()
+    emit("train_vlm_seconds", seconds=time.perf_counter() - t)
     rows = _train_timing(main, moe, dense3b, errs) + _train_timing_mla(mla, errs)
     rows += _train_timing_swa(swa, errs) + _train_timing_hybrid(hyb, errs)
     rows += _train_timing_whisper(wh, errs)
+    # rows 4tk / 5k and 4tc / 5c
+    rows += _train_timing_heads(
+        "deepseek-7b-train", "dense7b_B2_S4096", d7["launches"], errs, DENSE7B_TRAIN_B, 32, 32,
+        128, 19,
+    )
+    rows += _train_timing_heads(
+        "chameleon-34b-train", "vlm_B1_S4096", vlm["launches"], errs, VLM_TRAIN_B, 64, 8, 128,
+        23, qk_norm=True,
+    )
     emit("training", seconds=time.perf_counter() - t0)
     return rows
+
+
+#: olmoe-1b-7b's MoE layer on the expert-parallel path in ``multi_device``:
+#: full width (64 experts of 1024, top-8, d 2048), bf16, B x S tokens
+MULTI_MOE_B, MULTI_MOE_S = 4, 1024
+
+
+def phase_multi_device() -> dict:
+    """The multi-device layer on one card: a one-rank NCCL group (an
+    in-memory store) and a 1 x 1 ``DeviceMesh("cuda")``.  Every collective
+    of a world of one is the identity, so each check is bit for bit against
+    the unsharded path: ``simulate_batch(shard=True)`` on the golden batch
+    (its lanes gathered by NCCL) against ``shard=False``; olmoe-1b-7b's MoE
+    layer at full width on the expert-parallel path (DTensor weights laid
+    out by the rules, TP-only and FSDP) against ``moe_ffn`` with no mesh, and
+    the collectives it issues (``analysis.collectives``); ``build_cell`` for
+    stablelm-1.6b at train_4k, whose per-rank state bytes must equal the
+    whole state's.  The group is torn down at the end, failure or not."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.analysis.collectives import CollectiveCounter
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import simulate_batch
+    from repro_torch.data import golden_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import build_cell, tree_shard_nbytes
+    from repro_torch.models import moe
+    from repro_torch.models.sharding_hooks import set_activation_sharder
+
+    out = {}
+    check(not dist.is_initialized(), "a process group is already initialised")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0)
+    )
+    try:
+        mesh = make_host_mesh()
+        traces, prms = golden_batch()
+        sharded = simulate_batch(traces, prms, shard=True)
+        plain = simulate_batch(traces, prms, shard=False)
+        bad = [k for k in plain if not np.array_equal(sharded[k], plain[k])]
+        check(not bad and set(sharded) == set(plain), f"sharded golden batch differs: {bad}")
+        out["sim"] = {"lanes": len(prms), "keys": len(plain), "bit_for_bit": not bad}
+
+        cfg = get_config("olmoe-1b-7b")
+        gen = torch.Generator(device="cuda").manual_seed(2048)
+        bf16 = torch.bfloat16
+        p = {
+            k: (_cuda_randn(gen, s.shape, bf16) * s.shape[-2] ** -0.5).to(bf16)
+            for k, s in moe.moe_specs(cfg).items()
+        }
+        x = _cuda_randn(gen, (MULTI_MOE_B, MULTI_MOE_S, cfg.d_model), bf16)
+        want, want_aux = moe.moe_ffn(cfg, p, x)
+        out["moe"] = {}
+        for fsdp in (False, True):
+            rules = SH.param_rules(cfg, mesh, fsdp=fsdp)
+            specs = {
+                k: SH.spec_for_param(s.axes, s.shape, rules, mesh)
+                for k, s in moe.moe_specs(cfg).items()
+            }
+            pd = {k: distribute_tensor(p[k], mesh, SH.placements(specs[k], mesh)) for k in p}
+            xd = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+            set_activation_sharder(None, mesh=mesh, fsdp=fsdp)
+            try:
+                with CollectiveCounter() as counter:
+                    got, aux = moe.moe_ffn(cfg, pd, xd)
+                    placed = [str(pl) for pl in got.placements]
+                    got, aux = got.full_tensor(), aux.full_tensor()
+                torch.cuda.synchronize()
+            finally:
+                set_activation_sharder(None)
+            same = torch.equal(got, want) and torch.equal(aux, want_aux)
+            name = "fsdp" if fsdp else "tp"
+            out["moe"][name] = {
+                "bit_for_bit": same,
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "out_placements": placed,
+                "collectives": counter.stats(),
+                "records": counter.records,
+            }
+            check(same, f"expert-parallel olmoe layer ({name}) differs from the unsharded path")
+        del p, x, want, pd, xd, got
+        torch.cuda.empty_cache()
+
+        cell = build_cell("stablelm-1.6b", "train_4k", mesh)
+        set_activation_sharder(None)
+        (state_abs, batch_abs), (state_sh, batch_sh) = cell.args, cell.in_shardings
+        per_rank = tree_shard_nbytes(state_abs, state_sh)
+        whole = sum(t.numel() * t.element_size() for t in _leaves(state_abs))
+        out["cell"] = {
+            "arch": "stablelm-1.6b",
+            "shape": "train_4k",
+            "state_bytes_per_rank": per_rank,
+            "state_bytes_whole": whole,
+            "batch_bytes_per_rank": tree_shard_nbytes(batch_abs, batch_sh),
+            "meta": cell.meta,
+        }
+        check(per_rank == whole, f"train_4k state on the 1 x 1 mesh: {per_rank} B, whole {whole} B")
+    finally:
+        dist.destroy_process_group()
+    emit("multi_device", **out)
+    return out
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    return [tree]
 
 
 def timed_phase(name: str, fn, *args):
@@ -4763,6 +4992,8 @@ def main() -> int:
     rows += phase_serving_hybrid(llm_errs)
     rows += phase_serving_whisper(llm_errs)
     rows += phase_training()
+    torch.cuda.empty_cache()
+    timed_phase("multi_device", phase_multi_device)
     torch.cuda.empty_cache()
     # the scale path last: its profiled windows hold ~10^5 kernel records each
     sweep = timed_phase("sweep", phase_sweep)

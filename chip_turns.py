@@ -12,6 +12,15 @@ first, then serves stablelm-1.6b and olmoe-1b-7b at full width with
 ``chip_smoke.py``'s serving phases) and prints one JSON line: prompt tokens
 per second, ms per decode step and output tokens per second per model.
 
+With ``--stream`` a process instead runs the streaming sweep of
+``chip_smoke.py``'s scale grid (48 points on one shared schedule, chunks of
+32 lanes, the P² percentiles streamed) with its checkout's simulator and
+arbiter kernel: a warm-up run, then three counted runs (lane-cycles per
+host second, ``chip_smoke.counted``) and ``chip_smoke.steady_window`` at
+B = 32 (device kernels, busy time and idle share of a steady cycle).
+
+    python3 chip_turns.py --stream PARENT/src CHANGE/src CHANGE/src PARENT/src
+
 With ``--latent`` a process instead times MLA's latent paged call at
 ``PERF.md``'s row 3m (deepseek-v2-lite-16b's first wave at mid-decode,
 ``chip_smoke._mla_lengths``; bf16 q [8, 16, 576] over a layer view of a
@@ -79,12 +88,48 @@ print(json.dumps(out))
 """
 
 
+RUN_STREAM = r"""
+import json, sys
+from dataclasses import replace
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import torch
+from chip_smoke import counted, steady_window
+from repro_torch.core.simulator import SCHEDULE_PIPELINE, SimParams, batch_envelope, simulate_batch
+from repro_torch.data import scale_grid_fields
+from repro_torch.kernels import _build
+from repro_torch.scenarios import urban_perception
+
+_build.build(["bank_arbiter"])  # before any timing
+sched = urban_perception().compile().schedule()
+grid = [SimParams(stages=SCHEDULE_PIPELINE, **f) for f in scale_grid_fields()]
+env = batch_envelope(grid)
+pin = dict(slots_override=env.slots_per_master, inflight_override=env.inflight_slots)
+run = lambda: simulate_batch([sched], grid, chunk=32)
+run()
+rates = []
+for _ in range(3):
+    _, wall, launches, stepped = counted(run)
+    rates.append(stepped * 32 / wall)
+window = steady_window(
+    lambda n: simulate_batch(
+        [sched], [replace(p, max_cycles=n, early_exit=False, **pin) for p in grid[:32]]
+    )
+)
+out = {"src": sys.argv[1], "card": torch.cuda.get_device_name(0), "lanes": 32}
+out.update(lane_cycles_per_s=rates, stepped_cycles=stepped, **window)
+print(json.dumps(out))
+"""
+
+
 def main(argv) -> int:
-    latent = argv[:1] == ["--latent"]
-    srcs = argv[1:] if latent else argv
+    mode = argv[0] if argv[:1] in (["--latent"], ["--stream"]) else None
+    srcs = argv[1:] if mode else argv
     here = str(Path(__file__).resolve().parent)
     for src in srcs:
-        script = [RUN_LATENT, src, here] if latent else [RUN, src]
+        script = {"--latent": [RUN_LATENT, src, here], "--stream": [RUN_STREAM, src, here]}.get(
+            mode, [RUN, src]
+        )
         r = subprocess.run([sys.executable, "-c", *script], capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stderr[-4000:], file=sys.stderr)

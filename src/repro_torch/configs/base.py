@@ -96,6 +96,11 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab_size)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True iff a 500k-token decode is sub-quadratic for this arch."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
     def is_attn_layer(self, layer_idx: int) -> bool:
         """Hybrid stacks: which layers carry attention (the rest are SSM)."""
         if not self.attn_layer_period:
@@ -240,6 +245,13 @@ SHAPES: Tuple[ShapeConfig, ...] = (
 
 SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, per the assignment footnotes."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "skipped: pure full-attention arch (needs sub-quadratic)"
+    return True, ""
+
 #: the reference's ``RunConfig.attn_impl`` values and the port's ``impl`` for each
 ATTN_IMPLS = {"jnp": "ref", "pallas": "kernel"}
 
@@ -256,10 +268,12 @@ class RunConfig:
     the one a host without a TPU runs, and here the kernel wrappers already
     take their plain versions on CPU tensors.  ``param_dtype`` is the dtype
     of the master parameters (the reference keeps float32; each use casts to
-    ``compute_dtype``).  ``seq_parallel`` (Megatron sequence parallelism) and
-    ``scan_unroll`` (layer-scan unrolling for XLA costing) mean nothing on one
-    device with an eager Python layer loop: they are kept so that the
-    fields stay the reference's, and ignored.  ``triangular_attn`` changes no
+    ``compute_dtype``).  ``seq_parallel`` (Megatron sequence parallelism) shards the
+    residual stream over ``model`` between blocks where a mesh is registered
+    (``distributed.sharding.make_activation_sharder``) and means nothing on
+    one device; ``scan_unroll`` (layer-scan unrolling for XLA costing) means
+    nothing with an eager Python layer loop: it is kept so that the fields
+    stay the reference's, and ignored.  ``triangular_attn`` changes no
     value: the kernels and the plain versions skip fully masked blocks
     always.  ``arch`` names the model the launcher trains, ``shape`` the
     ``SHAPES`` cell whose sequence length a full-width step takes.
@@ -284,7 +298,7 @@ class RunConfig:
     checkpoint_dir: str = ""  # "" = no checkpoints
     checkpoint_every: int = 50
     attn_impl: str = "pallas"  # pallas | jnp (see ATTN_IMPLS)
-    seq_parallel: bool = True  # no-op on one device
+    seq_parallel: bool = True  # Megatron-SP residual sharding (a mesh; no-op on one device)
     triangular_attn: bool = False  # no value changes
     scan_unroll: bool = False  # no-op: the port loops over layers in Python
 

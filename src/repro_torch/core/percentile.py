@@ -25,6 +25,8 @@ read-out and cross-lane merge.
 
 from __future__ import annotations
 
+import math
+
 from functools import lru_cache
 from typing import Sequence, Tuple
 
@@ -76,11 +78,24 @@ def p2_init(num_lanes: int, num_groups: int, num_q: int, device=None):
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
-    """``a * b + c`` in float32 with one rounding, as a fused multiply-add:
-    the float64 product of two float32 values is exact, and the float64 sum
-    is rounded once more to float32 (that double rounding could differ from
-    one rounding only on a sum within 2**-53 of a float32 midpoint)."""
-    return (a.double() * b.double() + (c.double() if torch.is_tensor(c) else c)).float()
+    """``a * b + c`` in float32 with one rounding, as a fused multiply-add.
+
+    The float64 product of two float32 values is exact.  Its float64 sum
+    with ``c`` is rounded to odd (round-to-odd: where the sum is inexact,
+    TwoSum gives its exact error, and a sum whose last mantissa bit is even
+    steps one ulp towards that error), and only then to float32: with 53
+    bits against float32's 24 (at least 24 + 2), the two roundings give the
+    one rounding of the exact ``a * b + c``.  (A plain float64 sum rounded
+    again to float32 could differ where the sum lies within 2**-53 of a
+    float32 midpoint.)"""
+    p = a.double() * b.double()
+    c = c.double() if torch.is_tensor(c) else float(c)
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, err * math.inf), s)
+    return s.float()
 
 
 def _safe(x: torch.Tensor) -> torch.Tensor:

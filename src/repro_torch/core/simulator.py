@@ -1427,6 +1427,72 @@ def _pad_batch(arrs: list, pad: int) -> list:
     return [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in arrs]
 
 
+def _group() -> Optional[Tuple[int, int]]:
+    """``(world size, rank)`` of the default process group, or None."""
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+        return None
+    return torch.distributed.get_world_size(), torch.distributed.get_rank()
+
+
+def batch_sharding(batch_size: int, device=None):
+    """``distributed.sharding.NamedSharding`` that splits the batch axis
+    across the ranks of the default process group (a 1-D mesh ``("batch",)``
+    of ``device``'s type, default CUDA), or ``None`` when sharding cannot
+    help (no group, one rank, or a batch the world does not divide): the
+    reference's ``batch_sharding``, ranks in place of devices."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed.sharding import NamedSharding
+
+    group = _group()
+    if group is None or group[0] <= 1 or batch_size % group[0] != 0:
+        return None
+    mesh = DeviceMesh(
+        _resolve_device(device).type, torch.arange(group[0]), mesh_dim_names=("batch",)
+    )
+    return NamedSharding(mesh, ("batch",))
+
+
+def _run_lanes(env, lanes: list, C: int, shared, dev, use_sched) -> Dict[str, np.ndarray]:
+    """Run the lanes (host arrays with a leading lane axis; ``shared``: the
+    shared trace's host arrays, the lanes then hold only the dyn vectors)
+    ``C`` at a time on ``dev``; the last chunk is padded by repeating the
+    last lane, and the result sliced back."""
+    n = len(lanes[0])
+    n_chunks = -(-n // C)
+    lanes = _pad_batch(lanes, n_chunks * C - n)
+    if shared is not None:
+        trace_dev = _device_args(env, shared, lanes[0][:1], dev, use_sched)[:-1]
+        trace_dev = tuple(a.expand(C, *a.shape[1:]) for a in trace_dev)
+    outs = []
+    for k in range(n_chunks):
+        part = [a[k * C : (k + 1) * C] for a in lanes]
+        if shared is not None:
+            args = (*trace_dev, torch.from_numpy(part[0]).to(dev))
+        else:
+            args = _device_args(env, part[:-1], part[-1], dev, use_sched)
+        outs.append(_numpy(_run(args, env, use_sched)))
+    return {k: np.concatenate([o[k] for o in outs])[:n] for k in outs[0]}
+
+
+def _gather_lanes(out: Dict[str, np.ndarray], world: int) -> Dict[str, np.ndarray]:
+    """Every rank's lanes (equal counts), concatenated in rank order on every
+    rank: one ``all_gather`` a metric (bool sent as uint8), on the card
+    under NCCL, on the host under gloo."""
+    dist = torch.distributed
+    on = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else None
+    gathered = {}
+    for k in sorted(out):
+        v = out[k]
+        t = torch.from_numpy(np.ascontiguousarray(v.view(np.uint8) if v.dtype == bool else v))
+        t = t.to(on) if on is not None else t
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        full = torch.cat(parts).cpu().numpy()
+        gathered[k] = full.view(bool) if v.dtype == bool else full
+    return gathered
+
+
 def simulate_batch(
     traces,
     prms: Sequence[SimParams],
@@ -1450,11 +1516,17 @@ def simulate_batch(
     * ``chunk=C`` runs the batch C lanes at a time, one after the other, so
       peak memory is one chunk's; the last chunk is padded by repeating the
       last point, and the result is sliced back to B.
-    * ``shard`` keeps the reference's signature.  With one visible device it
-      changes nothing, as in the reference; splitting lanes across several
-      CUDA devices is not ported (ROADMAP.md Queue 1, "the multi-device
-      layer"), so there it raises rather than use one card silently (pass
-      ``shard=False``)."""
+    * ``shard`` (default): with ``torch.distributed``'s default process
+      group initialised, every rank calls with the same points and runs its
+      share of the lanes on its own device (``device``: on the card the
+      rank's current CUDA device): the batch is padded up to a multiple of
+      the world size by repeating the last point, rank ``r`` runs the
+      ``r``-th block of lanes (chunked runs ``ceil(C / world)`` lanes at a
+      time, so each chunk of C is shared by the ranks), and the lanes come
+      back to every rank in order, sliced to B (the reference's sharded
+      batch, ranks in place of devices).  With no group one device changes
+      nothing, as in the reference; with several visible CUDA devices and
+      no group it raises rather than use one card silently."""
     if not prms:
         raise ValueError("empty parameter batch")
     dev = _resolve_device(device)
@@ -1465,11 +1537,12 @@ def simulate_batch(
             f"{len(traces)} traces vs {B} param points "
             "(pass one trace to share it across all points)"
         )
-    if shard and dev.type == "cuda" and torch.cuda.device_count() > 1:
+    group = _group() if shard else None
+    if shard and group is None and dev.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
-            "simulate_batch(shard=True) with several visible CUDA devices: splitting the batch "
-            "across devices is not ported yet (ROADMAP.md Queue 1, the multi-device layer); "
-            "pass shard=False"
+            "simulate_batch(shard=True) with several visible CUDA devices and no process group: "
+            "the multi-device layer splits the lanes across the ranks of torch.distributed's "
+            "default group (one rank a card); initialise it, or pass shard=False"
         )
     env = batch_envelope(prms)
     use_sched = env.uses_schedule()
@@ -1486,22 +1559,17 @@ def simulate_batch(
     else:
         per = [_host_args(t, p, use_sched) for t, p in zip(traces, prms)]
         host = [np.stack([h[i] for h in per]) for i in range(len(per[0]))]
+    lanes = [dyn] if shared else host + [dyn]
     C = chunk if chunk is not None and 0 < chunk < B else B
-    n_chunks = -(-B // C)
-    lanes = _pad_batch([dyn] if shared else host + [dyn], n_chunks * C - B)
-    if shared:
-        trace_dev = _device_args(env, host, dyn[:1], dev, use_sched)[:-1]
-        trace_dev = tuple(a.expand(C, *a.shape[1:]) for a in trace_dev)
-    outs = []
-    for k in range(n_chunks):
-        part = [a[k * C : (k + 1) * C] for a in lanes]
-        if shared:
-            dyn_dev = torch.from_numpy(part[0]).to(dev)
-            args = (*trace_dev, dyn_dev)
-        else:
-            args = _device_args(env, part[:-1], part[-1], dev, use_sched)
-        outs.append(_numpy(_run(args, env, use_sched)))
-    return {k: np.concatenate([o[k] for o in outs])[:B] for k in outs[0]}
+    common = dict(shared=host if shared else None, dev=dev, use_sched=use_sched)
+    if group is None:
+        return _run_lanes(env, lanes, C, **common)
+    world, rank = group
+    n = -(-B // world)
+    lanes = _pad_batch(lanes, n * world - B)
+    mine = [a[rank * n : (rank + 1) * n] for a in lanes]
+    out = _run_lanes(env, mine, min(n, -(-C // world)), **common)
+    return {k: v[:B] for k, v in _gather_lanes(out, world).items()}
 
 
 # ---------------------------------------------------------------------------

@@ -43,19 +43,8 @@ import time
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, smoke
 from repro_torch.configs.base import RunConfig
+from repro_torch.launch.specs import default_run_config
 from repro_torch.train.loop import train_loop
-
-
-def default_run_config(arch: str, shape: str = "train_4k", **overrides) -> RunConfig:
-    """Per-arch runtime defaults, the reference's: the 398B hybrid trains
-    with Adafactor and remat ``full`` (AdamW's 8 bytes a parameter of
-    moments would not fit)."""
-    kw = dict(arch=arch, shape=shape)
-    if arch == "jamba-1.5-large-398b":
-        kw["optimizer"] = "adafactor"
-        kw["remat_policy"] = "full"
-    kw.update(overrides)
-    return RunConfig(**kw)
 
 
 def main(argv=None) -> None:

@@ -52,6 +52,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_train
@@ -59,6 +60,11 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref, flash_a
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models.layers import ParamSpec, apply_rope, rmsnorm
+from repro_torch.models.sharding_hooks import (
+    gather_sequence,
+    shard_activations,
+    whole_sequence_grad,
+)
 
 NEG_INF = -1e9
 
@@ -70,6 +76,72 @@ ATTENTION = {
 
 #: differentiable attention of the training forward per implementation
 TRAIN_ATTENTION = {"kernel": flash_attention_train, "ref": flash_attention_train_ref}
+
+
+def _attn_io(*ts):
+    """The attention operands under the ``attn_io`` constraint (batch over
+    the data-parallel axes, the sequence whole, heads free): the identity
+    with no sharder registered."""
+    return tuple(shard_activations(t, "attn_io") for t in ts)
+
+
+def _whole_heads(y: DTensor, heads: int) -> DTensor:
+    """``y [..., heads * k]`` with its last dim split only where the split
+    falls on whole heads: a mesh dim that does not divide ``heads`` (KV
+    groups or heads the rules keep whole) is gathered."""
+    mesh = y.device_mesh
+    want = [
+        Replicate() if p.is_shard(y.dim() - 1) and heads % mesh.size(i) else p
+        for i, p in enumerate(y.placements)
+    ]
+    return y if want == list(y.placements) else y.redistribute(mesh, want)
+
+
+class _WholeHeads(torch.autograd.Function):
+    """``_whole_heads`` on a value and on its gradient: DTensor's products
+    may split a flattened ``heads * k`` dim where the heads are kept whole
+    (a free chunk of a replicated weight), and the heads' view cannot
+    unflatten that split, neither the forward's nor the backward's."""
+
+    @staticmethod
+    def forward(ctx, y, heads):
+        ctx.heads = heads
+        return _whole_heads(y, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.heads), None
+
+
+def _heads_flat(y: torch.Tensor, heads: int) -> torch.Tensor:
+    """``y [..., heads * k]`` before or after its heads' view, split on
+    whole heads only (above); anything but a DTensor as it is."""
+    return _WholeHeads.apply(y, heads) if isinstance(y, DTensor) else y
+
+
+def _flash(flash, q, k, v, **kw):
+    """``flash(q, k, v, **kw)``; on DTensors (a sharded step) the same call
+    on each rank's block through ``local_map``: attention is independent
+    across batch rows and heads, so the blocks need no collective.  The
+    batch stays as the ``attn_io`` constraint laid it out; the heads stay
+    sharded where q's and K/V's heads are split alike, and are replicated
+    elsewhere (e.g. KV groups that the ``model`` axis does not divide)."""
+    if not isinstance(q, DTensor):
+        return flash(q, k, v, **kw)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = []
+    for a, b in zip(q.placements, k.placements):
+        same = a.is_shard() and a == b and a.dim in (0, 2)
+        pl.append(a if same else Replicate())
+    run = local_map(
+        lambda q, k, v: flash(q, k, v, **kw),
+        out_placements=pl,
+        in_placements=(pl, pl, pl),
+        device_mesh=q.device_mesh,
+        redistribute_inputs=True,
+    )
+    return run(q, k, v)
 
 
 def gqa_specs(cfg: ModelConfig) -> dict:
@@ -156,10 +228,12 @@ class GQAAttention(torch.nn.Module):
     def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``x [B, S, d]`` times ``w [d, heads, k]`` -> ``[B, S, heads, k]``."""
         B, S, d = x.shape
-        return (x @ w.to(x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
+        y = _heads_flat(x @ w.to(x.dtype).reshape(d, -1), w.shape[1])
+        return y.view(B, S, *w.shape[1:])
 
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
+        x = gather_sequence(x)
         q, k, v = self._proj(x, self.wq), self._proj(x, self.wk), self._proj(x, self.wv)
         if cfg.use_qk_norm:  # per head over head_dim, before RoPE, as the reference
             q = rmsnorm(q, self.q_norm, cfg.norm_eps)
@@ -170,8 +244,9 @@ class GQAAttention(torch.nn.Module):
         return q, k, v
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
-        B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model)
+        B, S, H = o.shape[:3]
+        o = _heads_flat(o.reshape(B, S, -1), H)
+        return whole_sequence_grad(o @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model))
 
     def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str) -> torch.Tensor:
         """x ``[B, S, d]``, positions ``[B, S]``; ``kv_out`` (``[B, S, 2, G, D]``
@@ -196,23 +271,24 @@ class GQAAttention(torch.nn.Module):
             # the fresh K/V in the compute dtype instead
             k, v = k.to(kv_dtype).to(x.dtype), v.to(kv_dtype).to(x.dtype)
         flash = ATTENTION[impl][0]
-        return self._out(flash(q, k, v, causal=True, window=window))
+        q, k, v = _attn_io(q, k, v)
+        return self._out(_flash(flash, q, k, v, causal=True, window=window))
 
     def forward(self, x, positions, *, impl: str) -> torch.Tensor:
         """Self-attention over the fresh K/V of ``x [B, S, d]`` in its dtype,
         with no cache (whisper's encoder: the reference's ``gqa_attention``
         without one)."""
-        q, k, v = self._qkv(x, positions)
+        q, k, v = _attn_io(*self._qkv(x, positions))
         flash = ATTENTION[impl][0]
-        return self._out(flash(q, k, v, causal=self.causal, window=self.cfg.sliding_window))
+        return self._out(_flash(flash, q, k, v, causal=self.causal, window=self.cfg.sliding_window))
 
     def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
         """Self-attention over ``x [B, S, d]`` (causal unless built
         otherwise, windowed where the config says), differentiable."""
-        q, k, v = self._qkv(x, positions)
+        q, k, v = _attn_io(*self._qkv(x, positions))
         flash = TRAIN_ATTENTION[impl]
         qkv = (q.contiguous(), k.contiguous(), v.contiguous())
-        return self._out(flash(*qkv, causal=self.causal, window=self.cfg.sliding_window))
+        return self._out(_flash(flash, *qkv, causal=self.causal, window=self.cfg.sliding_window))
 
     def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str) -> torch.Tensor:
         """x ``[B, 1, d]``, positions ``[B, 1]``."""
@@ -359,17 +435,20 @@ class MLAAttention(torch.nn.Module):
         """``(q_nope [B, S, h, dn], q_pe [B, S, h, dr]`` roped, the latent
         rows ``[c_kv | k_pe] [B, S, r + dr])`` in x's dtype."""
         cfg = self.cfg
+        x = gather_sequence(x)
         B, S, d = x.shape
         dn = cfg.qk_nope_dim
-        q = (x @ self.wq.to(x.dtype).reshape(d, -1)).view(B, S, cfg.num_heads, -1)
+        q = _heads_flat(x @ self.wq.to(x.dtype).reshape(d, -1), cfg.num_heads)
+        q = q.view(B, S, cfg.num_heads, -1)
         q_pe = apply_rope(q[..., dn:], positions, theta=cfg.rope_theta)
         c_kv = rmsnorm(x @ self.w_dkv.to(x.dtype), self.kv_norm, cfg.norm_eps)
         k_pe = apply_rope((x @ self.w_kpe.to(x.dtype))[:, :, None], positions, theta=cfg.rope_theta)
         return q[..., :dn], q_pe, torch.cat([c_kv, k_pe[:, :, 0]], dim=-1)
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
-        B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model)
+        B, S, H = o.shape[:3]
+        o = _heads_flat(o.reshape(B, S, -1), H)
+        return whole_sequence_grad(o @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model))
 
     def _up(self, rows: torch.Tensor):
         """Latent rows ``[B, T, r + dr]`` -> per-head ``(k [B, T, h, dn + dr],
@@ -391,7 +470,7 @@ class MLAAttention(torch.nn.Module):
         if kv_out is not None:
             kv_out.copy_(rows)
         k, v = self._up(rows.to(x.dtype))
-        q = torch.cat([q_nope, q_pe], dim=-1)
+        q, k, v = _attn_io(torch.cat([q_nope, q_pe], dim=-1), k, v)
         flash = ATTENTION[impl][0]
         return self._out(flash(q, k.contiguous(), v.contiguous(), causal=True, scale=self.scale))
 
@@ -403,7 +482,7 @@ class MLAAttention(torch.nn.Module):
         width ``qk_nope + qk_rope``, V width ``v_head_dim``."""
         q_nope, q_pe, rows = self._project(x, positions)
         k, v = self._up(rows)
-        q = torch.cat([q_nope, q_pe], dim=-1)
+        q, k, v = _attn_io(torch.cat([q_nope, q_pe], dim=-1), k, v)
         flash = TRAIN_ATTENTION[impl]
         return self._out(
             flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, scale=self.scale)

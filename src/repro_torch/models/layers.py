@@ -196,8 +196,74 @@ def cross_entropy(
     """Mean cross-entropy over the positions whose label is not
     ``ignore_id``; logits ``[..., Vp]`` are upcast to float32 and their
     padded columns masked, as the reference computes it."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        return _cross_entropy_sharded(logits, labels, vocab_size, ignore_id)
     logits = logits.float() + vocab_mask_bias(vocab_size, logits.shape[-1], logits.device)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])[..., 0]
     mask = (labels != ignore_id).float()
     return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _cross_entropy_sharded(logits, labels, vocab_size: int, ignore_id: int):
+    """``cross_entropy`` on DTensor logits (a sharded step), as each rank's
+    code with explicit collectives (DTensor's gather over a vocab-sharded
+    dim is not usable here): the vocab-parallel log-sum-exp (the max over
+    the vocab's ranks, then the sum of exponentials) and target logit, and
+    the mean over the batch's ranks.  Logits stay split over the mesh dims
+    that split their batch (dim 0) or their vocab (last dim); the loss
+    comes out replicated."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed import comm
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    vocab = [i for i, pl in enumerate(logits.placements) if pl.is_shard(last)]
+    batch = [i for i, pl in enumerate(logits.placements) if pl.is_shard(0)]
+    l_pl = [
+        Shard(last) if i in vocab else Shard(0) if i in batch else Replicate()
+        for i in range(mesh.ndim)
+    ]
+    y_pl = [Shard(0) if i in batch else Replicate() for i in range(mesh.ndim)]
+    Vp = logits.shape[-1]
+
+    def local(lg, y):
+        lo = 0
+        for i in vocab:
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+        lo *= lg.shape[-1]
+        bias = vocab_mask_bias(vocab_size, Vp, lg.device)[lo : lo + lg.shape[-1]]
+        lg = lg.float() + bias
+        m = lg.detach().amax(-1)
+        for i in vocab:
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=mesh.get_group(i))
+        se = torch.exp(lg - m[..., None]).sum(-1)
+        mask = (y != ignore_id).float()
+        y = y.long().clamp_min(0)
+        mine = (y >= lo) & (y < lo + lg.shape[-1])
+        picked = torch.gather(lg, -1, torch.where(mine, y - lo, 0)[..., None])[..., 0]
+        picked = picked * mine.to(picked.dtype)
+        for i in vocab:
+            se = comm.all_reduce(se, mesh.get_group(i))
+            picked = comm.all_reduce(picked, mesh.get_group(i))
+        total, count = ((m + torch.log(se) - picked) * mask).sum(), mask.sum()
+        for i in batch:
+            total = comm.all_reduce(total, mesh.get_group(i))
+            count = comm.all_reduce(count, mesh.get_group(i))
+        return total / count.clamp_min(1.0)
+
+    run = local_map(
+        local,
+        out_placements=[Replicate()] * mesh.ndim,
+        in_placements=(l_pl, y_pl),
+        in_grad_placements=(l_pl, y_pl),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )
+    return run(logits, labels)

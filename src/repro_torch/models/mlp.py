@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec
+from repro_torch.models.sharding_hooks import gather_sequence, whole_sequence_grad
 
 
 def mlp_specs(cfg: ModelConfig, d_ff: int) -> dict:
@@ -43,8 +44,10 @@ class MLP(torch.nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = gather_sequence(x)
         if self.swiglu:
             dt = x.dtype
-            return (F.silu(x @ self.w_gate.to(dt)) * (x @ self.w_up.to(dt))) @ self.w_down.to(dt)
+            out = (F.silu(x @ self.w_gate.to(dt)) * (x @ self.w_up.to(dt))) @ self.w_down.to(dt)
+            return whole_sequence_grad(out)
         h = F.gelu(x @ self.w_in.to(x.dtype) + self.b_in.to(x.dtype), approximate="tanh")
-        return h @ self.w_out.to(x.dtype) + self.b_out.to(x.dtype)
+        return whole_sequence_grad(h @ self.w_out.to(x.dtype) + self.b_out.to(x.dtype))

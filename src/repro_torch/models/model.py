@@ -75,6 +75,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 import torch.utils.checkpoint as ckpt
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.models.attention import (
@@ -99,6 +100,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mlp import MLP, mlp_specs
 from repro_torch.models.moe import MoE, moe_specs
+from repro_torch.models.sharding_hooks import gather_sequence, shard_activations
 from repro_torch.models.ssm import SSMBlock, SSMCache, init_ssm_cache, ssm_specs
 
 
@@ -190,7 +192,8 @@ class SSMLayer(torch.nn.Module):
         self.ssm = SSMBlock(cfg, dtype)
 
     def forward(self, x, cache: Optional[SSMCache] = None, *, decode: bool = False):
-        return x + self.ssm(self.mixer_norm(x), cache, decode=decode)
+        h = shard_activations(self.mixer_norm(x), "resid")
+        return x + self.ssm(h, cache, decode=decode)
 
 
 class AttnLayer(torch.nn.Module):
@@ -202,14 +205,15 @@ class AttnLayer(torch.nn.Module):
         self.attn = (MLAAttention if cfg.use_mla else GQAAttention)(cfg, dtype)
 
     def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str):
-        h = self.attn_norm(x)
+        h = shard_activations(self.attn_norm(x), "resid")
         return x + self.attn.prefill(h, positions, kv_out, kv_dtype=kv_dtype, impl=impl)
 
     def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str):
         return x + self.attn.decode(self.attn_norm(x), positions, cache, layer, impl=impl)
 
     def forward_train(self, x, positions, *, impl: str):
-        return x + self.attn.forward_train(self.attn_norm(x), positions, impl=impl)
+        h = shard_activations(self.attn_norm(x), "resid")
+        return x + self.attn.forward_train(h, positions, impl=impl)
 
 
 class FFNLayer(torch.nn.Module):
@@ -226,7 +230,7 @@ class FFNLayer(torch.nn.Module):
             self.ffn = MLP(cfg, cfg.d_ff, dtype)
 
     def forward(self, x: torch.Tensor):
-        h = self.ffn_norm(x)
+        h = shard_activations(self.ffn_norm(x), "resid")
         if self.is_moe:
             out, aux = self.moe.forward_aux(h)
         else:
@@ -311,22 +315,23 @@ class Block(torch.nn.Module):
 
     def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The FFN sub-layer's residual branch (dense MLP or MoE)."""
-        h = self.ffn_norm(x)
+        h = shard_activations(self.ffn_norm(x), "resid")
         return self.moe(h) if self.is_moe else self.ffn(h)
 
     def train_layer(self, x, positions, impl: str, encoder_out=None):
         """One layer of the training forward: ``(x, aux)``, aux float32 (0
         for a dense FFN, as the reference's ``_apply_ffn``); whisper's
         decoder attends to ``encoder_out`` after its self-attention."""
-        x = x + self.attn.forward_train(self.attn_norm(x), positions, impl=impl)
+        h = shard_activations(self.attn_norm(x), "resid")
+        x = x + self.attn.forward_train(h, positions, impl=impl)
         if self.cross is not None:
             x = x + self.cross.forward_train(self.cross_norm(x), encoder_out, impl=impl)
-        h = self.ffn_norm(x)
+        h = shard_activations(self.ffn_norm(x), "resid")
         if self.is_moe:
             out, aux = self.moe.forward_aux(h)
         else:
             out, aux = self.ffn(h), torch.zeros((), device=x.device)
-        return x + out, aux
+        return shard_activations(x + out, "resid"), aux
 
 
 class Transformer(torch.nn.Module):
@@ -482,7 +487,8 @@ class Transformer(torch.nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return self.final_norm(x) @ head.to(x.dtype)
+        x = gather_sequence(self.final_norm(x))
+        return shard_activations(x @ head.to(x.dtype), "logits")
 
     def init_ssm_cache(self, batch: int) -> SSMCache:
         """A zero SSM state for ``batch`` sequences on the model's device:
@@ -603,7 +609,8 @@ def prefill(
                     x = mixer(x, cache.layer(layer, pos - 1))
                 x, _ = ffn(x)
             continue
-        x = x + blk.attn.prefill(blk.attn_norm(x), positions, kv, **kw)
+        h = shard_activations(blk.attn_norm(x), "resid")
+        x = x + blk.attn.prefill(h, positions, kv, **kw)
         if blk.cross is not None:
             cross = None if cross_out is None else cross_out[:, :, layer]
             x = x + blk.cross.prefill(blk.cross_norm(x), enc, cross, impl=model.impl)
@@ -689,8 +696,58 @@ class _EmbedLookup(torch.autograd.Function):
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``, differentiable with a deterministic backward."""
+    """``table[tokens]``, differentiable with a deterministic backward.  On
+    DTensors (a sharded step) ``_embed_lookup_sharded``."""
+    if isinstance(table, DTensor):
+        return _embed_lookup_sharded(table, tokens)
     return _EmbedLookup.apply(table, tokens.long())
+
+
+def _embed_lookup_sharded(table, tokens):
+    """The vocab-parallel lookup, as each rank's code: DTensor has no
+    strategy for ``_EmbedLookup``'s deterministic backward, so every rank
+    looks its tokens up in its own rows of the table (vocab sharded over
+    ``model`` by the rules, replicated elsewhere), zeroes the tokens other
+    ranks hold, and the rows come out ``Partial`` over the vocab's mesh dims
+    (one rank adds each row, the others exact zeros: an all-reduce where
+    DTensor next needs them whole).  The table's gradient is ``Partial``
+    over the mesh dims that split the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    vocab = [i for i, pl in enumerate(table.placements) if pl.is_shard(0)]
+    t_pl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    ids_pl = [Replicate() if i in vocab else pl for i, pl in enumerate(tokens.placements)]
+    out_pl = [Partial() if i in vocab else pl for i, pl in enumerate(ids_pl)]
+    grad_pl = [
+        Shard(0) if i in vocab else (Partial() if pl.is_shard() else Replicate())
+        for i, pl in enumerate(ids_pl)
+    ]
+
+    def lookup(t, ids):
+        ids = ids.long()
+        if not vocab:
+            return _EmbedLookup.apply(t, ids)
+        lo = 0
+        for i in vocab:
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+        lo *= t.shape[0]
+        mine = (ids >= lo) & (ids < lo + t.shape[0])
+        rows = _EmbedLookup.apply(t, torch.where(mine, ids - lo, 0))
+        return rows * mine[..., None].to(rows.dtype)
+
+    run = local_map(
+        lookup,
+        out_placements=out_pl,
+        in_placements=(t_pl, ids_pl),
+        in_grad_placements=(grad_pl, ids_pl),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )
+    return run(table, tokens)
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -734,7 +791,7 @@ def forward_train(
     reference's, and its decoder layers attend to the encoder's output."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = embed_lookup(model.embed, tokens).to(model.compute_dtype)
+    x = shard_activations(embed_lookup(model.embed, tokens).to(model.compute_dtype), "resid")
     enc = None
     if model.encoder is not None:
         x = model._add_sinusoid(x, positions)
@@ -754,6 +811,7 @@ def forward_train(
                     x = _remat(mixer, policy)(x)
                 x, a = _remat(ffn, policy)(x)
                 aux = aux + a
+            x = shard_activations(x, "resid")
         return model._logits(x), aux
     for blk in model.layers:
         if family == "ssm":

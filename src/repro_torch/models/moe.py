@@ -33,8 +33,9 @@ row takes several), while the slot algebra stays integer.  Serving and
 training share the one path: the expert products return a fresh tensor and
 the spare zero row is appended to it.
 
-The reference's ``shard_map`` expert-parallel path is not ported yet
-(ROADMAP).  No Pallas kernel is on this path: the reference leaves routing
+Expert parallelism (the reference's ``shard_map`` path) runs where a mesh
+is registered: ``_expert_parallel``, each rank's code with explicit
+collectives on DTensor blocks.  No Pallas kernel is on this path: the reference leaves routing
 and the expert products to XLA, and the port to PyTorch.
 """
 
@@ -50,7 +51,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.address import fractal_permute
+from repro_torch.distributed.sharding import mesh_axes
 from repro_torch.models.layers import ParamSpec
+from repro_torch.models.sharding_hooks import current_mesh
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -131,23 +134,37 @@ def expert_products(
     return torch.bmm(h, w_down)
 
 
-def dispatch_compute_combine(cfg: ModelConfig, x, w_gate, w_up, w_down, top_w, top_e, slot):
-    """x ``[B, S, d]``; weights in x's dtype.  Returns the experts' output
-    ``[B, S, d]``.  Capacity rows are laid out ``[E, B, C]`` so that each
-    expert's rows form one ``[B * C, d]`` block of the batched product."""
-    B, S, d = x.shape
-    E = w_gate.shape[0]
+def dispatch_compute_combine(
+    cfg: ModelConfig, x, products, num_experts: int, top_w, top_e, slot, *, lo: int = 0
+):
+    """x ``[B, S, d_in]``; ``products`` maps the capacity rows ``[E, M,
+    d_in]`` of ``num_experts`` experts to their outputs ``[E, M, d]`` in x's
+    dtype (``expert_products`` with the weights).  Returns the experts'
+    output ``[B, S, d]``.  Capacity rows are laid out ``[E, B, C]`` so that
+    each expert's rows form one ``[B * C, d_in]`` block of the batched
+    product.
+
+    The experts may be a model rank's ``[lo, lo + num_experts)`` only: pairs
+    routed elsewhere are dropped here (the expert-parallel path sums the
+    ranks' outputs)."""
+    B, S, d_in = x.shape
+    E = num_experts
     C = expert_capacity(cfg, S)
     M = B * C
     n = E * M  # row n is the spare row: dropped pairs write it and gather zeros
     group = torch.arange(B, device=x.device)[:, None, None] * C
-    row = torch.where(slot < C, top_e * M + group + slot, n)
-    buf = x.new_zeros(n + 1, d)
+    e = top_e - lo
+    keep = slot < C
+    if lo or E != cfg.moe_num_experts:
+        keep = keep & (e >= 0) & (e < E)
+    row = torch.where(keep, e * M + group + slot, n)
+    buf = x.new_zeros(n + 1, d_in)
     buf[row] = x[:, :, None, :]
-    y = expert_products(buf[:n].view(E, M, d), w_gate, w_up, w_down)
-    out_rows = torch.cat([y.reshape(n, d), x.new_zeros(1, d)])
+    y = products(buf[:n].view(E, M, d_in))
+    d = y.shape[-1]
+    out_rows = torch.cat([y.reshape(n, d), y.new_zeros(1, d)])
     weighted = out_rows[row] * top_w.to(x.dtype)[..., None]
-    out = torch.zeros_like(x)
+    out = weighted.new_zeros(B, S, d)
     for kk in range(cfg.moe_top_k):
         out = out + weighted[:, :, kk]
     return out
@@ -157,13 +174,137 @@ def shared_expert(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tenso
     return (F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])) @ p["ws_down"]
 
 
+def _expert_parallel(cfg: ModelConfig, p, x, mesh, *, whiten: bool):
+    """The reference's ``shard_map`` expert parallelism over ``mesh``'s
+    ``model`` axis, written as each rank's code with explicit collectives
+    (``distributed.comm``): ``x`` and ``p``'s leaves are DTensors (plain
+    tensors count as replicated), redistributed to the reference's
+    ``in_specs`` and taken as the rank's blocks; the result is a DTensor
+    laid out as the reference's ``out_specs``.
+
+    Each ``model`` rank holds ``E / tp`` experts (``lo = rank * E_loc``).
+    Under sequence parallelism the tokens are all-gathered over ``model``;
+    every rank routes the full sequence (the router replicated, so the
+    decisions agree) and computes its own experts; the outputs are summed by
+    a reduce-scatter along the sequence (SP) or an all-reduce, and ``aux``
+    is averaged over the mesh.  Under FSDP the experts' d_model dim is
+    sharded over ``data``: with the batch sharded over the data-parallel
+    axes the weights are all-gathered first; with batch-1 decode (batch not
+    sharded) they keep their d-slice, each rank multiplies its slice of the
+    tokens, and the gate and up products are summed over ``data`` and the
+    down product's d is all-gathered (the partial-product mode: a small
+    activation reduce in place of the weights' gather).  No all-to-all, as
+    in the reference.
+
+    Gradients: each input's block takes a ``Partial`` gradient over the
+    mesh dims where it is replicated but the ranks compute different things
+    from it (the ``model`` ranks route alike but each backpropagates its own
+    experts' share, so their sum is the whole); in the partial mode the
+    ``data`` ranks route and combine alike, so the routing's input gradient
+    is scaled by their count before the sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import dp_axes, mesh_axes, placements
+    from repro_torch.models.sharding_hooks import params_fsdp
+
+    sizes = mesh_axes(mesh)
+    E, tp = cfg.moe_num_experts, sizes["model"]
+    B, S, d = x.shape
+    E_loc = E // tp
+    dp = dp_axes(mesh)
+    dp_size = math.prod(sizes[a] for a in dp)
+    bspec = dp if B % dp_size == 0 else None
+    sp = "model" if (S % tp == 0 and S > 1) else None
+    mlp_ax = "data" if (params_fsdp() and p["w_gate"].shape[1] % sizes["data"] == 0) else None
+    partial_mode = mlp_ax is not None and bspec is None
+    varying = {"model"} | (set(dp) if bspec else set())
+
+    def local(t, spec, vary=()):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        want = placements(spec, mesh)
+        grad = [
+            Partial() if (pl.is_replicate() and name in vary) else pl
+            for name, pl in zip(mesh.mesh_dim_names, want)
+        ]
+        return t.redistribute(mesh, want).to_local(grad_placements=grad)
+
+    model = mesh.get_group("model")
+    x_vary = ({"model"} if sp is None else set()) | ({mlp_ax} if partial_mode else set())
+    x_l = local(x, (bspec, sp, None), x_vary)
+    router = local(p["router"], (None, None), varying)
+    w_vary = set(dp) - {mlp_ax} if bspec else set()
+    wg = local(p["w_gate"], ("model", mlp_ax, None), w_vary)
+    wu = local(p["w_up"], ("model", mlp_ax, None), w_vary)
+    wd = local(p["w_down"], ("model", None, mlp_ax), w_vary)
+
+    x_full = comm.all_gather(x_l, 1, model) if sp is not None else x_l
+    # in the partial mode the data ranks route alike and combine alike
+    x_route = comm.scale_grad(x_full, 1 / sizes[mlp_ax]) if partial_mode else x_full
+    top_w, top_e, slot, aux = route(cfg, x_route, router, whiten=whiten)
+    lo = mesh.get_local_rank("model") * E_loc
+    x_in = x_full
+    if partial_mode:
+        data = mesh.get_group(mlp_ax)
+        d_loc = wg.shape[1]
+        di = mesh.get_local_rank(mlp_ax)
+        x_in = x_full[..., di * d_loc : (di + 1) * d_loc]
+
+        def products(rows):
+            """The rank's d-slice of the rows against the weights' d-slices:
+            the gate and up products summed over ``data``, their SwiGLU
+            entering each rank's own d-slice of the down product, whose d
+            is gathered back."""
+            g = comm.all_reduce(torch.bmm(rows, wg), data)
+            u = comm.all_reduce(torch.bmm(rows, wu), data)
+            h = comm.vary(F.silu(g) * u, data)
+            return comm.all_gather(torch.bmm(h, wd), 2, data, varying=False)
+
+    else:
+        if mlp_ax is not None:  # FSDP (ZeRO-3) gather of the d_model dim
+            data = mesh.get_group(mlp_ax)
+            wg, wu = comm.all_gather(wg, 1, data), comm.all_gather(wu, 1, data)
+            wd = comm.all_gather(wd, 2, data)
+        products = functools.partial(expert_products, w_gate=wg, w_up=wu, w_down=wd)
+    out = dispatch_compute_combine(cfg, x_in, products, E_loc, top_w, top_e, slot, lo=lo)
+    out = comm.reduce_scatter(out, 1, model) if sp is not None else comm.all_reduce(out, model)
+    for a in sorted(varying, key=mesh.mesh_dim_names.index):
+        aux = comm.all_reduce(aux, mesh.get_group(a))
+    aux = aux / math.prod(sizes[a] for a in varying)
+    out = DTensor.from_local(out, mesh, placements((bspec, sp, None), mesh), run_check=False)
+    aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return out, aux
+
+
 def moe_ffn(
     cfg: ModelConfig, p: Mapping[str, torch.Tensor], x: torch.Tensor, *, whiten: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> ``(out, aux)``, aux float32.  Groups = batch rows.
-    ``p`` holds ``moe_specs``' leaves in x's dtype."""
+    ``p`` holds ``moe_specs``' leaves in x's dtype.
+
+    With a mesh registered (``models.sharding_hooks``) whose ``model`` axis
+    divides E: the expert-parallel path (``_expert_parallel``) on DTensors
+    (plain tensors count as replicated and come back whole: every rank gets
+    the full output).  Otherwise the single-device path, with the same
+    semantics."""
+    mesh = current_mesh()
+    E = cfg.moe_num_experts
+    if mesh is not None and "model" in mesh.mesh_dim_names:
+        if E % mesh_axes(mesh)["model"] == 0:
+            from torch.distributed.tensor import DTensor
+
+            out, aux = _expert_parallel(cfg, p, x, mesh, whiten=whiten)
+            if not isinstance(x, DTensor):
+                out, aux = out.full_tensor(), aux.full_tensor()
+            if cfg.moe_num_shared:
+                out = out + shared_expert(p, x)
+            return out, aux.float()
     top_w, top_e, slot, aux = route(cfg, x, p["router"], whiten=whiten)
-    out = dispatch_compute_combine(cfg, x, p["w_gate"], p["w_up"], p["w_down"], top_w, top_e, slot)
+    products = functools.partial(
+        expert_products, w_gate=p["w_gate"], w_up=p["w_up"], w_down=p["w_down"]
+    )
+    out = dispatch_compute_combine(cfg, x, products, E, top_w, top_e, slot)
     if cfg.moe_num_shared:
         out = out + shared_expert(p, x)
     return out, aux.float()

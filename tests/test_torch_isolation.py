@@ -61,6 +61,10 @@ from repro_torch.kernels.banked_copy import ops as _bc  # noqa: F401
 from repro_torch.kernels.flash_attention import ops as _fa  # noqa: F401
 from repro_torch.kernels.paged_attention import ops as _pa  # noqa: F401
 from repro_torch.launch import serve
+from repro_torch.launch import dryrun, mesh, specs  # noqa: F401
+from repro_torch.distributed import comm, sharding, train  # noqa: F401
+from repro_torch.analysis import collectives  # noqa: F401
+from repro_torch.models import sharding_hooks  # noqa: F401
 from repro_torch.scenarios import record_serving_run, sample_case, serving_scenario, FuzzConfig
 assert len(golden_cases()) == 3
 rec = record_serving_run(num_requests=3, max_batch=2)

@@ -124,3 +124,74 @@ def test_p2_rank_band_counterexample_matches_reference():
     est = tp2.p2_quantiles(th[0].numpy(), tn[0].numpy(), tc[0].numpy())
     np.testing.assert_array_equal(est, jp2.p2_quantiles(*(np.asarray(a) for a in want)))
     assert est[0, tp2.STREAM_PCTS.index(50)] == np.float32(1.0052632)
+
+
+# ---------------------------------------------------------------------------
+# _fma: one rounding of a * b + c, on sums that double rounding gets wrong
+# ---------------------------------------------------------------------------
+
+
+def _round_f32(v) -> np.float32:
+    """The float32 nearest the exact rational ``v``, ties to even."""
+    from fractions import Fraction
+
+    lo = np.float32(float(v))
+    while Fraction(float(lo)) > v:
+        lo = np.nextafter(lo, np.float32(-np.inf))
+    while Fraction(float(np.nextafter(lo, np.float32(np.inf)))) <= v:
+        lo = np.nextafter(lo, np.float32(np.inf))
+    hi = np.nextafter(lo, np.float32(np.inf))
+    below, above = v - Fraction(float(lo)), Fraction(float(hi)) - v
+    if below != above:
+        return lo if below < above else hi
+    return lo if int(np.array(lo).view(np.int32)) % 2 == 0 else hi
+
+
+def _exact_fma(a, b, c) -> np.float32:
+    from fractions import Fraction
+
+    return _round_f32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def _double_rounding_cases():
+    """Sums that rounding the float64 sum again to float32 gets wrong.
+    Built: a * b = 2**-24 (1 - 2**-36) and c = 1 + 2**-23, so the float64
+    sum is the float32 midpoint 1 + 2**-23 + 2**-24 (the 2**-60 below it
+    lost), whose tie rounds up to the even 1 + 2**-22 where the exact sum
+    rounds down to c; mirrored and scaled.  Found by a search over products
+    near 2**-24 (the sum within 2**-53 of a midpoint on either side, c = 1
+    or 1 + 2**-23): the first with the tie rounding down where the exact
+    sum rounds up, and one more of each side."""
+    f = np.float32
+    a, b, c = f(2.0**-24 * (1 + 2.0**-18)), f(1 - 2.0**-18), f(1 + 2.0**-23)
+    return [
+        (a, b, c),
+        (-a, b, -c),
+        (a * f(2.0**10), b, c * f(2.0**10)),
+        (f(1.0539307594299316), f(5.6554611660430965e-08), f(1.0)),
+        (f(1.4201844930648804), f(4.196964908942391e-08), f(1.0)),
+        (f(1.2032527923583984), f(4.953626131509736e-08), f(1.0000001192092896)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_fma_rounds_once_where_double_rounding_differs(case):
+    a, b, c = _double_rounding_cases()[case]
+    want = _exact_fma(a, b, c)
+    double = np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    t = torch.tensor([a]), torch.tensor([b]), torch.tensor([c])
+    assert tp2._fma(*t).numpy()[0] == want
+    assert tp2._fma(t[0], t[1], float(c)).numpy()[0] == want  # c as a Python float
+    assert double != want  # rounding the float64 sum again gets it wrong
+
+
+def test_fma_matches_exact_rounding_on_random_operands():
+    rng = np.random.default_rng(21)
+    n = 2000
+    a = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)).astype(np.float32)
+    b = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)).astype(np.float32)
+    c = (a.astype(np.float64) * b * rng.choice([-1.0, 1.0, 0.5], n)).astype(np.float32)
+    c[::7] = np.float32(1.0)
+    got = tp2._fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    want = np.array([_exact_fma(x, y, z) for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
