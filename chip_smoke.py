@@ -245,6 +245,29 @@ Phases, one JSON line each; any failure exits non-zero:
                  float32, a repeat at the main shape), and D = 80 (B 2 x S
                  4096 bf16, S 517, S 300 / T 500, a window, bf16 and float32,
                  repeats)
+  11c. serving_cache  the reference's contiguous-cache serving steps
+                (``prefill_cache``, ``decode_step_cache``) on the paged
+                kernel, each sequence's slots read as consecutive blocks:
+                stablelm-1.6b at full width and depth, a B 2 x 4096
+                prefill on the flash kernel and 32 decode steps (launches
+                24 flash, 768 paged splits and merges), teacher-forced
+                against the plain path within ``FORCING_BOUNDS``, the
+                layer's paged call against its plain version within one
+                bf16 step of each entry and 3e-2 (its log-sum-exp within
+                4e-3); one decode_32k step at
+                B 8 x 32768 (batch 128 cut to 8: 51.5 GB of bf16 K/V from
+                a seeded generator), its ms, device busy ms, tokens/s and
+                share of the 15.4 ms K/V bound; h2o-danube-1.8b's
+                long_500k cell at 12 of 24 layers (B 1, its 4096-slot
+                ring at positions
+                520,160 .. 520,223 across the wrap, each of its 768 paged
+                calls against its plain version on the same inputs within
+                one bf16 step of each entry and 3e-2, the first step's logits
+                against the plain path's within 0.0625, the others
+                reported); deepseek-v2-lite-16b (4 of 27 layers) with the
+                absorbed decode on the latent call over 576-wide rows; rows
+                3cs, 3c32, 3cw, 3cm against SDPA on the same contiguous
+                K/V.  Prints its seconds
   16m. multi_device  (after 16, before 12) the multi-device layer on a
                  one-rank NCCL group and a 1 x 1 ``DeviceMesh``:
                  ``simulate_batch(shard=True)`` on the golden batch against
@@ -253,7 +276,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  for bit: every collective of a world of one is the
                  identity), the collectives that layer issues, and
                  ``launch.specs.build_cell`` for stablelm-1.6b at train_4k,
-                 whose per-rank state bytes must equal the unsharded state's.
+                 whose per-rank state bytes must equal the unsharded state's,
+                 and the sharded decode step over the contiguous cache
+                 (``distributed.serve``; stablelm-1.6b, 2 of 24 layers)
+                 against the unsharded step on the same cache.
                  Prints its seconds
 The serving phases (8, 11) also record each full-width run's KV access stream and
 hold it to a traffic-only engine's on the same prompts: the stream the
@@ -1834,6 +1860,7 @@ def phase_llm_kernels() -> dict:
         del pool, kp, vp
     _paged_window_checks(gen, record, repeat)
     _paged_cross_checks(gen, record, repeat)
+    _paged_cache_checks(gen, record, repeat)
     check(all(repeat.values()), f"a kernel's second call differs from its first: {repeat}")
     emit("llm_kernels", cases=rows, max_abs_err=worst, repeats_bit_for_bit=repeat)
     return worst
@@ -1866,6 +1893,63 @@ def _paged_cross_checks(gen, record, repeat) -> None:
         if dtype == torch.bfloat16:
             repeat["paged_attention_whisper_cross"] = torch.equal(got, paged_attention(q, *args))
         del cross, kv, args, q, got
+
+
+def _paged_cache_checks(gen, record, repeat) -> None:
+    """The paged kernel over contiguous caches read as consecutive blocks
+    (``attention.CacheView``), float32 and bf16, each with its
+    log-sum-exp (``return_lse``, what the sharded decode merges ranks by)
+    against the plain version's: stablelm's layer view ``[B, T, 32, 64]``
+    of an all-layer cache at lengths T, a part and 0; h2o-danube's
+    4096-slot rolling buffer (8 x 80, window 4096); MLA's latent rows of
+    576 at decode_32k's length in blocks of 32 (1024 blocks, the most the
+    bf16 latent call stages) and at 4112 slots in blocks of 16.  lse
+    within 1e-5 (float32) and 4e-3 (bf16: the latent kernel sums P rounded
+    to bf16, at most 2^-8 of the sum, log(1 + 2^-8) = 3.9e-3) absolute,
+    -inf for an empty row; two bf16 calls bit for bit."""
+    import torch
+
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.attention import CacheView
+
+    cases = [  # (name, B, T, H, G, D, latent, lengths, window, layers)
+        ("stablelm_cache_3x4128", 3, 4128, 32, 32, 64, False, [4128, 517, 0], 0, 4),
+        ("h2o_ring_1x4096", 1, 4096, 32, 8, 80, False, [4096], 4096, 1),
+        ("mla_cache_2x32768_bs32", 2, 32768, 16, 1, 576, True, [32768, 20000], 0, 1),
+        ("mla_cache_3x4112", 3, 4112, 16, 1, 576, True, [4112, 4097, 0], 0, 1),
+    ]
+    for name, B, T, H, G, D, latent, lens, window, layers in cases:
+        for dtype, tol, lse_tol in ((torch.float32, 2e-5, 1e-5), (torch.bfloat16, 3e-2, 4e-3)):
+            shape = (layers, B, T, D) if latent else (layers, 2, B, T, G, D)
+            cache = _cuda_randn(gen, shape, dtype)
+            pos = torch.tensor(lens, device="cuda") - 1
+            view = CacheView.make(pos, T, latent=latent)
+            if latent:
+                kp = view.pool(cache[layers // 2])[:, :, None]
+                vp = kp[..., :512]
+                scale = 192**-0.5
+            else:
+                kp, vp = view.pool(cache[layers // 2, 0]), view.pool(cache[layers // 2, 1])
+                scale = None
+            q = _cuda_randn(gen, (B, H, D), dtype)
+            args = (q, kp, vp, view.block_table, view.lengths)
+            kw = dict(scale=scale, window=window, return_lse=True)
+            got, lse = paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            want, want_lse = paged_attention_ref(*args, **kw)
+            tag = f"{name}_{str(dtype)[6:]}"
+            record("paged_attention", tag, _max_err(got, want), tol)
+            fin = torch.isfinite(want_lse)
+            check(torch.equal(fin, torch.isfinite(lse)), f"paged {tag}: lse -inf where no row")
+            lse_err = _max_err(lse[fin], want_lse[fin])
+            record("paged_attention", tag + "_lse", lse_err, lse_tol)
+            if dtype == torch.bfloat16:
+                again = paged_attention(*args, **kw)
+                repeat["paged_attention_" + name] = torch.equal(got, again[0]) and torch.equal(
+                    lse, again[1]
+                )
+            del cache, kp, vp, q, got, want
 
 
 #: lengths against a window of 4096 over 256-token splits (16 blocks of 16):
@@ -2555,6 +2639,434 @@ def phase_serving_whisper(llm_errs: dict) -> list:
     return rows
 
 
+#: ``serving_cache``'s cuts, stated before its first run: decode_32k's batch
+#: of 128 cut to 8 (its K/V at 32768 tokens, 51.5 GB of bf16, is what one
+#: card holds beside the model), deepseek-v2-lite-16b to 4 of its 27 layers
+#: (every width the published one; the absorbed decode is the same call in
+#: every layer); stablelm-1.6b and h2o-danube-1.8b at full depth
+CACHE_32K_B = 8
+CACHE_MLA_LAYERS = 4
+#: h2o-danube-1.8b's long_500k decode: positions 520,160 .. 520,223, slots
+#: 4064 .. 4095 then 0 .. 31 of its 4096-slot rolling buffer; at 12 of its 24
+#: layers, as ``serving_swa`` (a cut of the script's time: the phase took
+#: 44.8 s with all 24 on an H100, where it aimed at 25)
+CACHE_LONG_POS, CACHE_LONG_STEPS = 520_160, 64
+CACHE_LONG_LAYERS = 12
+#: the first step's logits, kernel against plain from the same cache: two
+#: bf16 steps at |logit| 4-8 (measured 0.0 at 12 layers, 0.031 at 24)
+CACHE_LONG_FIRST_BOUND = 0.0625
+
+
+def _cache_row(name, path, fns, iters, nbytes, ops, launches, err, library, shape):
+    """A timing row of the paged kernel over a contiguous cache view."""
+    return _timing_row(
+        "paged_attention", fns, iters, nbytes, ops, launches, err, library, shape=shape,
+        path=path, queued=True,
+    )
+
+
+def _cache_run(model, tokens, cache, steps: int, pos0, *, absorbed=False, prefill=True,
+               fresh=False):
+    """The cache form on ``model``: the prompt ``tokens [B, S]`` prefilled
+    into ``cache`` (``prefill``; else ``cache`` is already filled up to
+    ``pos0`` and ``tokens [B, 1]`` is the first token), then ``steps``
+    greedy decode steps through the kernels, with the launch counts set to
+    0 just before the run and read just after.  The plain attention
+    (``impl="ref"``) is held to it: teacher-forced from a copy of the cache
+    as it stood before the first step, each step fed the kernel run's
+    token; or, ``fresh``, each step from a copy of the kernel run's cache
+    as that step found it (one step's gap, where the stack's own dynamics
+    would amplify a rounding step over many).  The plain steps launch no
+    kernel.  Returns the logits gap (``_logits_gap``), the launches, the
+    kernel run's final cache, its decode seconds a step (the plain steps
+    between excluded) and its greedy tokens."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+
+    def plain_step(c, tok, pos):
+        model.impl = "ref"
+        try:
+            return M.decode_step_cache(model, c, tok[:, None], pos, mla_absorbed=absorbed)[0]
+        finally:
+            model.impl = "kernel"
+
+    torch.cuda.synchronize()
+    reset_launches()
+    B = tokens.shape[0]
+    if prefill:
+        logits, cache = M.prefill_cache(model, tokens, cache)
+        tok = logits[:, -1].argmax(-1)
+    else:
+        tok = tokens[:, -1]
+    plain = {k: v.clone() for k, v in cache.items()}
+    pos = torch.as_tensor(pos0, device="cuda").long().expand(B).clone()
+    got, want, greedy, kernel_s = {}, {}, [], 0.0
+    for i in range(steps):
+        if fresh:
+            plain = {k: v.clone() for k, v in cache.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.decode_step_cache(
+            model, cache, tok[:, None], pos + i, mla_absorbed=absorbed
+        )
+        torch.cuda.synchronize()
+        kernel_s += time.perf_counter() - t0
+        if fresh:
+            ref = plain_step(plain, tok, pos + i)
+            for b in range(B):
+                want[(b, i)] = ref[b, 0]
+        for b in range(B):
+            got[(b, i)] = logits[b, 0]
+        greedy.append(tok)
+        tok = logits[:, 0].argmax(-1)
+    launches = dict(LAUNCHES)
+    if not fresh:
+        for i in range(steps):
+            ref = plain_step(plain, greedy[i], pos + i)
+            for b in range(B):
+                want[(b, i)] = ref[b, 0]
+    return _logits_gap(got, want), launches, cache, kernel_s / steps, torch.stack(greedy, 1)
+
+
+def _bf16_steps(got, want):
+    """The largest gap of ``got`` to ``want``, element by element, in bf16
+    steps of ``want``: ``|got - want| / (2**-7 |want| + 2**-8)`` (a bf16
+    rounding step of the entry, and a floor for entries near 0), at most 1
+    where the two differ only by their last rounding (a 0-d tensor)."""
+    want = want.float()
+    return ((got.float() - want).abs() / (want.abs() * 2**-7 + 2**-8)).max()
+
+
+def _cache_layer_check(q, k, v, view, *, window=0, scale=None) -> float:
+    """The paged kernel against its plain version on one layer's contiguous
+    view at the path's shapes (bf16): within one bf16 step of each entry
+    (``_bf16_steps``; the GQA route is float32 inside and rounds once, the
+    latent call also rounds P to bf16 before P V, 0.33 of a step on an
+    H100) and within the paged checks' 3e-2, the log-sum-exp within 4e-3."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    args = (q, k, v, view.block_table, view.lengths)
+    got, lse = paged_attention(*args, window=window, scale=scale, return_lse=True)
+    want, want_lse = paged_attention_ref(*args, window=window, scale=scale, return_lse=True)
+    err, steps = _max_err(got, want), float(_bf16_steps(got, want))
+    emit("paged_cache_layer_check", shape=list(k.shape), err=err, bf16_steps=steps)
+    check(steps <= 1 and err <= 3e-2,
+          f"paged over the contiguous cache: {err} ({steps} bf16 steps)")
+    check(_max_err(lse, want_lse) <= 4e-3, "paged over the contiguous cache: lse")
+    return err
+
+
+def _cache_dense(errs) -> tuple:
+    """stablelm-1.6b at full width and depth: the contiguous prefill of B 2 x
+    4096 on the flash kernel, 32 decode steps on the paged kernel against
+    the plain path, a row at that cache's shape; then one decode_32k step at
+    32768 tokens, batch ``CACHE_32K_B``, timed, and its launch's row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import CacheView
+
+    arch, S, steps = "stablelm-1.6b", 4096, 32
+    cfg = get_config(arch)
+    model = _tempered(M.init_params(cfg, 0))
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    H, G, D, L = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=gen, device="cuda")
+    T = S + steps
+    cache = M.init_cache(cfg, 2, T)
+    gap, launches, cache, per_step, greedy = _cache_run(model, tokens, cache, steps, S)
+    bound, agree = FORCING_BOUNDS[arch]["bf16"]
+    check(gap["max"] <= bound and gap["argmax_agreement"] >= agree, f"{arch} cache decode {gap}")
+    want = {"flash_attention": L, "paged_attention": L * steps, "paged_attention_merge": L * steps}
+    check(all(launches[k] == n for k, n in want.items()), f"{arch} cache launches {launches}")
+    view = CacheView.make(torch.full((2,), T - 1, device="cuda"), T)
+    kp, vp = view.pool(cache["k"][0]), view.pool(cache["v"][0])
+    q = _cuda_randn(gen, (2, H, D), torch.bfloat16)
+    err = _cache_layer_check(q, kp, vp, view)
+    out = {"prompt": [2, S], "steps": steps, "kernel_vs_plain": gap, "held": "teacher-forced",
+           "launches": launches, "decode_ms_per_step": per_step * 1e3, "max_abs_err": err}
+    emit("serving_cache", path=arch, **out)
+    rows = []
+    kt, vt = cache["k"][0].transpose(1, 2), cache["v"][0].transpose(1, 2)  # [B, G, T, D] views
+    q4 = q[:, :, None]
+    sdpa = lambda: F.scaled_dot_product_attention(q4, kt, vt)
+    check(_max_err(sdpa()[:, :, 0], paged_attention_ref(q, kp, vp, view.block_table,
+                                                         view.lengths)) <= 3e-2, "cache yardstick")
+    args = (q, kp, vp, view.block_table, view.lengths)
+    # what the merge's log-sum-exp output costs: the same call with and
+    # without it, queued, in turns
+    lse_ms = [
+        queued_ms(lambda: paged_attention(*args, return_lse=lse), 200)
+        for lse in (False, True, True, False)
+    ]
+    lse_us = [None if t is None else t * 1e3 for t in lse_ms]
+    emit("paged_lse_cost", path=arch + "-cache", queued_us_without_with_with_without=lse_us)
+    rows.append(_cache_row(
+        arch + "-cache", arch + "-cache",
+        {"kernel": lambda: paged_attention(*args), "plain": lambda: paged_attention_ref(*args),
+         "library": sdpa},
+        200, 2 * T * G * 2 * D * 2 + 2 * H * 2 * D * 2, 4 * D * H * 2 * T,
+        launches["paged_attention"], err,
+        "F.scaled_dot_product_attention on the contiguous K/V (a transposed view: no gather)",
+        dict(B=2, T=T, H=H, G=G, D=D, block_size=view.block_size),
+    ))
+    del cache, kp, vp, kt, vt, q, args
+    torch.cuda.empty_cache()
+
+    row, out32 = _cache_decode_32k(model, gen)
+    rows.append(row)
+    del model
+    # the 51.5 GB cache's blocks back to CUDA before anything small is
+    # carved out of them (a live tensor there would pin the whole segment)
+    torch.cuda.empty_cache()
+    return rows, {**out, "decode_32k": out32}
+
+
+def _cache_decode_32k(model, gen) -> tuple:
+    """One decode_32k step of ``model`` (stablelm-1.6b) at the full context,
+    batch ``CACHE_32K_B``: ms a step, device busy ms, tokens/s, the share of
+    the K/V bound; the launch's row against SDPA on the same K/V."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import CacheView
+
+    cfg = model.cfg
+    arch = cfg.name
+    H, G, D, L = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    B, T = CACHE_32K_B, 32768
+    c32 = {
+        "k": _cuda_randn(gen, (L, B, T, G, D), torch.bfloat16),
+        "v": _cuda_randn(gen, (L, B, T, G, D), torch.bfloat16),
+        "pos": torch.arange(T, dtype=torch.int32, device="cuda").expand(L, B, T).contiguous(),
+    }
+    kv_bytes = 2 * L * B * T * G * D * 2
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
+    step = lambda: M.decode_step_cache(model, c32, tok, T - 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    step()
+    torch.cuda.synchronize()
+    launches32 = dict(LAUNCHES)
+    check(launches32["paged_attention"] == L and launches32["paged_attention_merge"] == L,
+          f"decode_32k launches {launches32}")
+    ms = time_ms(step, 10, warmup=2)
+    busy = device_ms(step, 3)
+    bound_ms = kv_bytes / HBM_BYTES_PER_S * 1e3
+    out32 = {"batch": B, "context": T, "kv_bytes": kv_bytes, "ms_per_step": ms,
+             "tokens_per_s": B / ms * 1e3, "device_busy_ms_per_step": busy,
+             "kv_bound_ms": bound_ms, "share_of_kv_bound": bound_ms / ms,
+             "busy_share_of_kv_bound": None if busy is None else bound_ms / busy,
+             "launches": launches32, "cut": f"decode_32k's batch 128 -> {B}"}
+    emit("serving_cache_decode_32k", path=arch, **out32)
+    view = CacheView.make(torch.full((B,), T - 1, device="cuda"), T)
+    kp, vp = view.pool(c32["k"][0]), view.pool(c32["v"][0])
+    q = _cuda_randn(gen, (B, H, D), torch.bfloat16)
+    err = _cache_layer_check(q, kp, vp, view)
+    kt, vt = c32["k"][0].transpose(1, 2), c32["v"][0].transpose(1, 2)
+    q4 = q[:, :, None]
+    args = (q, kp, vp, view.block_table, view.lengths)
+    row = _cache_row(
+        arch + "-decode_32k", arch + "-decode_32k",
+        {"kernel": lambda: paged_attention(*args), "plain": lambda: paged_attention_ref(*args),
+         "library": lambda: F.scaled_dot_product_attention(q4, kt, vt)},
+        20, 2 * B * T * G * D * 2 + B * H * 2 * D * 2, 4 * D * H * B * T,
+        launches32["paged_attention"], err,
+        "F.scaled_dot_product_attention on the contiguous K/V (a transposed view: no gather)",
+        dict(B=B, T=T, H=H, G=G, D=D, block_size=view.block_size),
+    )
+    return row, out32
+
+
+def _cache_long(errs) -> tuple:
+    """h2o-danube-1.8b's long_500k cell at full width, ``CACHE_LONG_LAYERS``
+    of its 24 layers: batch 1,
+    its 4096-slot rolling buffer (10.5 MB a layer) filled from a seeded
+    generator as after position 520,159, then ``CACHE_LONG_STEPS`` decode
+    steps across the buffer's wrap.  Each of the path's paged calls is held
+    to its plain version on the same inputs within one bf16 step of each
+    entry (``_bf16_steps``: the kernel is float32 inside and rounds once)
+    and within the paged checks' 3e-2.
+    Each step's logits are compared with the plain path's from the cache as
+    that step found it: the first step's within ``CACHE_LONG_FIRST_BOUND``,
+    the others reported, as over a random ring the stack amplifies one bf16
+    step of an attention output into logit gaps up to 0.45 at 12 layers and
+    1.2 at 24 (teacher-forced over the 64 steps: 2-4; 4 layers, or
+    stablelm-1.6b's 24, stay within 0.2; the window on or off alike; PERF.md,
+    §5).  A row at the buffer's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import ATTENTION, CacheView
+
+    arch = "h2o-danube-1.8b"
+    cfg = serve.cut(get_config(arch), layers=CACHE_LONG_LAYERS)
+    model = _tempered(M.init_params(cfg, 0))
+    gen = torch.Generator(device="cuda").manual_seed(500)
+    H, G, D, L, w = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers, \
+        cfg.sliding_window
+    T = M.cache_length(cfg, 524_288)
+    check(T == w == 4096, f"{arch}'s long_500k cache: {T} slots")
+    cache = M.init_cache(cfg, 1, T)
+    cache["k"].copy_(_cuda_randn(gen, tuple(cache["k"].shape), torch.bfloat16))
+    cache["v"].copy_(_cuda_randn(gen, tuple(cache["v"].shape), torch.bfloat16))
+    last = CACHE_LONG_POS - 1
+    slot = torch.arange(T, device="cuda")
+    cache["pos"].copy_((last - (last - slot) % T).int().expand_as(cache["pos"]))
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen, device="cuda")
+    flash, paged = ATTENTION["kernel"]
+    calls = []
+
+    def held(*args, **kw):  # the kernel's call, and its plain version on the same inputs
+        out = paged(*args, **kw)
+        want = paged_attention_ref(*args, **kw).float()
+        gap = (out.float() - want).abs().max()
+        calls.append(torch.stack([gap, want.abs().max(), _bf16_steps(out, want)]))
+        return out
+
+    ATTENTION["kernel"] = (flash, held)
+    try:
+        gap, launches, cache, _, greedy = _cache_run(
+            model, tok, cache, CACHE_LONG_STEPS, CACHE_LONG_POS, prefill=False, fresh=True
+        )
+    finally:
+        ATTENTION["kernel"] = (flash, paged)
+    diffs = torch.stack(calls)
+    call_err, call_steps = float(diffs[:, 0].max()), float(diffs[:, 2].max())
+    check(len(calls) == L * CACHE_LONG_STEPS and call_steps <= 1 and call_err <= 3e-2,
+          f"{arch} long_500k: {len(calls)} paged calls, largest gap to plain {call_err} "
+          f"({call_steps} bf16 steps)")
+    check(math.isfinite(gap["max"]) and gap["first_token_max"] <= CACHE_LONG_FIRST_BOUND,
+          f"{arch} long_500k logits {gap}")
+    want = L * CACHE_LONG_STEPS
+    check(launches["paged_attention"] == want == launches["paged_attention_merge"],
+          f"{arch} long_500k launches {launches}")
+    end = CACHE_LONG_POS + CACHE_LONG_STEPS - 1
+    check(int(cache["pos"][0, 0].max()) == end, "the ring's newest position")
+    view = CacheView.make(torch.full((1,), end, device="cuda"), T)
+    kp, vp = view.pool(cache["k"][0]), view.pool(cache["v"][0])
+    q = _cuda_randn(gen, (1, H, D), torch.bfloat16)
+    err = _cache_layer_check(q, kp, vp, view, window=w)
+    out = {"batch": 1, "positions": [CACHE_LONG_POS, end], "slots": T,
+           "paged_calls_max_abs_err": call_err, "paged_calls_max_bf16_steps": call_steps,
+           "paged_calls_largest_entry": float(diffs[:, 1].max()), "logits_kernel_vs_plain": gap,
+           "held": "each step from the kernel run's cache", "launches": launches,
+           "max_abs_err": err}
+    emit("serving_cache_long_500k", path=arch, **out)
+    kt = cache["k"][0].transpose(1, 2).repeat_interleave(H // G, dim=1)
+    vt = cache["v"][0].transpose(1, 2).repeat_interleave(H // G, dim=1)
+    q4 = q[:, :, None]
+    args = (q, kp, vp, view.block_table, view.lengths)
+    row = _cache_row(
+        arch + "-long_500k", arch + "-long_500k",
+        {"kernel": lambda: paged_attention(*args, window=w),
+         "plain": lambda: paged_attention_ref(*args, window=w),
+         "library": lambda: F.scaled_dot_product_attention(q4, kt, vt)},
+        200, T * G * 2 * D * 2 + H * 2 * D * 2, 4 * D * H * T, launches["paged_attention"], err,
+        "F.scaled_dot_product_attention on the ring's K/V (repeated per query head beforehand)",
+        dict(B=1, T=T, H=H, G=G, D=D, block_size=view.block_size, window=w),
+    )
+    del cache, kp, vp, kt, vt, model
+    torch.cuda.empty_cache()
+    return [row], out
+
+
+def _cache_mla(errs) -> tuple:
+    """deepseek-v2-lite-16b at full width, ``CACHE_MLA_LAYERS`` layers: the
+    contiguous prefill of B 2 x 4096 (flash at QK 192 / V 128), then 16
+    absorbed decode steps on the latent call over the cache's 576-wide rows,
+    kernel against plain; a row at that cache's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import CacheView
+
+    arch, S, steps = "deepseek-v2-lite-16b", 4096, 16
+    cfg = serve.cut(get_config(arch), layers=CACHE_MLA_LAYERS)
+    model = _tempered(M.init_params(cfg, 0))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=gen, device="cuda")
+    T = S + steps
+    cache = M.init_cache(cfg, 2, T)
+    gap, launches, cache, per_step, greedy = _cache_run(
+        model, tokens, cache, steps, S, absorbed=True
+    )
+    bound, agree = FORCING_BOUNDS[arch]["bf16"]
+    check(gap["max"] <= bound and gap["argmax_agreement"] >= agree, f"{arch} cache decode {gap}")
+    L = cfg.num_layers
+    want = {"flash_attention": L, "paged_attention": L * steps}
+    check(all(launches[k] == n for k, n in want.items()), f"{arch} cache launches {launches}")
+    view = CacheView.make(torch.full((2,), T - 1, device="cuda"), T, latent=True)
+    kp = view.pool(cache["latent"][0])[:, :, None]
+    vp = kp[..., : cfg.kv_lora_rank]
+    H, Dk, Dv = cfg.num_heads, cfg.latent_dim, cfg.kv_lora_rank
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    q = _cuda_randn(gen, (2, H, Dk), torch.bfloat16)
+    err = _cache_layer_check(q, kp, vp, view, scale=scale)
+    out = {"prompt": [2, S], "steps": steps, "layers": L, "kernel_vs_plain": gap,
+           "held": "teacher-forced", "launches": launches, "decode_ms_per_step": per_step * 1e3,
+           "max_abs_err": err, "cut": f"{CACHE_MLA_LAYERS} of 27 layers"}
+    emit("serving_cache_mla", path=arch, **out)
+    lat = cache["latent"][0][:, None]  # [B, 1, T, 576]: one latent head for the 16
+    kt, vt = lat.expand(2, H, T, Dk), lat[..., :Dv].expand(2, H, T, Dv)
+    q4 = q[:, :, None]
+    args = (q, kp, vp, view.block_table, view.lengths)
+    row = _cache_row(
+        arch + "-cache", arch + "-cache",
+        {"kernel": lambda: paged_attention(*args, scale=scale),
+         "plain": lambda: paged_attention_ref(*args, scale=scale),
+         "library": lambda: F.scaled_dot_product_attention(q4, kt, vt, scale=scale)},
+        200, 2 * T * Dk * 2 + 2 * H * (Dk + Dv) * 2, 2 * (Dk + Dv) * H * 2 * T,
+        launches["paged_attention"], err,
+        "F.scaled_dot_product_attention on the contiguous latent rows (one head as a view)",
+        dict(B=2, T=T, H=H, G=1, D=Dk, Dv=Dv, block_size=view.block_size),
+    )
+    del cache, kp, vp, lat, kt, vt, model
+    torch.cuda.empty_cache()
+    return [row], out
+
+
+def phase_serving_cache(llm_errs: dict) -> list:
+    """The reference's contiguous-cache serving steps (``prefill_cache``,
+    ``decode_step_cache``) on the paged kernel: ``_cache_dense``,
+    ``_cache_long`` and ``_cache_mla``; returns their kernels-line rows."""
+    import gc
+
+    import torch
+
+    rows = []
+    for part in (_cache_dense, _cache_long, _cache_mla):
+        t0 = time.perf_counter()
+        rows += part(llm_errs)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("serving_cache_part_seconds", part=part.__name__, seconds=time.perf_counter() - t0,
+             allocated_gb=torch.cuda.memory_allocated() / 1e9,
+             reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    return rows
+
+
 def _flash_bytes_ops(B, S, T, H, G, D, *, lse=False, bwd=False) -> tuple:
     """Bytes and operations of one non-causal flash call: each input read
     once and each output written once (bf16; lse float32), and 2 flop a
@@ -3137,11 +3649,12 @@ def _latent_timing(q, kp, tbl, ln, scale) -> None:
 
     lib = ctypes.CDLL(MARKED["paged_attention"])
     fn = lib.paged_attention_latent
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
     fn.argtypes += [ctypes.c_float, ctypes.c_void_p]
     lib.paged_attention_latent_marks.argtypes = [ctypes.c_void_p]
     out = torch.empty((B, 16, 512), dtype=q.dtype, device="cuda")
-    args = (q.data_ptr(), kp.data_ptr(), tbl.data_ptr(), ln.data_ptr(), out.data_ptr(), B, mb, bs)
+    args = (q.data_ptr(), kp.data_ptr(), tbl.data_ptr(), ln.data_ptr(), out.data_ptr(), None)
+    args += (B, mb, bs)  # None: no log-sum-exp output
     args += (kp.stride(0), kp.stride(1), scale, torch.cuda.current_stream().cuda_stream)
     marked = lambda: check(fn(*args) == 0, "marked latent launch")
     marks = torch.zeros((B * C, 16), dtype=torch.int64, device="cuda")
@@ -3173,7 +3686,8 @@ def _latent_timing(q, kp, tbl, ln, scale) -> None:
     parts = (part_acc.data_ptr(), part_ms.data_ptr())
     split_args = (q32.data_ptr(), kv32.data_ptr(), tbl.data_ptr(), ln.data_ptr(), *parts, B, mb)
     split_args += (bs, bps, kv32.stride(0), kv32.stride(1), scale, stream)
-    merge_args = (*parts, ln.data_ptr(), out32.data_ptr(), B, 16, 512, mb, bs, bps, 0, 0, stream)
+    merge_args = (*parts, ln.data_ptr(), out32.data_ptr(), B, 16, 512, mb, bs, bps, 0, 0, None)
+    merge_args += (stream,)  # None: no log-sum-exp output
     split32 = lambda: check(fns["latent_split"](*split_args) == 0, "f32 split")
     merge32 = lambda: check(fns["merge"](*merge_args) == 0, "f32 merge")
     split32()
@@ -4844,7 +5358,9 @@ def phase_multi_device() -> dict:
     out by the rules, TP-only and FSDP) against ``moe_ffn`` with no mesh, and
     the collectives it issues (``analysis.collectives``); ``build_cell`` for
     stablelm-1.6b at train_4k, whose per-rank state bytes must equal the
-    whole state's.  The group is torn down at the end, failure or not."""
+    whole state's; the sharded decode step against the unsharded one
+    (``_multi_device_decode``).  The group is torn down at the end, failure
+    or not."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4914,6 +5430,7 @@ def phase_multi_device() -> dict:
             check(same, f"expert-parallel olmoe layer ({name}) differs from the unsharded path")
         del p, x, want, pd, xd, got
         torch.cuda.empty_cache()
+        out["decode"] = _multi_device_decode(mesh)
 
         cell = build_cell("stablelm-1.6b", "train_4k", mesh)
         set_activation_sharder(None)
@@ -4933,6 +5450,51 @@ def phase_multi_device() -> dict:
         dist.destroy_process_group()
     emit("multi_device", **out)
     return out
+
+
+#: the sharded decode step in ``multi_device``: stablelm-1.6b at full width,
+#: 2 of its 24 layers, B 2, a 256-token prompt in a 272-slot cache
+MULTI_DECODE_LAYERS, MULTI_DECODE_S, MULTI_DECODE_T = 2, 256, 272
+
+
+def _multi_device_decode(mesh) -> dict:
+    """The sharded decode step (``distributed.serve``) on the 1 x 1 mesh,
+    the cache laid out by decode_32k's rules (the sequence over ``model``),
+    against the unsharded cache step on the same cache: logits and the
+    cache after the step, and the collectives it issues."""
+    import torch
+
+    from repro_torch.analysis.collectives import CollectiveCounter
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES_BY_NAME, RunConfig
+    from repro_torch.distributed.serve import make_sharded_decode, shard_cache
+    from repro_torch.distributed.train import shard_train_state
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import _State
+    from repro_torch.models import model as M
+
+    cfg = serve.cut(get_config("stablelm-1.6b"), layers=MULTI_DECODE_LAYERS)
+    B, S, T = 2, MULTI_DECODE_S, MULTI_DECODE_T
+    model = _tempered(M.init_params(cfg, 0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    _, cache = M.prefill_cache(model, tokens, M.init_cache(cfg, B, T))
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
+    sharded = shard_cache(cfg, mesh, SHAPES_BY_NAME["decode_32k"], cache, B, T)
+    placed = {k: str(v.placements) for k, v in sharded.items()}
+    smodel = _tempered(M.init_params(cfg, 0))
+    smodel = shard_train_state(_State(smodel), RunConfig(), mesh, fsdp=False).model
+    want, cache = M.decode_step_cache(model, cache, tok, S)
+    with CollectiveCounter() as counter:
+        got, sharded = make_sharded_decode(cfg, mesh)(smodel, sharded, tok, S)
+        torch.cuda.synchronize()
+    err = _max_err(got, want)
+    same_cache = all(torch.equal(sharded[k].full_tensor(), cache[k]) for k in cache)
+    check(err <= 3e-2 and same_cache, f"sharded decode step: {err}, cache alike {same_cache}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B, "pos": S, "slots": T,
+            "bit_for_bit": torch.equal(got, want), "max_abs_err": err,
+            "cache_bit_for_bit": same_cache, "cache_placements": placed,
+            "collectives": counter.stats()}
 
 
 def _leaves(tree) -> list:
@@ -4991,6 +5553,7 @@ def main() -> int:
     rows += phase_serving_swa_ssm(llm_errs)
     rows += phase_serving_hybrid(llm_errs)
     rows += phase_serving_whisper(llm_errs)
+    rows += timed_phase("serving_cache", phase_serving_cache, llm_errs)
     rows += phase_training()
     torch.cuda.empty_cache()
     timed_phase("multi_device", phase_multi_device)

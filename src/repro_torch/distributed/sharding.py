@@ -250,8 +250,9 @@ def label_sharding(mesh, batch_size: int) -> NamedSharding:
 
 
 def cache_pspecs(cfg: ModelConfig, mesh, shape: ShapeConfig, batch_size: int, cache_len: int):
-    """Spec tree matching the reference's ``init_cache(cfg, ...)`` tree
-    (``launch.specs.cache_shapes``)."""
+    """Spec tree matching the reference's ``init_cache(cfg, ...)`` tree (an
+    MLA cache's ``c_kv`` and ``k_pe``; ``cache_shardings`` lays the port's
+    one latent row out as them)."""
     dp = dp_axes(mesh)
     b = dp if batch_size % axis_size(mesh, dp) == 0 else None
     long_ctx = shape.name == "long_500k"
@@ -295,12 +296,20 @@ def cache_pspecs(cfg: ModelConfig, mesh, shape: ShapeConfig, batch_size: int, ca
 
 
 def cache_shardings(cfg: ModelConfig, mesh, shape: ShapeConfig, batch_size: int, cache_len: int):
+    """``NamedSharding`` tree matching ``models.model.init_cache``: the
+    reference's specs, an MLA cache's ``latent`` row laid out as its
+    ``c_kv`` and ``k_pe`` (the same spec: each rank's bytes are theirs)."""
+
     def walk(node):
         if isinstance(node, tuple):
             return NamedSharding(mesh, node)
         return {k: walk(v) for k, v in node.items()}
 
-    return walk(cache_pspecs(cfg, mesh, shape, batch_size, cache_len))
+    specs = cache_pspecs(cfg, mesh, shape, batch_size, cache_len)
+    if cfg.use_mla:
+        assert specs["c_kv"] == specs["k_pe"]
+        specs = {"latent": specs["c_kv"], "pos": specs["pos"]}
+    return walk(specs)
 
 
 def replicated(mesh) -> NamedSharding:

@@ -142,22 +142,3 @@ def make_sharded_train_step(cfg: ModelConfig, run: RunConfig, total_steps: int, 
         return state, {k: _plain(v) for k, v in metrics.items()}
 
     return step
-
-
-def make_sharded_prefill(cfg: ModelConfig, mesh):
-    """``prefill(model, batch) -> logits [B, 1, Vp]``: the port's prefill
-    with no pool on a model whose parameters are DTensors."""
-    sharder = SH.make_activation_sharder(mesh, seq_parallel=True)
-
-    @torch.no_grad()
-    def prefill(model, batch):
-        set_activation_sharder(sharder, mesh=mesh, fsdp=False)
-        try:
-            b = shard_batch(cfg, mesh, {"tokens": batch["tokens"]})
-            frames = batch.get("frames")
-            with implicit_replication():
-                return _plain(M.prefill(model, b["tokens"], frames=frames))
-        finally:
-            set_activation_sharder(None)
-
-    return prefill

@@ -348,8 +348,9 @@ constexpr int kMergeChunk = 16;
 
 template <typename T>
 __global__ void paged_merge(const float* __restrict__ part_acc, const float* __restrict__ part_ms,
-                            const int32_t* __restrict__ lengths, T* __restrict__ out, int H, int D,
-                            int nsplit, int span, int max_len, int window) {
+                            const int32_t* __restrict__ lengths, T* __restrict__ out,
+                            float* __restrict__ lse, int H, int D, int nsplit, int span,
+                            int max_len, int window) {
   extern __shared__ float smem[];  // [nsplit] max, then [nsplit] sum
   float* s_max = smem;
   float* s_sum = smem + nsplit;
@@ -386,6 +387,7 @@ __global__ void paged_merge(const float* __restrict__ part_acc, const float* __r
     o += x * w;
   }
   store(out + bh * D + d, total > 0.f ? o / total : 0.f);
+  if (lse != nullptr && d == 0) lse[bh] = total > 0.f ? big + logf(total) : -INFINITY;
 }
 
 template <typename T, int D, int M>
@@ -788,8 +790,8 @@ __device__ __forceinline__ float warp_max(float x) {
 __global__ void __launch_bounds__(kLatThreads, 2)
     paged_latent_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
                       const int32_t* __restrict__ table, const int32_t* __restrict__ lengths,
-                      __nv_bfloat16* __restrict__ out, int mb, int bs, long long blk_stride,
-                      long long row_stride, float scale) {
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int mb, int bs,
+                      long long blk_stride, long long row_stride, float scale) {
   constexpr int kOwn = kLatV / kCluster;  // output columns a CTA merges: 32
   extern __shared__ __align__(128) uint8_t lat_smem[];
   MmaSmem& sm = *reinterpret_cast<MmaSmem*>(lat_smem);
@@ -995,6 +997,8 @@ __global__ void __launch_bounds__(kLatThreads, 2)
     for (int k = 0; k < kCluster; ++k)
       total += __shfl_sync(0xffffffffu, ml.y * wt, (lane & 16) + k);
     if (j == 0) sm.merge.total[h] = total;
+    if (lse != nullptr && j == 0 && rank == 0)
+      lse[b * kLatHeads + h] = total > 0.f ? big + logf(total) : -INFINITY;
   }
   __syncthreads();
   LAT_MARK(10);
@@ -1024,7 +1028,7 @@ __global__ void __launch_bounds__(kLatThreads, 2)
 }
 
 int launch_latent_bf16(const void* q, const void* kv, const void* table, const void* lengths,
-                       void* out, int B, int mb, int bs, long long blk_stride,
+                       void* out, float* lse, int B, int mb, int bs, long long blk_stride,
                        long long row_stride, float scale, cudaStream_t stream) {
   static bool attrs_set = false;
   if (!attrs_set) {
@@ -1052,8 +1056,8 @@ int launch_latent_bf16(const void* q, const void* kv, const void* table, const v
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, paged_latent_bf16, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kv), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(lengths), static_cast<__nv_bfloat16*>(out), mb, bs, blk_stride,
-      row_stride, scale);
+      static_cast<const int32_t*>(lengths), static_cast<__nv_bfloat16*>(out), lse, mb, bs,
+      blk_stride, row_stride, scale);
   const cudaError_t last = cudaGetLastError();  // clears the launch error, if any
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -1084,15 +1088,17 @@ extern "C" int paged_attention_split(const void* q, const void* k, const void* v
 
 // MLA's latent call in bf16, one launch: q [B, 16, 576] contiguous; kv
 // element (blk, row, d) at blk * blk_stride + row * row_stride + d, d < 576 (V
-// is d < 512 of the same rows); out [B, 16, 512] bf16; mb <= 1024.
+// is d < 512 of the same rows); out [B, 16, 512] bf16; mb <= 1024; lse [B, 16]
+// float32 (each head's log-sum-exp of its scaled scores, -inf with no row) or
+// null.
 extern "C" int paged_attention_latent(const void* q, const void* kv, const void* table,
-                                      const void* lengths, void* out, int B, int mb, int bs,
-                                      long long blk_stride, long long row_stride, float scale,
-                                      void* stream) {
+                                      const void* lengths, void* out, void* lse, int B, int mb,
+                                      int bs, long long blk_stride, long long row_stride,
+                                      float scale, void* stream) {
   if (B == 0) return 0;
   if (bs <= 0 || mb < 0 || mb > kMaxTbl) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_latent_bf16(q, kv, table, lengths, out, B, mb, bs, blk_stride, row_stride, scale,
-                            static_cast<cudaStream_t>(stream));
+  return launch_latent_bf16(q, kv, table, lengths, out, static_cast<float*>(lse), B, mb, bs,
+                            blk_stride, row_stride, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The split pass of MLA's latent call in float32: q [B, 16, 576] float32,
@@ -1130,10 +1136,14 @@ extern "C" int paged_attention_latent_marks(void* buf) {
 }
 #endif
 
-// The merge pass: out [B, H, D] in q's dtype; window as the split pass's.
+// The merge pass: out [B, H, D] in q's dtype; window as the split pass's;
+// lse [B, H] float32 (each head's log-sum-exp of its scaled scores, -inf with
+// no row: what a merge across ranks of a sequence-split cache weighs by) or
+// null.
 extern "C" int paged_attention_merge(const void* part_acc, const void* part_ms,
                                      const void* lengths, void* out, int B, int H, int D, int mb,
-                                     int bs, int bps, int window, int dtype, void* stream) {
+                                     int bs, int bps, int window, int dtype, void* lse,
+                                     void* stream) {
   if (B == 0) return 0;
   if (bps <= 0 || bs <= 0 || window < 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -1143,11 +1153,12 @@ extern "C" int paged_attention_merge(const void* part_acc, const void* part_ms,
   const auto* acc = static_cast<const float*>(part_acc);
   const auto* ms = static_cast<const float*>(part_ms);
   const auto* len = static_cast<const int32_t*>(lengths);
+  auto* l = static_cast<float*>(lse);
   if (dtype == 1)
-    paged_merge<<<blocks, D, smem, s>>>(acc, ms, len, static_cast<__nv_bfloat16*>(out), H, D,
+    paged_merge<<<blocks, D, smem, s>>>(acc, ms, len, static_cast<__nv_bfloat16*>(out), l, H, D,
                                         nsplit, bps * bs, mb * bs, window);
   else
-    paged_merge<<<blocks, D, smem, s>>>(acc, ms, len, static_cast<float*>(out), H, D, nsplit,
+    paged_merge<<<blocks, D, smem, s>>>(acc, ms, len, static_cast<float*>(out), l, H, D, nsplit,
                                         bps * bs, mb * bs, window);
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,13 +70,13 @@ def _kernel_fns():
         split.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
         split.argtypes += [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         latent = lib.paged_attention_latent
-        latent.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
+        latent.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
         latent.argtypes += [ctypes.c_float, ctypes.c_void_p]
         latent_split = lib.paged_attention_latent_split
         latent_split.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
         latent_split.argtypes += [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]
         merge = lib.paged_attention_merge
-        merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
         for fn in (split, latent, latent_split, merge):
             fn.restype = ctypes.c_int
         _fns.update(split=split, latent=latent, latent_split=latent_split, merge=merge)
@@ -182,19 +182,26 @@ def paged_attention(
     *,
     scale=None,
     window: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """q ``[B, H, D]``; k pool ``[NB, bs, G, D]``, v pool ``[NB, bs, G, Dv]``
     (strided views allowed, ``[G, D]`` contiguous; ``Dv == D``, or the
     latent call, ``LATENT``, with V a view of K's first columns);
     block_table ``[B, mb]`` int32 (-1 = unused); lengths ``[B]`` int32;
     ``window`` 0 (none) or the most recent tokens a request attends to.
-    Returns ``[B, H, Dv]`` in q's dtype; ``scale`` defaults to ``D ** -0.5``."""
+    Returns ``[B, H, Dv]`` in q's dtype; ``scale`` defaults to ``D ** -0.5``.
+    ``return_lse``: ``(out, lse)``, ``lse [B, H]`` float32 each head's
+    log-sum-exp of its scaled scores (-inf where no token is valid),
+    written by the merge (the bf16 latent call: by its cluster's merge)
+    beside the output, what a merge across ranks that split a sequence's
+    tokens weighs each rank's output by."""
     window = int(window)
     if window < 0 or window >= 2**31:
         raise ValueError(f"window must be 0 (none) or a positive token count; got {window}")
     if q.device.type == "cpu":
         return paged_attention_ref(
-            q, k_pool, v_pool, block_table, lengths, scale=scale, window=window
+            q, k_pool, v_pool, block_table, lengths, scale=scale, window=window,
+            return_lse=return_lse,
         )
     latent = v_pool.dim() == 4 and v_pool.shape[3] != q.shape[-1]
     if latent and window:
@@ -208,8 +215,10 @@ def paged_attention(
     mb = block_table.shape[1]
     scale = float(scale if scale is not None else D**-0.5)
     out = q.new_empty((B, H, Dv))
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fns = _kernel_fns()
     ptrs = (q.data_ptr(), k_pool.data_ptr())
@@ -219,6 +228,7 @@ def paged_attention(
             block_table.data_ptr(),
             lengths.data_ptr(),
             out.data_ptr(),
+            lse_ptr,
             B,
             mb,
             bs,
@@ -230,7 +240,7 @@ def paged_attention(
         if err != 0:
             raise RuntimeError(f"paged_attention latent kernel launch failed: cudaError_t {err}")
         LAUNCHES["paged_attention"] += 1
-        return out
+        return (out, lse) if return_lse else out
     bps = blocks_per_split(bs, latent=latent)
     nsplit = -(-mb // bps)
     part_acc = torch.empty((B, H, nsplit, Dv), dtype=torch.float32, device=q.device)
@@ -276,9 +286,10 @@ def paged_attention(
         bps,
         window,
         _DTYPES[q.dtype],
+        lse_ptr,
         stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_attention merge kernel launch failed: cudaError_t {err}")
     LAUNCHES["paged_attention_merge"] += 1
-    return out
+    return (out, lse) if return_lse else out

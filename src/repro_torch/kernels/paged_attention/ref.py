@@ -34,11 +34,14 @@ def paged_attention_ref(
     *,
     scale=None,
     window: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """q ``[B, H, D]``; k pool ``[NB, bs, G, D]``, v pool ``[NB, bs, G, Dv]``
     (views allowed); block_table ``[B, mb]`` int32 (-1 = unused); lengths
     ``[B]``; ``window`` 0 (none) or the most recent tokens each request
-    attends to.  Returns ``[B, H, Dv]``."""
+    attends to.  Returns ``[B, H, Dv]``, and with ``return_lse`` each head's
+    log-sum-exp of its scaled scores ``[B, H]`` float32 besides (-inf
+    where no token is valid)."""
     B, H, D = q.shape
     NB, bs, G, _ = k_pool.shape
     Dv = v_pool.shape[3]
@@ -58,8 +61,11 @@ def paged_attention_ref(
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1) * valid[:, None, None, :]
     v = v.masked_fill(~valid[:, :, None, None], 0.0)  # rows past the end may hold anything
-    out = torch.einsum("bgmt,btgd->bgmd", p, v)
-    return out.reshape(B, H, Dv).to(q.dtype)
+    out = torch.einsum("bgmt,btgd->bgmd", p, v).reshape(B, H, Dv).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s.masked_fill(~valid[:, None, None, :], -torch.inf), -1)
+    return out, lse.reshape(B, H)
 
 
 def paged_attention_split_ref(

@@ -23,8 +23,11 @@ which ``.gitignore`` lists):
     mem_tracker.MemTracker`` under fake tensors counted 217 GB a rank for
     stablelm-1.6b's train_4k step, which the rank's local shapes do not
     account for, so no estimate is kept.  Train cells run the sharded train step
-    (``distributed.train``), prefill cells the port's prefill on DTensor
-    parameters; decode cells have no sharded step (``launch.specs``).  A
+    (``distributed.train``), prefill and decode cells the sharded serving
+    steps (``distributed.serve``) on DTensor parameters and a contiguous
+    cache (``models.model.init_cache``, fake) laid out by
+    ``cache_shardings``: the prefill writes the whole prompt into it, the
+    decode step one token a sequence at the context's last position.  A
     step that cannot run records its error and traceback, as the
     reference's failing cells do.
 The mesh's device type is the CPU's: under fake tensors nothing reaches a
@@ -68,33 +71,46 @@ def _step(cell, cfg, run, mesh) -> dict:
 
     from repro_torch.analysis.collectives import CollectiveCounter
     from repro_torch.distributed.train import shard_train_state
+    from repro_torch.models import moe
 
     B, S = cell.shape.global_batch, cell.shape.seq_len
     t0 = time.time()
-    with FakeTensorMode(allow_non_fake_inputs=True):
-        if cell.shape.kind == "train":
-            state = shard_train_state(_fake_train_state(cfg, run), run, mesh)
-            batch = {
-                "tokens": torch.zeros((B, S), dtype=torch.int32),
-                "labels": torch.zeros((B, S), dtype=torch.int32),
-            }
-            if cfg.is_encoder_decoder:
-                batch["frames"] = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model))
-            args = (state, batch)
-        elif cell.shape.kind == "prefill":
-            from repro_torch.models.model import Transformer
+    # a fake tensor belongs to its mode: the MoE's cached permutation is
+    # made anew in the step and not kept past it
+    moe._fractal_perm.cache_clear()
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            if cell.shape.kind == "train":
+                state = shard_train_state(_fake_train_state(cfg, run), run, mesh)
+                batch = {
+                    "tokens": torch.zeros((B, S), dtype=torch.int32),
+                    "labels": torch.zeros((B, S), dtype=torch.int32),
+                }
+                if cfg.is_encoder_decoder:
+                    batch["frames"] = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model))
+                args = (state, batch)
+            else:
+                from repro_torch.distributed.serve import shard_cache
+                from repro_torch.models.model import Transformer, init_cache
 
-            model = Transformer(cfg, impl=run.impl)
-            fsdp = cell.meta["serve_fsdp"]
-            model = shard_train_state(_State(model), run, mesh, fsdp=fsdp).model
-            batch = {"tokens": torch.zeros((B, S), dtype=torch.int32)}
-            if cfg.is_encoder_decoder:
-                batch["frames"] = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model))
-            args = (model, batch)
-        else:
-            args = cell.args
-        with CollectiveCounter() as counter:
-            cell.fn(*args)
+                model = Transformer(cfg, impl=run.impl)
+                fsdp = cell.meta["serve_fsdp"]
+                model = shard_train_state(_State(model), run, mesh, fsdp=fsdp).model
+                clen = cell.meta["cache_len"]
+                cache = init_cache(cfg, B, clen, device="cpu")
+                cache = shard_cache(cfg, mesh, cell.shape, cache, B, clen)
+                if cell.shape.kind == "prefill":
+                    batch = {"tokens": torch.zeros((B, S), dtype=torch.int32)}
+                    if cfg.is_encoder_decoder:
+                        batch["frames"] = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model))
+                    args = (model, batch, cache)
+                else:  # one token a sequence at the context's last position
+                    tokens = torch.zeros((B, 1), dtype=torch.int32)
+                    args = (model, cache, tokens, torch.tensor(S - 1, dtype=torch.int32))
+            with CollectiveCounter() as counter:
+                cell.fn(*args)
+    finally:
+        moe._fractal_perm.cache_clear()
     return {"status": "ok", "seconds": time.time() - t0, "collectives": counter.stats()}
 
 

@@ -3,12 +3,12 @@ placements, the reference's ``launch/specs.py``.
 
 ``build_cell`` is the entry point of the dry run (``launch/dryrun.py``).
 Nothing here allocates: the arguments are meta tensors (shape and dtype
-only) and the shardings are ``distributed.sharding.NamedSharding`` trees,
-whose ``shard_nbytes`` give each rank's bytes.  Train cells carry the
-sharded train step (``distributed.train``); serving cells carry the
-port's prefill on the model their parameters make, and decode cells a step
-that says why it is not written: the port's decode reads a paged pool,
-where the reference's reads the contiguous cache these cells describe.
+only; the cache is ``models.model.init_cache`` on the meta device) and the
+shardings are ``distributed.sharding.NamedSharding`` trees, whose
+``shard_nbytes`` give each rank's bytes.  Train cells carry the sharded
+train step (``distributed.train``); prefill cells the sharded prefill into
+the contiguous cache and decode cells the sharded decode step over it
+(``distributed.serve``), each returning ``(logits, cache)``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from repro_torch.configs.base import (
     shape_applicable,
 )
 from repro_torch.distributed import sharding as SH
+from repro_torch.models import model as M
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.sharding_hooks import set_activation_sharder
 
@@ -79,54 +80,6 @@ def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> dict:
     return walk(param_specs(cfg))
 
 
-def cache_length(cfg: ModelConfig, seq_len: int) -> int:
-    """SWA archs roll a window buffer when the context exceeds the window."""
-    if cfg.sliding_window and seq_len > cfg.sliding_window:
-        return cfg.sliding_window
-    return seq_len
-
-
-def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16) -> dict:
-    """The reference's ``init_cache(cfg, batch, cache_len)`` tree as meta
-    tensors (the contiguous decode cache ``cache_pspecs`` describes)."""
-    L = cfg.num_layers
-
-    def gqa(n):
-        g, k = cfg.num_kv_heads, cfg.resolved_head_dim
-        return {
-            "k": _meta((n, batch, cache_len, g, k), dtype),
-            "v": _meta((n, batch, cache_len, g, k), dtype),
-            "pos": _meta((n, batch, cache_len), torch.int32),
-        }
-
-    def ssm(lead):
-        h, ph, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim
-        conv = cfg.d_inner + 2 * cfg.ssm_num_groups * n
-        return {
-            "ssm": _meta((*lead, batch, h, ph, n), torch.float32),
-            "conv": _meta((*lead, batch, cfg.ssm_conv_width - 1, conv), torch.bfloat16),
-        }
-
-    if cfg.family == "hybrid":
-        nb = L // cfg.attn_layer_period
-        return {"attn": gqa(nb), "ssm": ssm((nb, cfg.attn_layer_period - 1))}
-    if cfg.family == "ssm":
-        return ssm((L,))
-    if cfg.is_encoder_decoder:
-        c = gqa(L)
-        g, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        c["ck"] = _meta((L, batch, cfg.encoder_seq_len, g, hd), dtype)
-        c["cv"] = _meta((L, batch, cfg.encoder_seq_len, g, hd), dtype)
-        return c
-    if cfg.use_mla:
-        return {
-            "c_kv": _meta((L, batch, cache_len, cfg.kv_lora_rank), dtype),
-            "k_pe": _meta((L, batch, cache_len, cfg.qk_rope_dim), dtype),
-            "pos": _meta((L, batch, cache_len), torch.int32),
-        }
-    return gqa(L)
-
-
 def _tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
@@ -163,13 +116,6 @@ def _abstract_opt(run: RunConfig, params_abs: dict) -> dict:
 
     init, _ = make_optimizer(run.optimizer)
     return init(params_abs)
-
-
-def _decode_not_written(*args, **kwargs):
-    raise NotImplementedError(
-        "the port's decode step reads a paged pool (serving.pool); a sharded decode step over the "
-        "reference's contiguous cache is not written"
-    )
 
 
 def build_cell(
@@ -244,14 +190,14 @@ def build_cell(
     meta["serve_fsdp"] = fsdp
     pshard = SH.param_shardings(cfg, mesh, fsdp=fsdp)
     params_abs = abstract_params(cfg, torch.bfloat16)
-    clen = cache_length(cfg, S)
-    cache_abs = cache_shapes(cfg, B, clen)
+    clen = M.cache_length(cfg, S)
+    cache_abs = M.init_cache(cfg, B, clen, device=META)
     cache_sh = SH.cache_shardings(cfg, mesh, shape, B, clen)
     meta["cache_len"] = clen
     logits_sh = SH.NamedSharding(mesh, (None, None, "model"))
 
     if shape.kind == "prefill":
-        from repro_torch.distributed.train import make_sharded_prefill
+        from repro_torch.distributed.serve import make_sharded_prefill
 
         batch_abs = {"tokens": _meta((B, S), torch.int32)}
         if cfg.is_encoder_decoder:
@@ -269,13 +215,15 @@ def build_cell(
             meta,
         )
 
+    from repro_torch.distributed.serve import make_sharded_decode
+
     tok_abs = _meta((B, 1), torch.int32)
     pos_abs = _meta((), torch.int32)
     tok_sh = SH.batch_shardings(cfg, mesh, B)["tokens"]
     return Cell(
         arch,
         shape,
-        _decode_not_written,
+        make_sharded_decode(cfg, mesh),
         (params_abs, cache_abs, tok_abs, pos_abs),
         (pshard, cache_sh, tok_sh, repl),
         (logits_sh, cache_sh),

@@ -33,6 +33,17 @@ layer's ``CrossAttention`` attends to the encoder's output: through the
 flash kernel at prefill and in training, and at decode through the paged
 kernel over each slot's cross K/V (``CrossKV``, kept beside the pool).
 
+The reference's contiguous cache (``init_gqa_cache``, ``init_mla_cache``:
+``[L, B, T, ...]`` leaves and ``pos`` -1 for an empty slot) is the other
+form: ``prefill(..., cache=)`` writes a prompt at slot 0 (a prompt longer
+than the cache rolls its last ``T`` rows in, ``write_prefill``), and
+``decode_cache`` writes one row at slot ``pos % T`` (``write_kv_cache``)
+and runs the same paged kernel over the cache, each sequence's slots read
+as consecutive blocks (``CacheView``, ``lengths = min(pos + 1, T)``).  On
+DTensors (a sharded step) each rank attends over its own slots and the
+ranks merge by log-sum-exp: the step registers those operations
+(``sharding_hooks.cache_ops``, ``distributed.serve``).
+
 K/V are stored in the KV dtype (bfloat16, as the reference's cache) and
 attention reads them back from there, so a float32 run rounds them exactly
 where the reference does.  ``impl="ref"`` calls the kernels' plain versions
@@ -49,6 +60,7 @@ weights of a training model, as the reference's ``p[...].astype(x.dtype)``.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -61,7 +73,10 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models.layers import ParamSpec, apply_rope, rmsnorm
 from repro_torch.models.sharding_hooks import (
+    cache_ops,
     gather_sequence,
+    grad_as_value,
+    on_batch_rows,
     shard_activations,
     whole_sequence_grad,
 )
@@ -207,6 +222,138 @@ class PagedKV:
     write_row: torch.Tensor
 
 
+# ---------------------------------------------------------------------------
+# The contiguous cache (the reference's ``init_cache`` trees)
+# ---------------------------------------------------------------------------
+
+
+def init_gqa_cache(cfg: ModelConfig, num_layers, batch: int, length: int, dtype, device) -> dict:
+    """The reference's GQA cache: ``k``/``v`` ``[*layers, B, T, G, D]`` in
+    ``dtype`` (zeros) and ``pos [*layers, B, T]`` int32, -1 (empty)."""
+    lead = (num_layers,) if isinstance(num_layers, int) else tuple(num_layers)
+    g, k = cfg.num_kv_heads, cfg.resolved_head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "k": torch.zeros((*lead, batch, length, g, k), **kw),
+        "v": torch.zeros((*lead, batch, length, g, k), **kw),
+        "pos": torch.full((*lead, batch, length), -1, dtype=torch.int32, device=device),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, num_layers: int, batch: int, length: int, dtype, device):
+    """MLA's cache: the reference's ``c_kv [L, B, T, r]`` and ``k_pe [L, B,
+    T, dr]`` side by side in one row, ``latent [L, B, T, r + dr]`` (576 at
+    full width; ``mla_cache_tree`` splits it back), and ``pos [L, B, T]``
+    -1.  The latent call reads one row of 576 with V its first 512 columns
+    (``kernels.paged_attention``), so the row stays whole; its bytes, and
+    each rank's under the cache's sharding, are the two leaves' sum."""
+    return {
+        "latent": torch.zeros(
+            (num_layers, batch, length, cfg.latent_dim), dtype=dtype, device=device
+        ),
+        "pos": torch.full((num_layers, batch, length), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_cache_tree(cache: dict, cfg: ModelConfig) -> dict:
+    """An MLA cache as the reference's tree (views): ``c_kv``, ``k_pe``, ``pos``."""
+    r = cfg.kv_lora_rank
+    lat = cache["latent"]
+    return {"c_kv": lat[..., :r], "k_pe": lat[..., r:], "pos": cache["pos"]}
+
+
+def _write_slot(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Write ``new [B, S, ...]`` into ``buf [B, T, ...]`` at slot ``slot``
+    (a scalar or ``[B]`` tensor) onward, in place, with no host read."""
+    B, S = new.shape[:2]
+    rows = slot.reshape(-1, 1).long() + torch.arange(S, device=buf.device)
+    buf[torch.arange(B, device=buf.device)[:, None], rows.expand(B, S)] = new.to(buf.dtype)
+    return buf
+
+
+def write_kv_cache(layer: dict, updates: dict, positions: torch.Tensor, slot) -> dict:
+    """The reference's ``write_kv_cache``, in place: each of ``updates``
+    (the layer's leaves but ``pos``, ``[B, S, ...]``) and ``positions [B,
+    S]`` at ``slot`` (scalar or ``[B]``)."""
+    for name, new in updates.items():
+        _write_slot(layer[name], new, slot)
+    _write_slot(layer["pos"], positions.to(torch.int32), slot)
+    return layer
+
+
+def write_prefill(layer: dict, updates: dict, positions: torch.Tensor) -> None:
+    """A prompt's rows into a layer cache at slot 0: all ``S`` of them, or,
+    into a rolling cache of ``T < S`` slots, the last ``T`` (the
+    reference's rolling prefill: their slots are their positions mod ``T``,
+    as ``S % T == 0``).  In place on plain tensors and on DTensors alike
+    (``copy_`` lays the rows out as the cache); in a sharded step, a
+    prompt shorter than the cache goes through the registered
+    ``sharding_hooks.cache_ops`` (each rank writes its own slots)."""
+    S, T = positions.shape[1], layer["pos"].shape[1]
+    keep = min(S, T)
+    if keep < T and (ops := cache_ops()) is not None:  # a rank writes its own slots
+        return ops.write_prefill(layer, updates, positions)
+    for name, new in (*updates.items(), ("pos", positions.to(torch.int32))):
+        dst = layer[name] if keep == T else layer[name][:, :keep]
+        dst.copy_(new[:, S - keep :])
+
+
+def check_rolling(S: int, T: int) -> None:
+    """A prompt longer than its cache must be a whole number of cache
+    lengths, as the reference's rolling prefill asserts."""
+    if S > T and S % T:
+        raise ValueError(
+            f"a prompt of {S} tokens past a {T}-slot rolling cache must be a whole number of "
+            "windows (the reference's rolling prefill asserts S % window == 0)"
+        )
+
+
+def view_block_size(length: int, *, latent: bool = False) -> int:
+    """Rows of a block when a contiguous cache of ``length`` slots a
+    sequence is read as the paged kernel's pool: 16 where that divides
+    ``length`` (else the largest power of two that does), doubled for the
+    latent call until a sequence takes at most ``LATENT_MAX_TABLE`` blocks
+    (``decode_32k``: blocks of 32)."""
+    from repro_torch.kernels.paged_attention.ops import LATENT_MAX_TABLE
+
+    bs = math.gcd(length, 16)
+    while latent and length // bs > LATENT_MAX_TABLE and length % (2 * bs) == 0:
+        bs *= 2
+    return bs
+
+
+@dataclass
+class CacheView:
+    """One decode step's read of contiguous layer caches ``[B, T, ...]`` as
+    the paged kernel's pool: each sequence's ``T`` slots viewed as ``T /
+    block_size`` consecutive blocks (``block_table [B, T / block_size]``,
+    row ``b``'s blocks ``b * nb .. b * nb + nb - 1``) and ``lengths [B] =
+    min(pos + 1, T)``.  The cache is filled in slot order (a prompt at slot
+    0, then one token a step at ``pos % T``), so the slots below that length
+    are exactly the ones the reference's mask keeps: ``0 .. pos`` of a
+    cache longer than the context, every slot of a full rolling window
+    (whose rows are in ring order: only the order of summation differs)."""
+
+    block_table: torch.Tensor
+    lengths: torch.Tensor
+    block_size: int
+
+    @classmethod
+    def make(cls, pos: torch.Tensor, length: int, *, latent: bool = False) -> "CacheView":
+        """``pos [B]`` the step's absolute positions, ``length`` the cache's slots."""
+        B = pos.shape[0]
+        bs = view_block_size(length, latent=latent)
+        nb = length // bs
+        table = torch.arange(B * nb, dtype=torch.int32, device=pos.device).view(B, nb)
+        lengths = torch.clamp(pos.long() + 1, max=length).to(torch.int32)
+        return cls(table, lengths, bs)
+
+    def pool(self, buf: torch.Tensor) -> torch.Tensor:
+        """A layer cache ``[B, T, ...]`` (contiguous) as blocks ``[B T / bs, bs, ...]``."""
+        B, T = buf.shape[:2]
+        return buf.view(B * T // self.block_size, self.block_size, *buf.shape[2:])
+
+
 class GQAAttention(torch.nn.Module):
     """Projections in the compute dtype; the QK-norm scales (``use_qk_norm``)
     stay float32, as the reference's norms read them.  q and k are rotated
@@ -248,24 +395,28 @@ class GQAAttention(torch.nn.Module):
         o = _heads_flat(o.reshape(B, S, -1), H)
         return whole_sequence_grad(o @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model))
 
-    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str) -> torch.Tensor:
+    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str, cache=None) -> torch.Tensor:
         """x ``[B, S, d]``, positions ``[B, S]``; ``kv_out`` (``[B, S, 2, G, D]``
         or None) receives the fresh K/V in ``kv_dtype``.  A prompt longer
         than the sliding window must be a whole number of windows
         (``ValueError``): the reference's rolling prefill, into the
         window-sized cache its engine gives a context past the window,
-        asserts it."""
-        window = self.cfg.sliding_window
-        if window and x.shape[1] > window and x.shape[1] % window:
-            raise ValueError(
-                f"a prompt of {x.shape[1]} tokens past the {window}-token window must be a whole "
-                "number of windows (the reference's rolling prefill asserts S % window == 0)"
-            )
+        asserts it.  ``cache`` (a contiguous layer cache ``{"k", "v",
+        "pos"}``, ``[B, T, ...]``) instead receives the K/V at slot 0
+        (``write_prefill``; ``kv_dtype`` is then its dtype), and the
+        rolling prefill is that of a prompt longer than ``T``."""
+        window, S = self.cfg.sliding_window, x.shape[1]
+        T = window if cache is None else cache["pos"].shape[1]
+        rolling = bool(T) and S > T
+        check_rolling(S, T or S)
         q, k, v = self._qkv(x, positions)
         if kv_out is not None:
             kv_out[:, :, 0] = k
             kv_out[:, :, 1] = v
-        if not (window and x.shape[1] > window):
+        if cache is not None:
+            write_prefill(cache, {"k": k, "v": v}, positions)
+            kv_dtype = cache["k"].dtype
+        if not rolling:
             # attention reads the K/V back as stored, as the reference reads its
             # cache; its rolling prefill (a prompt past the window) attends over
             # the fresh K/V in the compute dtype instead
@@ -289,6 +440,30 @@ class GQAAttention(torch.nn.Module):
         flash = TRAIN_ATTENTION[impl]
         qkv = (q.contiguous(), k.contiguous(), v.contiguous())
         return self._out(_flash(flash, *qkv, causal=self.causal, window=self.cfg.sliding_window))
+
+    def decode_cache(self, x, positions, cache: dict, view: CacheView, *, impl: str):
+        """One token a sequence over a contiguous layer cache (``{"k", "v",
+        "pos"}``, ``[B, T, ...]``): its K/V written at slot ``pos % T``,
+        then the paged kernel over the cache's slots through ``view``
+        (the reference's ``direct_attention`` over its cache, read in the
+        compute dtype).  In a sharded decode step each rank attends over its
+        own slots and the ranks merge by log-sum-exp (the registered
+        ``sharding_hooks.cache_ops``)."""
+        q, k, v = self._qkv(x, positions)
+        if (ops := cache_ops()) is not None:
+            o = ops.attention(self.cfg, q[:, 0], {"k": k, "v": v}, positions, cache, impl=impl)
+            return self._out(o[:, None])
+        write_kv_cache(cache, {"k": k, "v": v}, positions, positions[:, 0] % cache["pos"].shape[1])
+        paged = ATTENTION[impl][1]
+        o = paged(
+            q[:, 0].contiguous(),
+            view.pool(cache["k"]).to(q.dtype),
+            view.pool(cache["v"]).to(q.dtype),
+            view.block_table,
+            view.lengths,
+            window=self.cfg.sliding_window,
+        )
+        return self._out(o[:, None])
 
     def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str) -> torch.Tensor:
         """x ``[B, 1, d]``, positions ``[B, 1]``."""
@@ -369,21 +544,54 @@ class CrossAttention(GQAAttention):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__(cfg, dtype, causal=False)
 
-    def prefill(self, x, encoder_out, cross_out, *, impl: str) -> torch.Tensor:
+    def prefill(self, x, encoder_out, cross_out, *, impl: str, cache=None) -> torch.Tensor:
         """x ``[B, S, d]``, encoder_out ``[B, T_enc, d]``; ``cross_out``
-        (``[B, T_enc, 2, G, D]`` or None) receives the K/V in its dtype."""
-        k, v = self._proj(encoder_out, self.wk), self._proj(encoder_out, self.wv)
+        (``[B, T_enc, 2, G, D]`` or None) receives the K/V in its dtype, as
+        ``cache`` (a contiguous layer cache: ``ck``/``cv [B, T_enc, G, D]``)
+        does."""
+        q, k, v = self._cross_qkv(x, encoder_out)
         if cross_out is not None:
             cross_out[:, :, 0] = k
             cross_out[:, :, 1] = v
+        if cache is not None:
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
         flash = ATTENTION[impl][0]
-        return self._out(flash(self._proj(x, self.wq), k, v, causal=False))
+        return self._out(_flash(flash, *_attn_io(q, k, v), causal=False))
 
     def forward_train(self, x, encoder_out, *, impl: str) -> torch.Tensor:
         """Differentiable, over the fresh K/V of ``encoder_out``."""
-        k, v = self._proj(encoder_out, self.wk), self._proj(encoder_out, self.wv)
+        q, k, v = _attn_io(*self._cross_qkv(x, encoder_out))
         flash = TRAIN_ATTENTION[impl]
-        return self._out(flash(self._proj(x, self.wq), k, v, causal=False))
+        qkv = (q.contiguous(), k.contiguous(), v.contiguous())
+        return self._out(_flash(flash, *qkv, causal=False))
+
+    def _cross_qkv(self, x, encoder_out):
+        """q from the decoder's ``x``, K/V from ``encoder_out``, each input
+        gathered from sequence parallelism first as ``_qkv`` gathers its
+        own (a product over a batch x sequence dim split over two mesh dims
+        has no DTensor strategy)."""
+        x, encoder_out = gather_sequence(x), gather_sequence(encoder_out)
+        k, v = self._proj(encoder_out, self.wk), self._proj(encoder_out, self.wv)
+        return self._proj(x, self.wq), k, v
+
+    def decode_cache(self, x, cache: dict, *, impl: str) -> torch.Tensor:
+        """x ``[B, 1, d]`` over a contiguous layer cache's ``ck``/``cv``
+        ``[B, T_enc, G, D]``: the paged kernel over every row of each
+        sequence (``CacheView``; the reference's ``direct_attention``, non-
+        causal, over ``ck``/``cv`` in the compute dtype).  On DTensors each
+        rank attends for its own batch rows (``on_batch_rows``)."""
+        q = self._proj(gather_sequence(x), self.wq)[:, 0]
+        paged = ATTENTION[impl][1]
+
+        def rows(q, ck, cv):
+            B, T = ck.shape[:2]
+            view = CacheView.make(torch.full((B,), T - 1, device=q.device), T)
+            kv = view.pool(ck).to(q.dtype), view.pool(cv).to(q.dtype)
+            return paged(q.contiguous(), *kv, view.block_table, view.lengths)
+
+        o = on_batch_rows(rows, (q, cache["ck"], cache["cv"]))
+        return self._out(o[:, None])
 
     def decode(self, x, cross: CrossKV, layer: int, *, impl: str) -> torch.Tensor:
         """x ``[B, 1, d]`` for the ``B`` slots of ``cross``."""
@@ -441,8 +649,12 @@ class MLAAttention(torch.nn.Module):
         q = _heads_flat(x @ self.wq.to(x.dtype).reshape(d, -1), cfg.num_heads)
         q = q.view(B, S, cfg.num_heads, -1)
         q_pe = apply_rope(q[..., dn:], positions, theta=cfg.rope_theta)
-        c_kv = rmsnorm(x @ self.w_dkv.to(x.dtype), self.kv_norm, cfg.norm_eps)
-        k_pe = apply_rope((x @ self.w_kpe.to(x.dtype))[:, :, None], positions, theta=cfg.rope_theta)
+        # the latent rows' gradient comes back summed over the heads' split
+        # (``w_uk``/``w_uv``, ``k_pe`` on every head): laid out as the rows
+        c_kv = grad_as_value(x @ self.w_dkv.to(x.dtype))
+        k_pe = grad_as_value(x @ self.w_kpe.to(x.dtype))
+        c_kv = rmsnorm(c_kv, self.kv_norm, cfg.norm_eps)
+        k_pe = apply_rope(k_pe[:, :, None], positions, theta=cfg.rope_theta)
         return q[..., :dn], q_pe, torch.cat([c_kv, k_pe[:, :, 0]], dim=-1)
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
@@ -450,29 +662,39 @@ class MLAAttention(torch.nn.Module):
         o = _heads_flat(o.reshape(B, S, -1), H)
         return whole_sequence_grad(o @ self.wo.to(o.dtype).reshape(-1, self.cfg.d_model))
 
-    def _up(self, rows: torch.Tensor):
+    def _up(self, rows: torch.Tensor, w_up=None):
         """Latent rows ``[B, T, r + dr]`` -> per-head ``(k [B, T, h, dn + dr],
-        v [B, T, h, dv])``: ``c_kv`` up-projected, ``k_pe`` on every head."""
+        v [B, T, h, dv])``: ``c_kv`` up-projected, ``k_pe`` on every head.
+        ``w_up``: ``(w_uk, w_uv)`` as given (a rank's whole copies), else
+        the module's."""
         cfg = self.cfg
         B, T, _ = rows.shape
         r, h = cfg.kv_lora_rank, cfg.num_heads
+        w_uk, w_uv = w_up or (self.w_uk, self.w_uv)
         c_all, pe_all = rows[..., :r], rows[..., r:]
-        k_nope = (c_all @ self.w_uk.to(rows.dtype).reshape(r, -1)).view(B, T, h, -1)
-        v = (c_all @ self.w_uv.to(rows.dtype).reshape(r, -1)).view(B, T, h, -1)
+        k_nope = (c_all @ w_uk.to(rows.dtype).reshape(r, -1)).view(B, T, h, -1)
+        v = (c_all @ w_uv.to(rows.dtype).reshape(r, -1)).view(B, T, h, -1)
         k = torch.cat([k_nope, pe_all[:, :, None].expand(B, T, h, cfg.qk_rope_dim)], dim=-1)
         return k, v
 
-    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str) -> torch.Tensor:
+    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str, cache=None) -> torch.Tensor:
         """x ``[B, S, d]``, positions ``[B, S]``; ``kv_out`` (``[B, S, r + dr]``
-        or None) receives the latent rows in ``kv_dtype``."""
+        or None) receives the latent rows in ``kv_dtype``; ``cache`` (a
+        contiguous layer cache ``{"latent", "pos"}``) receives them at slot
+        0 in its dtype instead."""
         q_nope, q_pe, rows = self._project(x, positions)
+        if cache is not None:
+            check_rolling(x.shape[1], cache["pos"].shape[1])
+            kv_dtype = cache["latent"].dtype
+            write_prefill(cache, {"latent": rows}, positions)
         rows = rows.to(kv_dtype)
         if kv_out is not None:
             kv_out.copy_(rows)
         k, v = self._up(rows.to(x.dtype))
         q, k, v = _attn_io(torch.cat([q_nope, q_pe], dim=-1), k, v)
         flash = ATTENTION[impl][0]
-        return self._out(flash(q, k.contiguous(), v.contiguous(), causal=True, scale=self.scale))
+        k, v = k.contiguous(), v.contiguous()
+        return self._out(_flash(flash, q, k, v, causal=True, scale=self.scale))
 
     def forward_train(self, x, positions, *, impl: str) -> torch.Tensor:
         """Causal self-attention over ``x [B, S, d]``, differentiable: the
@@ -484,41 +706,83 @@ class MLAAttention(torch.nn.Module):
         k, v = self._up(rows)
         q, k, v = _attn_io(torch.cat([q_nope, q_pe], dim=-1), k, v)
         flash = TRAIN_ATTENTION[impl]
-        return self._out(
-            flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, scale=self.scale)
-        )
+        qkv = (q.contiguous(), k.contiguous(), v.contiguous())
+        return self._out(_flash(flash, *qkv, causal=True, scale=self.scale))
 
     def decode(
         self, x, positions, cache: PagedKV, layer: int, *, impl: str, absorbed: bool = True
     ) -> torch.Tensor:
         """x ``[B, 1, d]``, positions ``[B, 1]``; ``cache.pool`` the latent
         view ``[NB, bs, L, r + dr]``."""
-        r = self.cfg.kv_lora_rank
         q_nope, q_pe, rows = self._project(x, positions)
         pool, i = cache.pool, cache.write_slot
         pool[cache.write_blk, cache.write_row, layer] = rows[i, 0].to(pool.dtype)
-        lat = pool[:, :, layer]
+        return self._out(
+            self.attend_latent(q_nope, q_pe, pool[:, :, layer], cache, impl, absorbed)[:, None]
+        )
+
+    def decode_cache(
+        self, x, positions, cache: dict, view: CacheView, *, impl: str, absorbed: bool = True
+    ) -> torch.Tensor:
+        """One token a sequence over a contiguous layer cache (``{"latent",
+        "pos"}``, ``[B, T, ...]``): its latent row written at slot ``pos %
+        T``, then, ``absorbed``, the latent call over the cache's rows
+        through ``view`` (blocks of ``view_block_size(T, latent=True)``),
+        else the reference's non-absorbed form over the rows up-projected
+        (plain PyTorch, as the pool form's).  In a sharded decode step each
+        rank attends over its own slots (``sharding_hooks.cache_ops``)."""
+        q_nope, q_pe, rows = self._project(x, positions)
+        if (ops := cache_ops()) is not None:
+            o = ops.attention(
+                self.cfg, (q_nope[:, 0], q_pe[:, 0]), {"latent": rows}, positions, cache,
+                impl=impl, mla=(self, absorbed),
+            )
+            return self._out(o[:, None])
+        write_kv_cache(cache, {"latent": rows}, positions, positions[:, 0] % cache["pos"].shape[1])
+        lat = view.pool(cache["latent"]).to(x.dtype)
+        return self._out(self.attend_latent(q_nope, q_pe, lat, view, impl, absorbed)[:, None])
+
+    def attend_latent(
+        self, q_nope, q_pe, lat, view, impl: str, absorbed: bool, *, lse=False, w_up=None
+    ):
+        """Attention of ``q_nope``/``q_pe [B, 1, h, ...]`` over latent rows
+        ``lat [NB, bs, r + dr]`` read through ``view`` (a ``CacheView`` or
+        ``PagedKV``: ``block_table``, ``lengths``): ``[B, h, dv]``, and with
+        ``lse`` each head's log-sum-exp ``[B, h]`` float32 besides.
+        ``w_up``: ``(w_uk, w_uv)`` as given (a rank's whole copies), else
+        the module's."""
+        w_uk, w_uv = w_up or (self.w_uk, self.w_uv)
         if not absorbed:
-            return self._out(self._decode_up(q_nope, q_pe, lat, cache)[:, None])
-        q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], self.w_uk.to(x.dtype))
+            return self._decode_up(q_nope, q_pe, lat, view, lse=lse, w_up=(w_uk, w_uv))
+        r = self.cfg.kv_lora_rank
+        q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], w_uk.to(q_nope.dtype))
         q = torch.cat([q_lat, q_pe[:, 0]], dim=-1).contiguous()
         kv = lat[:, :, None]  # [NB, bs, 1, r + dr]: one KV group of all the heads
         paged = ATTENTION[impl][1]
-        o_lat = paged(q, kv, kv[..., :r], cache.block_table, cache.lengths, scale=self.scale)
-        o = torch.einsum("bhr,rhk->bhk", o_lat, self.w_uv.to(x.dtype))
-        return self._out(o[:, None])
+        kw = {"return_lse": True} if lse else {}
+        res = paged(q, kv, kv[..., :r], view.block_table, view.lengths, scale=self.scale, **kw)
+        o_lat, m = res if lse else (res, None)
+        o = torch.einsum("bhr,rhk->bhk", o_lat, w_uv.to(q_nope.dtype))
+        return (o, m) if lse else o
 
-    def _decode_up(self, q_nope, q_pe, lat, cache: PagedKV) -> torch.Tensor:
-        """The reference's non-absorbed decode over each slot's rows,
-        gathered through the block table: ``[B, h, dv]`` in q's dtype."""
-        B, mb = cache.block_table.shape
+    def _decode_up(self, q_nope, q_pe, lat, view, *, lse: bool = False, w_up=None):
+        """The reference's non-absorbed decode over each sequence's rows,
+        gathered through ``view``'s block table: ``[B, h, dv]`` in q's dtype
+        (and with ``lse`` each head's log-sum-exp, float32, -inf where no
+        row is valid)."""
+        B, mb = view.block_table.shape
         bs = lat.shape[1]
-        tbl = cache.block_table.long()
+        tbl = view.block_table.long()
         rows = lat[tbl.clamp(min=0)].reshape(B, mb * bs, -1).to(q_nope.dtype)
         tok = torch.arange(mb * bs, device=rows.device)
-        valid = (tok[None] < cache.lengths[:, None].long()) & (tbl >= 0).repeat_interleave(bs, 1)
-        k, v = self._up(rows)
+        valid = (tok[None] < view.lengths[:, None].long()) & (tbl >= 0).repeat_interleave(bs, 1)
+        k, v = self._up(rows, w_up)
         q = torch.cat([q_nope, q_pe], dim=-1)[:, 0]  # [B, h, dn + dr]
         s = torch.einsum("bhk,bthk->bht", q.float(), k.float()) * self.scale
-        w = torch.softmax(s.masked_fill(~valid[:, None], NEG_INF), dim=-1)
-        return torch.einsum("bht,bthk->bhk", w.to(v.dtype).float(), v.float()).to(q.dtype)
+        s = s.masked_fill(~valid[:, None], NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bht,bthk->bhk", w.to(v.dtype).float(), v.float()).to(q.dtype)
+        if not lse:
+            return o
+        m = torch.logsumexp(s, dim=-1)
+        return o, torch.where(valid.any(-1)[:, None], m, -torch.inf)

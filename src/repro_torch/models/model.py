@@ -10,6 +10,20 @@ Public API (each mirrors the reference's function of the same name):
   prefill(model, tokens, kv_out, ssm_out=None, frames=, cross_out=) -> logits [B, 1, Vp]
   decode_step(model, tokens, pos, cache, ssm_cache=None, cross=, mla_absorbed=) -> [B, 1, Vp]
   forward_train(model, tokens, frames=None, remat_policy=...) -> (logits [B, S, Vp], aux)
+  init_cache(cfg, batch, cache_len, dtype=bf16, device=...) -> the contiguous cache tree
+  cache_length(cfg, seq_len)               -> slots a sequence's cache takes (a window rolls)
+  prefill_cache(model, tokens, cache, frames=) -> (logits [B, 1, Vp], cache)
+  decode_step_cache(model, cache, tokens, pos, mla_absorbed=) -> (logits [B, 1, Vp], cache)
+
+``prefill``/``decode_step`` are the serving engine's pool form: K/V rows in
+the banked pool (``serving.pool``), read through block tables.  The
+reference's ``prefill``/``decode_step`` over its contiguous cache (``k``/
+``v [L, B, T, G, D]``, ``pos`` -1 for an empty slot, written at ``pos %
+T``) are ``prefill_cache``/``decode_step_cache``: names of their own, as
+the pool form holds the reference's names.  Their decode attention runs on
+the same paged kernel, each sequence's ``T`` slots read as consecutive
+blocks (``attention.CacheView``); MLA's cache keeps ``c_kv`` and ``k_pe``
+in one row (``attention.init_mla_cache``).
 
 The stack is a ``ModuleList`` of blocks run in a Python loop (the reference
 scans stacked params).  Weight matrices and the embedding are stored in the
@@ -80,12 +94,15 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.models.attention import (
     ATTENTION,
+    CacheView,
     CrossAttention,
     CrossKV,
     GQAAttention,
     MLAAttention,
     PagedKV,
     gqa_specs,
+    init_gqa_cache,
+    init_mla_cache,
     mla_specs,
 )
 from repro_torch.models.layers import (
@@ -204,12 +221,11 @@ class AttnLayer(torch.nn.Module):
         self.attn_norm = Norm(cfg, cfg.d_model)
         self.attn = (MLAAttention if cfg.use_mla else GQAAttention)(cfg, dtype)
 
-    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str):
+    def prefill(self, x, positions, kv_out, *, kv_dtype, impl: str, cache=None):
         h = shard_activations(self.attn_norm(x), "resid")
-        return x + self.attn.prefill(h, positions, kv_out, kv_dtype=kv_dtype, impl=impl)
-
-    def decode(self, x, positions, cache: PagedKV, layer: int, *, impl: str):
-        return x + self.attn.decode(self.attn_norm(x), positions, cache, layer, impl=impl)
+        return x + self.attn.prefill(
+            h, positions, kv_out, kv_dtype=kv_dtype, impl=impl, cache=cache
+        )
 
     def forward_train(self, x, positions, *, impl: str):
         h = shard_activations(self.attn_norm(x), "resid")
@@ -576,6 +592,7 @@ def prefill(
     *,
     frames: Optional[torch.Tensor] = None,
     cross_out: Optional[torch.Tensor] = None,
+    cache: Optional[dict] = None,
 ) -> torch.Tensor:
     """Run the prompt ``tokens [B, S]``.  ``kv_out`` (``[B, S, *kv_row_shape]``,
     or None) receives every attention layer's fresh K/V (MLA: latent rows).
@@ -585,37 +602,69 @@ def prefill(
     stack (whisper) encodes ``frames [B, T_enc, d]`` (the reference's
     ``batch["frames"]``), and ``cross_out`` (``[B, T_enc, L, 2, G, D]``,
     ``CrossKV.slot``, or None) receives every decoder layer's cross K/V in
-    the KV dtype (the reference's ``ck``/``cv``).  Returns the last
-    position's logits ``[B, 1, Vp]`` in the compute dtype."""
+    the KV dtype (the reference's ``ck``/``cv``).  ``cache`` (a contiguous
+    cache, ``init_cache``) takes the place of all three: each layer's K/V,
+    SSM state and cross K/V are written into its leaves (``prefill_cache``).
+    Returns the last position's logits ``[B, 1, Vp]`` in the compute dtype."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = model._embed(tokens, positions)
     family = model.cfg.family
     enc = model.encode(frames) if model.encoder is not None else None
+    tree = None if cache is None else _attn_tree(model, cache)
     if family in ("ssm", "hybrid"):
-        cache = model.init_ssm_cache(B) if ssm_out is None else ssm_out
+        if cache is not None:
+            ssm_out = _ssm_of(model, cache)
+        ssm = model.init_ssm_cache(B) if ssm_out is None else ssm_out
     if family == "ssm":
         for layer, blk in enumerate(model.layers):
-            x = blk(x, cache.layer(layer))
+            x = blk(x, ssm.layer(layer))
         return model._logits(x[:, -1:])
     kw = dict(kv_dtype=model.kv_dtype, impl=model.impl)
     for layer, blk in enumerate(model.layers):
         kv = None if kv_out is None else kv_out[:, :, layer]
+        lc = None if tree is None else _at(tree, layer)
         if family == "hybrid":
             for pos, mixer, ffn in blk.positions():
                 if pos == 0:
-                    x = mixer.prefill(x, positions, kv, **kw)
+                    x = mixer.prefill(x, positions, kv, cache=lc, **kw)
                 else:
-                    x = mixer(x, cache.layer(layer, pos - 1))
+                    x = mixer(x, ssm.layer(layer, pos - 1))
                 x, _ = ffn(x)
             continue
         h = shard_activations(blk.attn_norm(x), "resid")
-        x = x + blk.attn.prefill(h, positions, kv, **kw)
+        x = x + blk.attn.prefill(h, positions, kv, cache=lc, **kw)
         if blk.cross is not None:
             cross = None if cross_out is None else cross_out[:, :, layer]
-            x = x + blk.cross.prefill(blk.cross_norm(x), enc, cross, impl=model.impl)
+            x = x + blk.cross.prefill(blk.cross_norm(x), enc, cross, impl=model.impl, cache=lc)
         x = x + blk.feed_forward(x)
     return model._logits(x[:, -1:])
+
+
+def _decode_stack(model: Transformer, x, attend, cross_attend, ssm: Optional[SSMCache]):
+    """The decode loop both cache forms share, from the embedded tokens
+    ``x [B, 1, d]`` to the logits: ``attend(attn, h, layer)`` is an
+    attention layer's output for its normed input ``h``,
+    ``cross_attend(cross, h, layer)`` a cross-attention's, and ``ssm`` the
+    SSM layers' state (stepped in place)."""
+    family = model.cfg.family
+    for layer, blk in enumerate(model.layers):
+        if family == "ssm":
+            x = blk(x, ssm.layer(layer), decode=True)
+            continue
+        if family == "hybrid":
+            for p, mixer, ffn in blk.positions():
+                if p == 0:
+                    x = x + attend(mixer.attn, mixer.attn_norm(x), layer)
+                else:
+                    x = mixer(x, ssm.layer(layer, p - 1), decode=True)
+                x, _ = ffn(x)
+            continue
+        x = x + attend(blk.attn, blk.attn_norm(x), layer)
+        if blk.cross is not None:
+            x = x + cross_attend(blk.cross, blk.cross_norm(x), layer)
+        x = x + blk.feed_forward(x)
+    return model._logits(x)
 
 
 @torch.no_grad()
@@ -639,29 +688,128 @@ def decode_step(
     ``CrossKV``, written at prefill) and adds the sin/cos table at ``pos``.
     ``mla_absorbed`` picks MLA's decode form, as the reference's does
     (default: the non-absorbed form); GQA ignores it."""
-    family = model.cfg.family
-    if family == "ssm":
-        x = model._embed(tokens)
-        for layer, blk in enumerate(model.layers):
-            x = blk(x, cache.layer(layer), decode=True)
-        return model._logits(x)
+    if model.cfg.family == "ssm":
+        return _decode_stack(model, model._embed(tokens), None, None, cache)
     positions = pos.reshape(-1, 1)
     x = model._embed(tokens, positions)
     kw = {"absorbed": mla_absorbed} if model.cfg.use_mla else {}
-    for layer, blk in enumerate(model.layers):
-        if family == "hybrid":
-            for p, mixer, ffn in blk.positions():
-                if p == 0:
-                    x = mixer.decode(x, positions, cache, layer, impl=model.impl)
-                else:
-                    x = mixer(x, ssm_cache.layer(layer, p - 1), decode=True)
-                x, _ = ffn(x)
-            continue
-        x = x + blk.attn.decode(blk.attn_norm(x), positions, cache, layer, impl=model.impl, **kw)
-        if blk.cross is not None:
-            x = x + blk.cross.decode(blk.cross_norm(x), cross, layer, impl=model.impl)
-        x = x + blk.feed_forward(x)
-    return model._logits(x)
+    impl = model.impl
+    return _decode_stack(
+        model,
+        x,
+        lambda attn, h, layer: attn.decode(h, positions, cache, layer, impl=impl, **kw),
+        lambda xattn, h, layer: xattn.decode(h, cross, layer, impl=impl),
+        ssm_cache,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The contiguous cache: the reference's init_cache, prefill and decode_step
+# ---------------------------------------------------------------------------
+
+
+def cache_length(cfg: ModelConfig, seq_len: int) -> int:
+    """SWA archs roll a window buffer when the context exceeds the window."""
+    if cfg.sliding_window and seq_len > cfg.sliding_window:
+        return cfg.sliding_window
+    return seq_len
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype = torch.bfloat16, *,
+    device=None,
+) -> dict:
+    """The reference's ``init_cache`` tree on ``device`` (default: CUDA;
+    ``"meta"`` for shapes only): K/V (MLA: one latent row, ``attention.
+    init_mla_cache``) in ``dtype``, ``pos`` -1, an SSM state float32 and
+    its conv window bf16; a hybrid stack's ``{"attn": [nb, ...], "ssm":
+    [nb, P - 1, B, ...]}``; whisper's ``ck``/``cv [L, B, T_enc, G, D]``
+    beside its self-attention's leaves."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        nb, P = L // cfg.attn_layer_period, cfg.attn_layer_period
+        ssm = init_ssm_cache(cfg, (nb, P - 1), batch, device=dev)
+        return {
+            "attn": init_gqa_cache(cfg, nb, batch, cache_len, dtype, dev),
+            "ssm": {"ssm": ssm.ssm, "conv": ssm.conv},
+        }
+    if cfg.family == "ssm":
+        ssm = init_ssm_cache(cfg, L, batch, device=dev)
+        return {"ssm": ssm.ssm, "conv": ssm.conv}
+    if cfg.use_mla:
+        return init_mla_cache(cfg, L, batch, cache_len, dtype, dev)
+    cache = init_gqa_cache(cfg, L, batch, cache_len, dtype, dev)
+    if cfg.is_encoder_decoder:
+        shape = (L, batch, cfg.encoder_seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["ck"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["cv"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return cache
+
+
+def _at(tree: dict, *idx) -> dict:
+    """One layer's leaves (views) of a cache tree stacked over layers."""
+    return {k: v[idx] for k, v in tree.items()}
+
+
+def _attn_tree(model: Transformer, cache: dict) -> dict:
+    return cache["attn"] if model.cfg.family == "hybrid" else cache
+
+
+def _ssm_of(model: Transformer, cache: dict) -> SSMCache:
+    """An SSM or hybrid stack's SSM leaves of a cache tree, as an ``SSMCache``."""
+    tree = cache if model.cfg.family == "ssm" else cache["ssm"]
+    return SSMCache(tree["ssm"], tree["conv"])
+
+
+@torch.no_grad()
+def prefill_cache(
+    model: Transformer, tokens: torch.Tensor, cache: dict, *, frames=None
+) -> tuple:
+    """The reference's ``prefill``: run the prompt ``tokens [B, S]``,
+    writing every layer's K/V (MLA: latent rows; an SSM layer's final state
+    and conv window; whisper's cross K/V of ``frames [B, T_enc, d]``) into
+    ``cache`` (``init_cache``) at slot 0, a prompt longer than the cache
+    rolling into it (``attention.write_prefill``).  Returns ``(logits [B,
+    1, Vp], cache)``, the cache updated in place.  On DTensors (a sharded
+    prefill) the writes lay the rows out as the cache's leaves."""
+    return prefill(model, tokens, frames=frames, cache=cache), cache
+
+
+@torch.no_grad()
+def decode_step_cache(
+    model: Transformer, cache: dict, tokens: torch.Tensor, pos, *, mla_absorbed: bool = False
+) -> tuple:
+    """The reference's ``decode_step``: one token a sequence, tokens ``[B,
+    1]``, ``pos`` its absolute position (an int, a scalar or a ``[B]``
+    tensor).  Each attention layer writes its K/V at slot ``pos % T`` of
+    its ``T``-slot cache and attends over the cache through the paged
+    kernel (``attention.CacheView``: ``lengths = min(pos + 1, T)``); an SSM
+    layer steps its state; whisper attends to its cross K/V.  Returns
+    ``(logits [B, 1, Vp], cache)``, the cache updated in place.
+    ``mla_absorbed`` picks MLA's form, as the reference's (default: the
+    non-absorbed one)."""
+    cfg, impl = model.cfg, model.impl
+    if cfg.family == "ssm":
+        return _decode_stack(model, model._embed(tokens), None, None, _ssm_of(model, cache)), cache
+    B = tokens.shape[0]
+    pos = torch.as_tensor(pos, device=tokens.device).long()
+    positions = (pos.reshape(-1, 1) if pos.dim() else pos.reshape(1, 1)).expand(B, 1)
+    tree = _attn_tree(model, cache)
+    length = tree["pos"].shape[-1]
+    view = CacheView.make(positions[:, 0], length, latent=cfg.use_mla and mla_absorbed)
+    kw = {"absorbed": mla_absorbed} if cfg.use_mla else {}
+
+    def attend(attn, h, layer):
+        return attn.decode_cache(h, positions, _at(tree, layer), view, impl=impl, **kw)
+
+    def cross_attend(xattn, h, layer):
+        return xattn.decode_cache(h, _at(tree, layer), impl=impl)
+
+    ssm = _ssm_of(model, cache) if cfg.family == "hybrid" else None
+    x = model._embed(tokens, positions)
+    return _decode_stack(model, x, attend, cross_attend, ssm), cache
 
 
 @contextlib.contextmanager
@@ -825,17 +973,22 @@ def forward_train(
 
 
 __all__ = [
+    "CacheView",
     "CrossKV",
     "HybridBlock",
     "PagedKV",
     "SSMCache",
     "Transformer",
+    "cache_length",
     "decode_step",
+    "decode_step_cache",
     "embed_lookup",
     "empty_model",
     "forward_train",
+    "init_cache",
     "init_params",
     "param_specs",
     "prefill",
+    "prefill_cache",
     "resolve_device",
 ]

@@ -53,7 +53,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.address import fractal_permute
 from repro_torch.distributed.sharding import mesh_axes
 from repro_torch.models.layers import ParamSpec
-from repro_torch.models.sharding_hooks import current_mesh
+from repro_torch.models.sharding_hooks import (
+    current_mesh,
+    gather_sequence,
+    on_batch_rows,
+    whole_sequence_grad,
+)
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -297,17 +302,28 @@ def moe_ffn(
             out, aux = _expert_parallel(cfg, p, x, mesh, whiten=whiten)
             if not isinstance(x, DTensor):
                 out, aux = out.full_tensor(), aux.full_tensor()
-            if cfg.moe_num_shared:
-                out = out + shared_expert(p, x)
+            if cfg.moe_num_shared:  # each row's sequence whole, as the router's
+                out = out + whole_sequence_grad(shared_expert(p, gather_sequence(x)))
             return out, aux.float()
+    # groups are batch rows: on DTensors (a mesh whose ``model`` axis does
+    # not divide E) each rank routes its own rows over every expert, each
+    # row's sequence whole (gathered from sequence parallelism)
+    out, aux = on_batch_rows(
+        functools.partial(_moe_local, cfg, whiten=whiten), (x,), (dict(p),), ("rows", "mean")
+    )
+    return whole_sequence_grad(out), aux.float()
+
+
+def _moe_local(cfg: ModelConfig, x, p, *, whiten: bool):
+    """The single-device path on plain tensors: ``(out, aux)``."""
     top_w, top_e, slot, aux = route(cfg, x, p["router"], whiten=whiten)
     products = functools.partial(
         expert_products, w_gate=p["w_gate"], w_up=p["w_up"], w_down=p["w_down"]
     )
-    out = dispatch_compute_combine(cfg, x, products, E, top_w, top_e, slot)
+    out = dispatch_compute_combine(cfg, x, products, cfg.moe_num_experts, top_w, top_e, slot)
     if cfg.moe_num_shared:
         out = out + shared_expert(p, x)
-    return out, aux.float()
+    return out, aux
 
 
 class MoE(torch.nn.Module):

@@ -38,9 +38,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, rmsnorm
+from repro_torch.models.sharding_hooks import on_batch_rows, whole_sequence_grad
 
 
 def ssm_specs(cfg: ModelConfig) -> dict:
@@ -196,30 +198,52 @@ class SSMBlock(torch.nn.Module):
         with ``decode=False``: prefill from its state, writing the final
         state and the conv tail into it; with ``decode=True``: the O(1)
         recurrent step (S = 1), updating it in place."""
+        if not isinstance(u, DTensor):
+            return self._mix(u, cache, decode, self._parameters)
+        # the scan on DTensors (a sharded step): each rank's code on its
+        # batch rows, each row's sequence whole and the weights gathered
+        # (SSD has no DTensor strategy; rows are independent); a cache's new
+        # state comes back laid out as the cache's own
+        p = dict(self._parameters)
+        if cache is None:
+            y = on_batch_rows(lambda u, p: self._mix(u, None, decode, p), (u,), (p,))
+            return whole_sequence_grad(y)
+
+        def rows(u, ssm, conv, p):
+            c = SSMCache(ssm.clone(), conv.clone())
+            return self._mix(u, c, decode, p), c.ssm, c.conv
+
+        y, ssm, conv = on_batch_rows(rows, (u, cache.ssm, cache.conv), (p,), ("rows",) * 3)
+        cache.ssm.copy_(ssm)
+        cache.conv.copy_(conv)
+        return whole_sequence_grad(y)
+
+    def _mix(self, u, cache: Optional[SSMCache], decode: bool, p) -> torch.Tensor:
+        """The mixer on plain tensors, ``p`` its parameters by name."""
         cfg = self.cfg
         Bsz, S, _ = u.shape
         h, ph, n, g = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim, cfg.ssm_num_groups
         di, W = cfg.d_inner, cfg.ssm_conv_width
         dtype, f32 = u.dtype, torch.float32
-        z = u @ self.w_z.to(dtype)
-        xr = u @ self.w_x.to(dtype)
-        Br = u @ self.w_B.to(dtype)
-        Cr = u @ self.w_C.to(dtype)
-        dt_raw = u @ self.w_dt.to(dtype)
+        z = u @ p["w_z"].to(dtype)
+        xr = u @ p["w_x"].to(dtype)
+        Br = u @ p["w_B"].to(dtype)
+        Cr = u @ p["w_C"].to(dtype)
+        dt_raw = u @ p["w_dt"].to(dtype)
 
         if not decode:
             if cache is not None:
                 tail = torch.cat([xr, Br, Cr], dim=-1)[:, -(W - 1) :]
                 if S < W - 1:  # short prompt: left-pad the rolling window
                     tail = F.pad(tail, (0, 0, W - 1 - S, 0))
-            xr = _causal_conv(xr, self.conv_x.to(dtype))
-            Br = _causal_conv(Br, self.conv_B.to(dtype))
-            Cr = _causal_conv(Cr, self.conv_C.to(dtype))
+            xr = _causal_conv(xr, p["conv_x"].to(dtype))
+            Br = _causal_conv(Br, p["conv_B"].to(dtype))
+            Cr = _causal_conv(Cr, p["conv_C"].to(dtype))
         else:
             if S != 1:
                 raise ValueError(f"the recurrent step takes one token a sequence; got S = {S}")
             win = torch.cat([cache.conv.to(dtype), torch.cat([xr, Br, Cr], dim=-1)], dim=1)
-            w_all = torch.cat([self.conv_x, self.conv_B, self.conv_C], dim=-1).to(dtype)
+            w_all = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=-1).to(dtype)
             conv = torch.einsum("bwc,wc->bc", win.float(), w_all.float()).to(dtype)[:, None]
             xr, Br, Cr = conv[..., :di], conv[..., di : di + g * n], conv[..., di + g * n :]
             cache.conv.copy_(win[:, 1:])
@@ -228,8 +252,8 @@ class SSMBlock(torch.nn.Module):
         xh = xr.reshape(Bsz, S, h, ph)
         Bh = Br.reshape(Bsz, S, g, n)
         Ch = Cr.reshape(Bsz, S, g, n)
-        dt = F.softplus(dt_raw.float() + self.dt_bias.float())
-        A = -torch.exp(self.A_log.float())  # [h], negative
+        dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+        A = -torch.exp(p["A_log"].float())  # [h], negative
         a_log = dt * A
         x_dt = xh * dt.to(dtype)[..., None]
 
@@ -249,7 +273,7 @@ class SSMBlock(torch.nn.Module):
             y = y.reshape(Bsz, S, h, ph)
             cache.ssm.copy_(S_new.reshape(Bsz, h, ph, n))
 
-        y = y + self.D.to(dtype)[:, None] * xh
+        y = y + p["D"].to(dtype)[:, None] * xh
         y = y.reshape(Bsz, S, di)
-        y = rmsnorm(y * F.silu(z), self.norm, cfg.norm_eps)
-        return y @ self.out_proj.to(dtype)
+        y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+        return y @ p["out_proj"].to(dtype)

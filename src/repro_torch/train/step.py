@@ -7,7 +7,9 @@ accumulation in float32, optional int8 error-feedback compression,
 global-norm clipping, the LR schedule, AdamW or Adafactor and ``p - u``,
 in the reference's order.  Metrics: ``loss``, ``aux_loss``, ``grad_norm``
 (before clipping), ``lr``, ``param_norm`` (after the update), as 0-dim
-tensors.
+tensors.  ``make_prefill_step``/``make_decode_step`` are the reference's
+serving steps over the contiguous cache (``models.model.prefill_cache``,
+``decode_step_cache``).
 
 The state's parameters are the reference's tree: one float32 tensor per
 leaf, the layer stack's leaves stacked ``[L, ...]`` (a hybrid stack's
@@ -186,3 +188,36 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, total_steps: int):
         return state, metrics
 
     return train_step
+
+
+def _check_model(model: M.Transformer, run: RunConfig) -> None:
+    want = getattr(torch, run.compute_dtype)
+    if model.compute_dtype != want:
+        raise ValueError(
+            f"the run computes in {run.compute_dtype}; "
+            f"the model was built for {model.compute_dtype}"
+        )
+
+
+def make_prefill_step(cfg: ModelConfig, run: RunConfig):
+    """The reference's ``make_prefill_step``: ``prefill_step(model, batch,
+    cache) -> (logits, cache)`` over the contiguous cache
+    (``models.model.prefill_cache``; ``batch["frames"]`` for whisper).  The
+    model (the reference's ``params``) computes in ``run.compute_dtype``."""
+
+    def prefill_step(model: M.Transformer, batch, cache):
+        _check_model(model, run)
+        return M.prefill_cache(model, batch["tokens"], cache, frames=batch.get("frames"))
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, run: RunConfig, *, mla_absorbed: bool = False):
+    """The reference's ``make_decode_step``: ``decode_step(model, cache,
+    tokens, pos) -> (logits, cache)`` (``models.model.decode_step_cache``)."""
+
+    def decode_step(model: M.Transformer, cache, tokens, pos):
+        _check_model(model, run)
+        return M.decode_step_cache(model, cache, tokens, pos, mla_absorbed=mla_absorbed)
+
+    return decode_step

@@ -120,9 +120,10 @@ def test_cell_bytes_per_rank_match_reference(mesh, monkeypatch, arch, shape_name
 
 
 def test_dryrun_records_cells_and_steps(mesh, tmp_path):
-    """The CLI over a smoke config: a JSON per cell, skips recorded, and a
-    step either counted (its collectives) or its error
-    and traceback recorded (the decode cell's step is not written)."""
+    """The CLI over a smoke config: a JSON per cell, skips recorded, and
+    every step run with its collectives counted: the prefill into the
+    contiguous cache and the decode step over it (``distributed.serve``),
+    whose attention merges the ``model`` ranks' slots of the cache."""
     import json
 
     dryrun.main(["--arch", "stablelm-1.6b", "--smoke", "--out", str(tmp_path)])
@@ -134,7 +135,37 @@ def test_dryrun_records_cells_and_steps(mesh, tmp_path):
     assert prefill["status"] == "ok" and prefill["step"]["status"] == "ok"
     assert prefill["step"]["collectives"]["count"] > 0
     decode = recs["stablelm-1.6b__decode_32k"]["step"]
-    assert decode["status"] == "fail" and "paged pool" in decode["error"] and decode["traceback"]
+    assert decode["status"] == "ok", decode.get("traceback")
+    assert decode["collectives"]["count"] > 0 and decode["collectives"]["all-gather"] > 0
+
+
+def _smoke_cfg(arch):
+    """The reduced config, an SSM's at the full size's chunk of 256: the
+    smoke chunk of 32 makes the SSD's loop over chunks 8x longer, and each
+    of its ops costs as much under fake tensors at any size."""
+    cfg = get_config(arch)
+    return smoke(cfg, ssm_chunk=cfg.ssm_chunk) if cfg.ssm_state_dim else smoke(cfg)
+
+
+def _smoke_cells():
+    from repro_torch.configs import list_archs
+
+    return [
+        (arch, s.name) for arch in list_archs() for s in SHAPES
+        if shape_applicable(_smoke_cfg(arch), s)[0]
+    ]
+
+
+@pytest.mark.parametrize("arch,shape_name", _smoke_cells())
+def test_smoke_cell_step_runs(mesh, arch, shape_name):
+    """Every applicable cell of the ten configs, reduced, builds and runs its
+    step under fake tensors at world 256 with its collectives counted: the
+    sharded train step, the prefill into the contiguous cache, the decode
+    step over it (MLA's, the SSD's and whisper's steps among them)."""
+    rec = dryrun.run_cell(arch, shape_name, multi_pod=False, cfg=_smoke_cfg(arch))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["step"]["status"] == "ok", rec["step"].get("traceback")
+    assert rec["step"]["collectives"]["count"] > 0
 
 
 @pytest.mark.parametrize("arch", ["chameleon-34b", "h2o-danube-1.8b"])

@@ -94,7 +94,7 @@ from repro_torch.tree import leaves_with_path
 def main(rank, world, tmp):
     archs, shape, steps, sps = eval(open(tmp + "/job.txt").read())
     d = np.load(tmp + "/batch.npz")
-    batch = {k: torch.from_numpy(d[k]) for k in ("tokens", "labels")}
+    batch = {k: torch.from_numpy(d[k]) for k in d.files}
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
     out = {}
     for arch, sp in [(a, sp) for a in archs for sp in sps]:
@@ -121,8 +121,9 @@ def main(rank, world, tmp):
 def reference_train_steps(arch: str, batch: dict, steps: int) -> dict:
     """The reference's jitted ``make_train_step`` (float32 compute, no remat)
     from the port's seeded initial state (``interop.train_state_to_reference``),
-    ``steps`` steps on ``batch``: the last step's metrics, its gradients as
-    its update takes them (``jax.grad`` of the reference's loss at the
+    ``steps`` steps on ``batch`` (whisper's ``frames`` too): the last
+    step's metrics, its gradients as its update takes them (``jax.grad`` of
+    the reference's loss, the MoE's weighted aux loss included, at the
     parameters the step started from, clipped by the global norm, as the
     port's step leaves ``state.grads``) and the parameters after it."""
     import jax
@@ -150,9 +151,11 @@ def reference_train_steps(arch: str, batch: dict, steps: int) -> dict:
     ref_step = jax.jit(RS.make_train_step(rcfg, RefRunConfig(**kw), total_steps=10))
 
     def loss(params):
-        logits, _ = RM.forward_train(rcfg, params, rbatch, compute_dtype=jnp.float32,
-                                     remat_policy="none")
-        return cross_entropy(logits, rbatch["labels"], rcfg.vocab_size)
+        logits, aux = RM.forward_train(rcfg, params, rbatch, compute_dtype=jnp.float32,
+                                       remat_policy="none")
+        return cross_entropy(logits, rbatch["labels"], rcfg.vocab_size) + (
+            rcfg.moe_aux_loss_weight * aux
+        )
 
     for _ in range(steps):
         start = rstate["params"]
