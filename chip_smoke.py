@@ -21,7 +21,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 deepseek-7b, chameleon-34b and stablelm-3b below, the last
                 at D = 80 with its edges: S = 1, ragged T, a window, 1, 2, 4
                 and 8 heads per group; banked_copy at W = 163840 and
-                245760); flash and paged twice at those shapes, bit for bit
+                245760, and at the edges of its plan: one block, a burst
+                under one chunk, every entry -1, B = 3 with -1 tails at
+                W = 6144); flash and paged twice at those shapes, bit for bit
   3. golden     the three golden single-slice cases on the card, bit for bit
                 against ``tests/data/golden_single_slice.json``
   4. fig4/table1  the paper's Fig. 4 sweep (X = 1..16) and Table I
@@ -57,7 +59,10 @@ Phases, one JSON line each; any failure exits non-zero:
   10. llm_timing the three serving kernels' timing rows at the path's shapes
                 (and flash at the short prompts, S = 128 and 517); flash
                 against SDPA at S = 1024 in alternating rounds of queued calls;
-                every row as queued calls, the profiler's reading beside
+                every row as queued calls, the profiler's reading beside;
+                banked_copy's row also cold (bursts and pool rows rotated
+                over twice L2) and the floor of an empty kernel of its
+                launch shape
   11. serving_moe  the MoE serving path: olmoe-1b-7b at full width (64
                 experts, top-8, QK-norm) with the same request mix and
                 checks as 8 (no tempering: QK-norm keeps the scores of unit
@@ -175,10 +180,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  three lanes of one dense batch, every group's summaries and
                  per-gather stats bit for bit against ``cosim_reference.json``,
                  the reference benchmark's isolation and scaling asserts
-  14. cosim_scale  the co-sim's scale mode: 512 recorded requests (the
+  14. cosim_scale  the co-sim's scale mode: 256 recorded requests (the
                  benchmark's 1024 cut for the script's time) on the
                  schedule pipeline with streaming percentiles and the time
-                 skip, against the capture; at 128 requests the fixed horizon
+                 skip, against the capture; at 64 requests the fixed horizon
                  against the time skip (equal but for ``skipped_cycles``)
   15. fuzz      the scenario fuzzer: the 48-spec clean-tree job case by case
                  (spec, verdict, summaries) against the capture, the committed
@@ -1609,6 +1614,23 @@ def _mla_lengths() -> list:
     return [len(p) + serve.FULL.max_new_tokens // 2 for p in prompts[: serve.FULL.max_batch]]
 
 
+#: the serving paths' ``banked_copy`` bursts, bf16 blocks of 16 tokens: arch
+#: -> (PERF.md's row, blocks, W, the kernel checks' case and pool blocks);
+#: ``chip_turns.py --copy`` times the same bursts
+COPY_BURSTS = {
+    "stablelm-1.6b": ("2s", 64, 24 * 2 * 32 * 64, "path_64_blocks", 2048),
+    "olmoe-1b-7b": ("2o", 64, 16 * 2 * 16 * 128, "olmoe_64_blocks", 2048),
+    # a 497,664-byte tile
+    "deepseek-v2-lite-16b": ("2m", 64, 27 * 576, "mla_64_blocks", 2048),
+    "stablelm-3b": ("2d", 64, 32 * 2 * 32 * 80, "stablelm3b_64_blocks", 512),
+    "deepseek-7b": ("2k", 64, 30 * 2 * 32 * 128, "deepseek7b_64_blocks", 512),
+    # jamba's serving cut: one attention layer of 8 groups at 128
+    "jamba-1.5-large-398b": ("2j", 64, 1 * 2 * 8 * 128, "jamba_64_blocks", 2048),
+    # whisper-base: the SPEECH mix's longest prompt
+    "whisper-base": ("2e", 14, 6 * 2 * 8 * 64, "whisper_14_blocks", 448),
+}
+
+
 def phase_llm_kernels() -> dict:
     """Flash attention, paged attention and banked_copy against their plain
     versions on the card, then two calls of flash and paged at the path's
@@ -1770,24 +1792,23 @@ def phase_llm_kernels() -> dict:
                 record("paged_attention", f"edge_lengths_d80_heads{m}_{str(dtype)[6:]}", err, tol)
                 check(bool((got[B - 1] == 0).all()), "paged edge lengths d80: empty request not 0")
 
-    # banked_copy: the JAX tests' shapes and dtypes, two unaligned tiles, and
-    # the admission paths' bursts of 64 blocks into the 2048-block pool
+    # banked_copy: the JAX tests' shapes and dtypes, two unaligned tiles, the
+    # admission paths' bursts (``COPY_BURSTS``), and the edges of the kernel's
+    # plan (``ops.copy_plan``): one block, a burst under one chunk, every entry
+    # -1, and B = 3 with -1 tails at whisper's width;
+    # ``used`` is each request's live entries (None: odd rows end with a -1)
     copy_cases = [
-        ("jax_2_4_32_16_128", 2, 4, 32, 16, 128, (f32, bf16, torch.int32)),
-        ("jax_3_2_16_8_256", 3, 2, 16, 8, 256, (f32, bf16, torch.int32)),
-        ("jax_1_8_64_32_64", 1, 8, 64, 32, 64, (f32, bf16, torch.int32)),
-        ("unaligned_3x5", 2, 3, 16, 3, 5, (f32, bf16)),
-        ("path_64_blocks", 1, 64, 2048, 16, 24 * 2 * 32 * 64, (bf16,)),
-        ("olmoe_64_blocks", 1, 64, 2048, 16, 16 * 2 * 16 * 128, (bf16,)),
-        ("mla_64_blocks", 1, 64, 2048, 16, 27 * 576, (bf16,)),  # a 497,664-byte tile
-        ("stablelm3b_64_blocks", 1, 64, 512, 16, 32 * 2 * 32 * 80, (bf16,)),  # W = 163840
-        ("deepseek7b_64_blocks", 1, 64, 512, 16, 30 * 2 * 32 * 128, (bf16,)),  # W = 245760
-        # jamba's serving cut: one attention layer of 8 groups at 128, W = 2048
-        ("jamba_64_blocks", 1, 64, 2048, 16, 1 * 2 * 8 * 128, (bf16,)),
-        # whisper-base: the SPEECH mix's longest prompt, 14 blocks, W = 6144
-        ("whisper_14_blocks", 1, 14, 448, 16, 6 * 2 * 8 * 64, (bf16,)),
+        ("jax_2_4_32_16_128", 2, 4, 32, 16, 128, None, (f32, bf16, torch.int32)),
+        ("jax_3_2_16_8_256", 3, 2, 16, 8, 256, None, (f32, bf16, torch.int32)),
+        ("jax_1_8_64_32_64", 1, 8, 64, 32, 64, None, (f32, bf16, torch.int32)),
+        ("unaligned_3x5", 2, 3, 16, 3, 5, None, (f32, bf16)),
+        *[(case, 1, n, NB, 16, W, None, (bf16,)) for _, n, W, case, NB in COPY_BURSTS.values()],
+        ("one_block", 1, 1, 448, 16, 6 * 2 * 8 * 64, (1,), (f32, bf16, torch.int32)),
+        ("under_one_chunk", 1, 1, 8, 2, 8, (1,), (f32, bf16, torch.int32)),
+        ("all_skipped", 2, 4, 32, 16, 128, (0, 0), (f32, bf16, torch.int32)),
+        ("whisper_b3_tails", 3, 14, 448, 16, 6 * 2 * 8 * 64, (14, 9, 3), (bf16,)),
     ]
-    for name, B, nblk, NB, bs, W, dtypes in copy_cases:
+    for name, B, nblk, NB, bs, W, used, dtypes in copy_cases:
         for dtype in dtypes:
             if dtype == torch.int32:
                 pool = torch.randint(0, 100, (NB, bs, W), generator=gen, device="cuda").int()
@@ -1795,12 +1816,14 @@ def phase_llm_kernels() -> dict:
             else:
                 pool = _cuda_randn(gen, (NB, bs, W), dtype)
                 new = _cuda_randn(gen, (B, nblk, bs, W), dtype)
-            used = [nblk - (b % 2) for b in range(B)]  # odd rows end with a -1 entry
-            tbl = _unique_tables(gen, B, nblk, NB, used)
+            live = used or [nblk - (b % 2) for b in range(B)]
+            tbl = _unique_tables(gen, B, nblk, NB, live)
             got = banked_copy(pool.clone(), new, tbl)
             torch.cuda.synchronize()
             want = banked_copy_ref(pool, new, tbl)
             record("banked_copy", f"{name}_{str(dtype)[6:]}", float(not torch.equal(got, want)), 0)
+            if name == "all_skipped":
+                check(torch.equal(got, pool), "banked_copy wrote a pool row with every entry -1")
             if name.startswith("jamba"):
                 repeat_copy = torch.equal(got, banked_copy(pool.clone(), new, tbl))
             del pool, new, got, want
@@ -3729,7 +3752,7 @@ def phase_llm_timing(
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.banked_copy.ops import banked_copy
+    from repro_torch.kernels.banked_copy.ops import banked_copy, floor_launch
     from repro_torch.kernels.banked_copy.ref import banked_copy_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -3859,28 +3882,77 @@ def phase_llm_timing(
     tbl = _unique_tables(gen, 1, nblk, NB, [nblk])
     idx = tbl[0].long()
     # queued calls: the profiler's per-call sessions dropped 6 of this
-    # kernel's 10 events at MLA's row width, below the byte bound (PERF.md)
-    rows.append(
-        _timing_row(
-            "banked_copy",
-            {
-                "kernel": lambda: banked_copy(pool, burst, tbl),
-                "plain": lambda: banked_copy_ref(pool, burst, tbl),
-                "library": lambda: pool.index_copy_(0, idx, burst[0]),
-            },
-            50,
-            2 * nblk * bs * W * 2 + nblk * 4,
-            0,
-            launches["banked_copy"],
-            errs["banked_copy"],
-            "Tensor.index_copy_",
-            shape=dict(blocks=nblk, block_size=bs, W=W, pool_blocks=NB),
-            path=cfg.name,
-            queued=True,
-        )
+    # kernel's 10 events at MLA's row width, below the byte bound (PERF.md);
+    # the row's time is warm (the same burst into the same rows, from L2 for
+    # a burst of a few MB), beside it the cold time and the floor
+    row = _timing_row(
+        "banked_copy",
+        {
+            "kernel": lambda: banked_copy(pool, burst, tbl),
+            "plain": lambda: banked_copy_ref(pool, burst, tbl),
+            "library": lambda: pool.index_copy_(0, idx, burst[0]),
+        },
+        50,
+        2 * nblk * bs * W * 2 + nblk * 4,
+        0,
+        launches["banked_copy"],
+        errs["banked_copy"],
+        "Tensor.index_copy_",
+        shape=dict(blocks=nblk, block_size=bs, W=W, pool_blocks=NB),
+        path=cfg.name,
+        queued=True,
     )
+    t0 = time.perf_counter()
+    row["cold_ms"] = copy_cold_ms(pool, burst, gen)
+    row["floor_ms"] = queued_ms(lambda: floor_launch(pool, burst, tbl), 50)
+    emit(
+        "banked_copy_cold_floor",
+        path=cfg.name,
+        seconds=time.perf_counter() - t0,
+        warm_us=row["ms"] * 1e3,
+        cold_us=None if row["cold_ms"] is None else row["cold_ms"] * 1e3,
+        floor_us=None if row["floor_ms"] is None else row["floor_ms"] * 1e3,
+        bound_us=row["bound_ms"] * 1e3,
+    )
+    rows.append(row)
     del pool, burst
     return rows
+
+
+#: bytes that a cold ``banked_copy`` timing rotates over: twice the H100's
+#: 50 MB L2
+COLD_COPY_BYTES = 2 * 50 * 2**20
+
+
+def copy_cold_ms(pool, burst, gen, iters: int = 50) -> float | None:
+    """Queued device time per call of ``banked_copy`` of a burst shaped as
+    ``burst [1, nblk, bs, W]`` from cold, as the engine's admission finds it:
+    the calls rotate over R distinct bursts (``burst`` and R - 1 drawn from
+    ``gen``) into R disjoint sets of ``pool`` rows, R x (burst + its rows) at
+    least ``COLD_COPY_BYTES``, so each call's bytes have left L2 since the
+    call that last touched them.  None as ``queued_ms``."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.banked_copy.ops import banked_copy
+
+    nblk = burst.shape[1]
+    R = -(-COLD_COPY_BYTES // (2 * burst.numel() * burst.element_size()))
+    check(R * nblk <= pool.shape[0], f"cold banked_copy: {R} x {nblk} rows past the pool")
+    bursts = [burst]
+    if R > 1:
+        more = _cuda_randn(gen, (R - 1, *burst.shape[1:]), burst.dtype)
+        bursts += list(more.split(1))
+    perm = torch.randperm(pool.shape[0], generator=gen, device="cuda")
+    tables = perm[: R * nblk].int().view(R, 1, nblk)
+    turn = itertools.cycle(range(R))
+
+    def call():
+        k = next(turn)
+        banked_copy(pool, bursts[k], tables[k])
+
+    return queued_ms(call, max(iters, 2 * R))
 
 
 #: the training phase's bounds, stated in PERF.md before its first run on the

@@ -27,6 +27,15 @@ With ``--latent`` a process instead times MLA's latent paged call at
 2048-block pool of 27 latent rows a token, from seed 1) with its checkout's
 kernels: five rounds of 200 queued calls (``chip_smoke.queued_ms``) and the
 profiler's device time per call by kernel name.
+
+With ``--copy`` a process instead times ``banked_copy`` at ``PERF.md``'s
+seven rows (bf16 bursts of 16-token blocks into a 2048-block pool, from seed
+1): five rounds of 50 queued calls warm (the same burst into the same rows)
+and cold (``chip_smoke.copy_cold_ms``: bursts and rows rotated over twice
+L2), and the queued floor of an empty kernel of the launch shape where the
+checkout has one:
+
+    python3 chip_turns.py --copy PARENT/src CHANGE/src CHANGE/src PARENT/src
 """
 
 import subprocess
@@ -122,14 +131,58 @@ print(json.dumps(out))
 """
 
 
+RUN_COPY = r"""
+import json, statistics, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import torch
+from chip_smoke import COPY_BURSTS, _cuda_randn, _unique_tables, copy_cold_ms, queued_ms
+from repro_torch.kernels import _build
+from repro_torch.kernels.banked_copy import ops
+
+_build.build(["banked_copy"])  # before any timing
+# PERF.md's banked_copy rows: (blocks, W), bf16, blocks of 16 tokens
+ROWS = {row: (nblk, W) for row, nblk, W, *_ in COPY_BURSTS.values()}
+floor = getattr(ops, "floor_launch", None)
+gen = torch.Generator(device="cuda").manual_seed(1)
+out = {"src": sys.argv[1], "card": torch.cuda.get_device_name(0), "rows": {}}
+for name, (nblk, W) in ROWS.items():
+    pool = torch.empty((2048, 16, W), dtype=torch.bfloat16, device="cuda")
+    burst = _cuda_randn(gen, (1, nblk, 16, W), torch.bfloat16)
+    tbl = _unique_tables(gen, 1, nblk, 2048, [nblk])
+    want = pool.clone()
+    want[tbl[0].long()] = burst[0]
+    ops.banked_copy(pool, burst, tbl)
+    same = torch.equal(pool.view(torch.int16), want.view(torch.int16))
+    assert same, f"row {name}: the kernel disagrees with the burst"
+    del want
+    warm = lambda: ops.banked_copy(pool, burst, tbl)
+    us = lambda ms: None if ms is None else ms * 1e3
+    rounds = [(us(queued_ms(warm, 50)), us(copy_cold_ms(pool, burst, gen))) for _ in range(5)]
+    row = dict(warm_us=[w for w, _ in rounds], cold_us=[c for _, c in rounds])
+    for key in ("warm_us", "cold_us"):
+        done = [x for x in row[key] if x is not None]
+        row[key.replace("_us", "_median_us")] = statistics.median(done) if done else None
+    if floor is not None:
+        row["floor_us"] = us(queued_ms(lambda: floor(pool, burst, tbl), 50))
+    out["rows"][name] = row
+    del pool, burst
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
 def main(argv) -> int:
-    mode = argv[0] if argv[:1] in (["--latent"], ["--stream"]) else None
+    modes = (["--latent"], ["--stream"], ["--copy"])
+    mode = argv[0] if argv[:1] in modes else None
     srcs = argv[1:] if mode else argv
     here = str(Path(__file__).resolve().parent)
     for src in srcs:
-        script = {"--latent": [RUN_LATENT, src, here], "--stream": [RUN_STREAM, src, here]}.get(
-            mode, [RUN, src]
-        )
+        script = {
+            "--latent": [RUN_LATENT, src, here],
+            "--stream": [RUN_STREAM, src, here],
+            "--copy": [RUN_COPY, src, here],
+        }.get(mode, [RUN, src])
         r = subprocess.run([sys.executable, "-c", *script], capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stderr[-4000:], file=sys.stderr)

@@ -27,3 +27,17 @@ LAUNCHES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+_sms: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (a ``torch.device``),
+    read once per device; the kernels size their grids by it."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]

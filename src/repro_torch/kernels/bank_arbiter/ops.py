@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, sm_count
 from repro_torch.kernels.bank_arbiter.ref import bank_arbiter_ref
 
 #: banks the kernel takes.  A CTA keeps 16 bytes per bank in dynamic shared
@@ -30,7 +30,6 @@ MIN_SLOTS_PER_CTA = 512
 MAX_TILE, MAX_THREADS = 4096, 512
 
 _fns: dict = {}
-_sms: dict = {}
 
 
 def _lib():
@@ -73,13 +72,6 @@ def launch_shape(B: int, S: int, num_sms: int, cluster: int | None = None) -> tu
     return cluster, min(MAX_THREADS, 32 * -(-tile // 64)), tile
 
 
-def _num_sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
-
-
 def _check(key: torch.Tensor, bank: torch.Tensor, elig: torch.Tensor, num_banks: int) -> None:
     if key.dim() != 2 or bank.shape != key.shape or elig.shape != key.shape:
         raise ValueError(
@@ -120,7 +112,7 @@ def bank_arbiter_winners(
         return bank_arbiter_ref(key, bank, elig, num_banks=num_banks)
     _check(key, bank, elig, num_banks)
     B, S = key.shape
-    cluster, threads, tile = launch_shape(B, S, _num_sms(key.device), _cluster)
+    cluster, threads, tile = launch_shape(B, S, sm_count(key.device), _cluster)
     win = torch.empty((B, num_banks), dtype=torch.int32, device=key.device)
     if B == 0:
         return win
@@ -151,7 +143,7 @@ def floor_launch(B: int, S: int, *, num_banks: int, device: torch.device) -> Non
     int16 banks, as the simulator passes them (grid, cluster, block, shared
     memory), on the current stream: the floor under the arbiter's device
     time.  Not counted in ``LAUNCHES``."""
-    cluster, threads, tile = launch_shape(B, S, _num_sms(device))
+    cluster, threads, tile = launch_shape(B, S, sm_count(device))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _lib()["floor"](B, num_banks, cluster, threads, tile, 2, stream)
     if err != 0:

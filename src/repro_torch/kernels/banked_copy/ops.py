@@ -2,8 +2,8 @@
 
 ``banked_copy`` is what the serving engine calls once per admitted request to
 move the prefill's fresh KV burst into the pool blocks the allocator chose.
-On CUDA tensors it launches the hand-written Hopper kernel
-(``csrc/banked_copy.cu``) and counts the launch in
+On CUDA tensors it plans the launch (``copy_plan``), launches the
+hand-written Hopper kernel (``csrc/banked_copy.cu``) and counts the launch in
 ``repro_torch.kernels.LAUNCHES["banked_copy"]``; on CPU tensors it runs the
 plain version (``ref.py``).  There is no fallback between the two.
 """
@@ -14,20 +14,54 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, sm_count
 from repro_torch.kernels.banked_copy.ref import banked_copy_ref
+
+#: bytes of a chunk: at most one round of the kernel's 128 threads x 8
+#: 16-byte words (``kMaxChunk`` in the source); the plan aims at no fewer
+#: than ``MIN_CHUNK``
+MAX_CHUNK, MIN_CHUNK = 16384, 4096
+#: chunks the plan aims at per SM
+CHUNKS_PER_SM = 2
 
 _fns: dict = {}
 
 
-def _kernel_fn():
+def _lib() -> ctypes.CDLL:
     if not _fns:
-        fn = _build.load("banked_copy").banked_copy
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-        fn.argtypes += [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns["fn"] = fn
-    return _fns["fn"]
+        lib = _build.load("banked_copy")
+        plan = [ctypes.c_longlong] * 3 + [ctypes.c_int]  # tile chunk grid, word
+        lib.banked_copy.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, *plan, ctypes.c_void_p]
+        lib.banked_copy_floor.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+        for fn in (lib.banked_copy, lib.banked_copy_floor):
+            fn.restype = ctypes.c_int
+        _fns["lib"] = lib
+    return _fns["lib"]
+
+
+def copy_plan(B: int, nblk: int, tile_bytes: int, aligned: bool, num_sms: int) -> tuple[int, int]:
+    """``(chunk_bytes, grid)`` of the kernel for a burst of ``B * nblk`` tiles
+    of ``tile_bytes``: the kernel's CTA c copies chunk c, part c % per_tile of
+    tile c // per_tile (per_tile = ceil(tile_bytes / chunk_bytes)).  Chunks
+    never cross a tile's end (a tile's last chunk is shorter) and are whole
+    128-byte cache lines where ``aligned`` (the tile and both base pointers
+    16-byte aligned), so that no two CTAs write one line, else 4-byte
+    multiples.  The chunk size comes from the burst's
+    total bytes, ``CHUNKS_PER_SM`` chunks an SM within ``[MIN_CHUNK,
+    MAX_CHUNK]``, evened out over each tile, so a burst of at least
+    ``num_sms`` x 4 KB has at least ``num_sms`` chunks."""
+    if tile_bytes <= 0:
+        raise ValueError(f"tile_bytes must be positive; got {tile_bytes}")
+    unit = 128 if aligned else 4
+    total = B * nblk * tile_bytes
+    target = min(max(total // (num_sms * CHUNKS_PER_SM), MIN_CHUNK), MAX_CHUNK) // unit * unit
+    per_tile = _ceil_div(tile_bytes, target)
+    chunk = _ceil_div(_ceil_div(tile_bytes, per_tile), unit) * unit
+    return chunk, B * nblk * _ceil_div(tile_bytes, chunk)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _check(pool: torch.Tensor, new_kv: torch.Tensor, block_table: torch.Tensor) -> None:
@@ -53,8 +87,27 @@ def _check(pool: torch.Tensor, new_kv: torch.Tensor, block_table: torch.Tensor) 
         )
     if not (pool.is_contiguous() and new_kv.is_contiguous() and block_table.is_contiguous()):
         raise ValueError("pool, new_kv and block_table must be contiguous")
-    if max(block_table.shape) >= 2**16 or pool.shape[0] >= 2**31:
-        raise ValueError(f"grid too large: B, nblk = {tuple(block_table.shape)}")
+    if pool.shape[0] >= 2**31:
+        raise ValueError(f"pool too large for int32 rows: {pool.shape[0]} blocks")
+
+
+def _plan_args(pool: torch.Tensor, new_kv: torch.Tensor, block_table: torch.Tensor) -> list:
+    """The kernel's whole plan, as the C function takes it after the pointers
+    and ``NB``: ``tile_bytes``, ``chunk_bytes``, ``grid``, the word size
+    (16, 4 or 1 bytes: the largest that the tile and both base pointers are
+    aligned to) and the stream."""
+    B, nblk = block_table.shape
+    tile_bytes = pool[0].numel() * pool.element_size()
+    word = next(
+        w
+        for w in (16, 4, 1)
+        if tile_bytes % w == 0 and pool.data_ptr() % w == 0 and new_kv.data_ptr() % w == 0
+    )
+    chunk, grid = copy_plan(B, nblk, tile_bytes, word == 16, sm_count(pool.device))
+    if grid >= 2**31:
+        raise ValueError(f"grid too large: {grid} CTAs for B, nblk = {(B, nblk)}")
+    stream = torch.cuda.current_stream(pool.device).cuda_stream
+    return [tile_bytes, chunk, grid, word, stream]
 
 
 def banked_copy(
@@ -66,21 +119,29 @@ def banked_copy(
     if pool.device.type == "cpu":
         return banked_copy_ref(pool, new_kv, block_table)
     _check(pool, new_kv, block_table)
-    B, nblk = block_table.shape
-    tile_bytes = pool[0].numel() * pool.element_size()
-    if B * nblk * tile_bytes == 0:
+    if new_kv.numel() == 0:
         return pool
-    err = _kernel_fn()(
+    err = _lib().banked_copy(
         pool.data_ptr(),
         new_kv.data_ptr(),
         block_table.data_ptr(),
-        B,
-        nblk,
         pool.shape[0],
-        tile_bytes,
-        torch.cuda.current_stream(pool.device).cuda_stream,
+        *_plan_args(pool, new_kv, block_table),
     )
     if err != 0:
         raise RuntimeError(f"banked_copy kernel launch failed: cudaError_t {err}")
     LAUNCHES["banked_copy"] += 1
     return pool
+
+
+def floor_launch(pool: torch.Tensor, new_kv: torch.Tensor, block_table: torch.Tensor) -> None:
+    """Launch an empty kernel of ``banked_copy``'s launch shape for these
+    arguments (its grid and block) on the current stream: the floor under
+    its device time.  Not counted in ``LAUNCHES``."""
+    _check(pool, new_kv, block_table)
+    if new_kv.numel() == 0:
+        return
+    _, _, grid, _, stream = _plan_args(pool, new_kv, block_table)
+    err = _lib().banked_copy_floor(grid, stream)
+    if err != 0:
+        raise RuntimeError(f"banked_copy floor launch failed: cudaError_t {err}")

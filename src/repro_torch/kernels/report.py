@@ -1,7 +1,9 @@
 """What nvcc made of the port's kernels: registers, shared memory and spills
-per kernel function from ``ptxas -v``, and the tensor-core instructions of
-each function's SASS (``HGMMA`` = wgmma, ``HMMA`` = mma.sync) from
-``cuobjdump -sass``.  Needs ``nvcc`` and ``cuobjdump``, not a card.
+per kernel function from ``ptxas -v``, and the tensor-core and bulk-copy
+instructions of each function's SASS (``HGMMA`` = wgmma, ``HMMA`` =
+mma.sync, ``UBLKCP`` = cp.async.bulk, ``UTMALDG`` / ``UTMASTG`` = TMA tile
+loads and stores) from ``cuobjdump -sass``.  Needs ``nvcc`` and
+``cuobjdump``, not a card.
 
     PYTHONPATH=src python -m repro_torch.kernels.report [kernel ...]
 
@@ -33,6 +35,8 @@ _ENTRY = re.compile(r"Compiling entry function '(\S+)' for")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 _SASS_FN = re.compile(r"Function : (\S+)")
+#: SASS opcodes counted per function
+SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "UTMALDG", "UTMASTG")
 
 
 def _tool(name: str) -> str:
@@ -70,7 +74,7 @@ def ptxas_stats(log: str) -> dict:
 
 
 def sass_counts(lib: Path) -> dict:
-    """``{mangled function: {"HGMMA": n, "HMMA": n}}`` from the library's SASS."""
+    """``{mangled function: {opcode: n}}`` of ``SASS_OPS`` from the library's SASS."""
     sass = subprocess.run(
         [_tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True, check=True
     ).stdout
@@ -78,10 +82,10 @@ def sass_counts(lib: Path) -> dict:
     for line in sass.splitlines():
         if m := _SASS_FN.search(line):
             fn = m.group(1)
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn:
-            for op in ("HGMMA", "HMMA"):
-                if re.search(rf"\b{op}\.", line):
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
                     counts[fn][op] += 1
     return counts
 

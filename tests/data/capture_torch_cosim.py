@@ -7,7 +7,7 @@ JAX package on the CPU at the sizes the card runs:
   * ``grid``: every group of the co-sim grid (``COSIM_GRID``, the reference
     benchmark's defaults, its asserts included): the record's summary, the
     trace's shape, and each configuration's summary and gather stats;
-  * ``scale``: the scale mode (``COSIM_SCALE``, 512 requests, time skip on):
+  * ``scale``: the scale mode (``COSIM_SCALE``, 256 requests, time skip on):
     its summary and metrics; and at ``COSIM_SCALE_FIXED_REQUESTS`` requests
     the time-skip and the fixed-horizon legs' metrics;
   * ``fuzz``: the clean-tree job (``FUZZ_JOB``) case by case (spec,

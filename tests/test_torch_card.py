@@ -21,7 +21,7 @@ from repro_torch.core import simulator as tsim
 from repro_torch.core.simulator import SCHEDULE_PIPELINE, SimParams, simulate, simulate_batch
 from repro_torch.core.traffic import random_bursty, random_uniform
 from repro_torch.data import GOLDEN_KEYS, golden_batch, golden_cases
-from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import LAUNCHES, reset_launches, sm_count
 from repro_torch.kernels.bank_arbiter.ops import bank_arbiter_winners
 from repro_torch.kernels.bank_arbiter.ref import bank_arbiter_ref
 
@@ -141,7 +141,7 @@ def test_bank_arbiter_large_shared_memory(arb_inputs, cluster):
 
     B, S = 3, 8193
     rng = np.random.default_rng(cluster)
-    _, _, tile = ops.launch_shape(B, S, ops._num_sms(torch.device("cuda")), cluster)
+    _, _, tile = ops.launch_shape(B, S, sm_count(torch.device("cuda")), cluster)
     smem = ops._lib()["smem_bytes"]
     for bank_dtype, width in ((torch.int16, 2), (torch.int32, 4)):
         banks = range(1, ops.MAX_BANKS + 1)
@@ -372,10 +372,22 @@ def test_attention_kernels_repeat_bit_for_bit(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
 @pytest.mark.parametrize(
-    "B,nblk,NB,bs,W",
-    [(2, 4, 32, 16, 128), (3, 2, 16, 8, 256), (1, 8, 64, 32, 64), (2, 3, 16, 3, 5)],
+    "B,nblk,NB,bs,W,used",
+    [
+        pytest.param(2, 4, 32, 16, 128, None, id="2-4-32-16-128"),
+        pytest.param(3, 2, 16, 8, 256, None, id="3-2-16-8-256"),
+        pytest.param(1, 8, 64, 32, 64, None, id="1-8-64-32-64"),
+        pytest.param(2, 3, 16, 3, 5, None, id="2-3-16-3-5"),
+        # the edges of the kernel's plan (ops.copy_plan): one block of
+        # whisper's width, a burst under one chunk, every entry -1, and B = 3
+        # with -1 tails at whisper's W = 6144
+        pytest.param(1, 1, 448, 16, 6144, (1,), id="one_block"),
+        pytest.param(1, 1, 8, 2, 8, (1,), id="under_one_chunk"),
+        pytest.param(2, 4, 32, 16, 128, (0, 0), id="all_skipped"),
+        pytest.param(3, 14, 448, 16, 6144, (14, 9, 3), id="whisper_b3_tails"),
+    ],
 )
-def test_banked_copy_kernel_matches_plain(card, B, nblk, NB, bs, W, dtype):
+def test_banked_copy_kernel_matches_plain(card, B, nblk, NB, bs, W, used, dtype):
     from repro_torch.kernels.banked_copy.ops import banked_copy
     from repro_torch.kernels.banked_copy.ref import banked_copy_ref
 
@@ -385,10 +397,14 @@ def test_banked_copy_kernel_matches_plain(card, B, nblk, NB, bs, W, dtype):
         new = torch.randint(0, 100, (B, nblk, bs, W), generator=gen, device="cuda").int()
     else:
         pool, new = _randn(gen, (NB, bs, W), dtype), _randn(gen, (B, nblk, bs, W), dtype)
-    tbl = _tables(gen, B, nblk, NB, [nblk - (b % 2) for b in range(B)])
+    tbl = _tables(gen, B, nblk, NB, used or [nblk - (b % 2) for b in range(B)])
+    before = LAUNCHES["banked_copy"]
     got = banked_copy(pool.clone(), new, tbl)
     torch.cuda.synchronize()
+    assert LAUNCHES["banked_copy"] == before + 1
     assert torch.equal(got, banked_copy_ref(pool, new, tbl))
+    if used == (0, 0):
+        assert torch.equal(got, pool)
 
 
 def test_short_serving_run_launches_as_predicted(card):

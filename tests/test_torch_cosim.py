@@ -84,7 +84,7 @@ def test_capture_sizes_match_the_port():
     summary, sched = ref["scale"]["summary"], comp.schedule()
     assert (sched.num_txns, sched.nbytes) == (summary["schedule_txns"], summary["schedule_bytes"])
     assert carry_nbytes(prm, *comp.trace.burst.shape) == summary["carry_bytes"]
-    assert (summary["effective_cycles"], summary["skipped_cycles"]) == (57182, 27904)
+    assert (summary["effective_cycles"], summary["skipped_cycles"]) == (28510, 13792)
 
 
 def test_cosim_claims_hold_on_the_capture_and_fail_when_broken():
