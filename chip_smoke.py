@@ -5431,7 +5431,8 @@ def phase_multi_device() -> dict:
     the collectives it issues (``analysis.collectives``); ``build_cell`` for
     stablelm-1.6b at train_4k, whose per-rank state bytes must equal the
     whole state's; the sharded decode step against the unsharded one
-    (``_multi_device_decode``).  The group is torn down at the end, failure
+    (``_multi_device_decode``); the SSD mixer split over its heads
+    (``_multi_device_ssd``).  The group is torn down at the end, failure
     or not."""
     import numpy as np
     import torch
@@ -5503,6 +5504,7 @@ def phase_multi_device() -> dict:
         del p, x, want, pd, xd, got
         torch.cuda.empty_cache()
         out["decode"] = _multi_device_decode(mesh)
+        out["ssd"] = timed_phase("multi_device_ssd", _multi_device_ssd, mesh)
 
         cell = build_cell("stablelm-1.6b", "train_4k", mesh)
         set_activation_sharder(None)
@@ -5567,6 +5569,99 @@ def _multi_device_decode(mesh) -> dict:
             "bit_for_bit": torch.equal(got, want), "max_abs_err": err,
             "cache_bit_for_bit": same_cache, "cache_placements": placed,
             "collectives": counter.stats()}
+
+
+#: the SSD mixer split over its heads in ``multi_device``: mamba2-1.3b at
+#: full width, 2 of its 48 layers, B 2 x 512 prompts prefilled into the
+#: contiguous cache, then 8 decode steps
+MULTI_SSD_LAYERS, MULTI_SSD_B, MULTI_SSD_S, MULTI_SSD_STEPS = 2, 2, 512, 8
+#: the split mixer against the unsharded step: logits within this (bf16
+#: compute; the gated norm's sum of squares is taken per rank and
+#: all-reduced, a float32 sum that may round another way: one bf16 step of
+#: a norm's output moves the logits by ~1e-2), the state within this share
+#: of its largest entry, the bf16 conv window within one bf16 step
+MULTI_SSD_LOGIT_TOL, MULTI_SSD_STATE_TOL = 3e-2, 1e-2
+
+
+def _multi_device_ssd(mesh) -> dict:
+    """mamba2-1.3b's sharded prefill and decode steps (``distributed.serve``)
+    on the 1 x 1 mesh, the cache laid out by decode_32k's rules (the state
+    over its heads, the conv window over its channels): the mixer runs split
+    over its heads (``models.ssm.SSMBlock._mix_heads``, counted here as the
+    kernel wrappers count their launches), held to the unsharded cache
+    steps on the same weights, tokens and cache, call by call; and one
+    decode step's collectives."""
+    import torch
+
+    from repro_torch.analysis.collectives import CollectiveCounter
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES_BY_NAME, RunConfig
+    from repro_torch.distributed.serve import make_sharded_decode, make_sharded_prefill, shard_cache
+    from repro_torch.distributed.train import shard_train_state
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import _State
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+
+    cfg = serve.cut(get_config("mamba2-1.3b"), layers=MULTI_SSD_LAYERS)
+    check(ssm.heads_split(cfg, mesh), "the 1 x 1 mesh does not split mamba2's heads")
+    B, S, steps = MULTI_SSD_B, MULTI_SSD_S, MULTI_SSD_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen, device="cuda")
+    model = M.init_params(cfg, 0)
+    logits, cache = M.prefill_cache(model, prompt, M.init_cache(cfg, B, S))
+    want = [logits]
+    for i in range(steps):
+        logits, cache = M.decode_step_cache(model, cache, toks[i], S + i)
+        want.append(logits)
+    del model
+    smodel = shard_train_state(_State(M.init_params(cfg, 0)), RunConfig(), mesh, fsdp=False).model
+    scache = shard_cache(
+        cfg, mesh, SHAPES_BY_NAME["decode_32k"], M.init_cache(cfg, B, S), B, S
+    )
+    placed = {k: str(v.placements) for k, v in scache.items()}
+    calls = [0]
+    split = ssm.SSMBlock._mix_heads
+
+    def counted(self, *args, **kwargs):
+        calls[0] += 1
+        return split(self, *args, **kwargs)
+
+    ssm.SSMBlock._mix_heads = counted
+    try:
+        logits, scache = make_sharded_prefill(cfg, mesh)(smodel, {"tokens": prompt}, scache)
+        got = [logits]
+        decode = make_sharded_decode(cfg, mesh)
+        for i in range(steps):
+            if i == steps - 1:
+                with CollectiveCounter() as counter:
+                    logits, scache = decode(smodel, scache, toks[i], S + i)
+                    torch.cuda.synchronize()
+            else:
+                logits, scache = decode(smodel, scache, toks[i], S + i)
+            got.append(logits)
+    finally:
+        ssm.SSMBlock._mix_heads = split
+    want_calls = MULTI_SSD_LAYERS * (1 + steps)
+    check(calls[0] == want_calls, f"split SSD mixer ran {calls[0]} times, want {want_calls}")
+    errs = [_max_err(g, w) for g, w in zip(got, want)]
+    state = {k: scache[k].full_tensor() for k in cache}
+    state_err = _max_err(state["ssm"], cache["ssm"]) / float(cache["ssm"].abs().max())
+    conv_ok = torch.allclose(state["conv"].float(), cache["conv"].float(), rtol=2**-7, atol=0)
+    check(
+        max(errs) <= MULTI_SSD_LOGIT_TOL and state_err <= MULTI_SSD_STATE_TOL and conv_ok,
+        f"split SSD mixer: logits {max(errs)}, state {state_err}, conv window {conv_ok}",
+    )
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "batch": B, "prompt": S, "steps": steps,
+        "split_calls": calls[0],
+        "bit_for_bit": all(torch.equal(g, w) for g, w in zip(got, want)),
+        "max_abs_err": max(errs), "max_abs_err_by_call": errs,
+        "cache_bit_for_bit": all(torch.equal(state[k], cache[k]) for k in cache),
+        "state_rel_err": state_err, "cache_placements": placed,
+        "decode_collectives": counter.stats(),
+    }
 
 
 def _leaves(tree) -> list:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import math
 import re
 from collections import Counter
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor.debug import CommDebugMode
@@ -95,14 +95,56 @@ def _record(name: str, args, out) -> List[Tuple[str, torch.Tensor, tuple]]:
     return []
 
 
+def _group_name(args) -> Optional[str]:
+    """The process group's name of one collective op: the functional ops
+    take it as their last string (after the reduce op's name), the ``c10d``
+    ones as a boxed ``ProcessGroup``."""
+    import torch.distributed as dist
+
+    for a in reversed(args):
+        if isinstance(a, str):
+            return a
+        if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(a._type()):
+            return dist.ProcessGroup.unbox(a).group_name
+    return None
+
+
+def group_ranks(name: Optional[str]) -> Optional[Tuple[int, ...]]:
+    """The global ranks of the process group named ``name`` (``groups``'
+    entries), or None.  Compare groups by their ranks, not by name: two
+    ``DeviceMesh``es of one layout compare equal, and DTensor's cached
+    sharding plans may run a later mesh's collectives over the earlier
+    mesh's groups of the same ranks."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    if name is None:
+        return None
+    return tuple(dist.get_process_group_ranks(_resolve_process_group(name)))
+
+
 class CollectiveCounter(CommDebugMode):
     """``CommDebugMode`` that also keeps, per collective call, its kind
     (the reference's HLO names), result dtype and result shape
-    (``records``: ``(kind, hlo dtype, shape)``)."""
+    (``records``: ``(kind, hlo dtype, shape)``) and, beside each record, the
+    name of the process group it ran over (``groups``; ``group_ranks``
+    gives its ranks)."""
 
     def __init__(self):
         super().__init__()
         self.records: List[Tuple[str, str, tuple]] = []
+        self.groups: List[Optional[str]] = []
+
+    def __enter__(self):
+        super().__enter__()
+        # no per-module tables here: ``CommDebugMode``'s module tracker keeps
+        # one forward hook a module name and leaves those of modules that
+        # share a name on them after it exits, where they break the next
+        # counter's run (a counted prefill, then a counted decode step)
+        tracker = getattr(self, "advanced_module_tracker", None)
+        if tracker is not None:
+            tracker.__exit__()
+        return self
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = super().__torch_dispatch__(func, types, args, kwargs)
@@ -110,6 +152,7 @@ class CollectiveCounter(CommDebugMode):
         if name.startswith(("c10d::", "_c10d_functional::", "c10d_functional::")):
             for kind, t, shape in _record(name, args, out):
                 self.records.append((kind, HLO_DTYPES.get(t.dtype, str(t.dtype)), tuple(shape)))
+                self.groups.append(_group_name(args))
         return out
 
     def stats(self) -> Dict[str, float]:

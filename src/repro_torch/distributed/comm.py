@@ -10,8 +10,9 @@ its gradient by ``all_gather``; ``all_gather`` sums the ranks' gradients
 and keeps the rank's slice where the ranks go on to compute different
 things from the gathered value (``varying``, e.g. each model rank's own
 experts), and only keeps its slice where they compute the same thing.
-``reduce_scatter`` runs as NCCL's on the card and as an ``all_reduce`` and
-a slice under gloo, which has none.
+``reduce_scatter`` runs as the group's own (NCCL's on the card, the fake
+group's in the dry run, whose counter then sees what NCCL would move) and
+as an ``all_reduce`` and a slice under gloo, which has none.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    if dist.get_backend(group) == dist.Backend.NCCL:
+    if dist.get_backend(group) != dist.Backend.GLOO:
         x = x.movedim(dim, 0).contiguous()
         out = x.new_empty((x.shape[0] // _size(group), *x.shape[1:]))
         dist.reduce_scatter_tensor(out, x, group=group)

@@ -18,8 +18,9 @@ which ``.gitignore`` lists):
   * ``step``: one step of the cell run under ``FakeTensorMode`` (shapes
     only, nothing computed or allocated) inside ``analysis.collectives.
     CollectiveCounter``: the collectives' kinds, calls and bytes with the
-    reference's ring model.  Peak activation memory is not reported: the
-    reference reads XLA's ``temp_size``; ``torch.distributed._tools.
+    reference's ring model, and each call's kind, dtype and shape beside
+    the ranks of the group it ran over.  Peak activation memory is not
+    reported: the reference reads XLA's ``temp_size``; ``torch.distributed._tools.
     mem_tracker.MemTracker`` under fake tensors counted 217 GB a rank for
     stablelm-1.6b's train_4k step, which the rank's local shapes do not
     account for, so no estimate is kept.  Train cells run the sharded train step
@@ -66,10 +67,12 @@ def fake_world(world: int) -> None:
 
 
 def _step(cell, cfg, run, mesh) -> dict:
-    """One step of ``cell`` under fake tensors: its collectives."""
+    """One step of ``cell`` under fake tensors: its collectives, each call's
+    ``(kind, dtype, shape)`` beside the ranks of the group it ran over
+    (``records``), and each mesh dim's group's ranks."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.analysis.collectives import CollectiveCounter
+    from repro_torch.analysis.collectives import CollectiveCounter, group_ranks
     from repro_torch.distributed.train import shard_train_state
     from repro_torch.models import moe
 
@@ -111,7 +114,15 @@ def _step(cell, cfg, run, mesh) -> dict:
                 cell.fn(*args)
     finally:
         moe._fractal_perm.cache_clear()
-    return {"status": "ok", "seconds": time.time() - t0, "collectives": counter.stats()}
+    return {
+        "status": "ok",
+        "seconds": time.time() - t0,
+        "collectives": counter.stats(),
+        "records": [(r, group_ranks(g)) for r, g in zip(counter.records, counter.groups)],
+        "mesh_groups": {
+            n: tuple(dist.get_process_group_ranks(mesh.get_group(n))) for n in mesh.mesh_dim_names
+        },
+    }
 
 
 def _fake_train_state(cfg, run):

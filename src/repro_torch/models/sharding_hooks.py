@@ -115,7 +115,11 @@ def on_batch_rows(fn, rows: tuple, whole: tuple = (), outs: tuple = ("rows",)):
     """``fn(*rows, *whole)`` as each rank's code on its batch rows, where
     the computation is independent across batch rows (each row's sequence
     whole) but has no DTensor strategy of its own (the MoE's routing
-    algebra, the SSD scan).  ``rows`` are tensors (or trees of them) with
+    algebra, the SSD scan): the MoE where ``model`` does not divide its
+    experts, and the SSD where ``model`` does not divide its heads (the
+    rules keep those weights whole there; where ``model`` divides them the
+    MoE runs expert-parallel and the SSD split over its heads, with explicit
+    collectives).  ``rows`` are tensors (or trees of them) with
     the batch on dim 0, ``whole`` trees of tensors every rank takes whole
     (the weights, gathered from TP and FSDP).  The batch keeps the split
     that the first DTensor of ``rows`` gives it over the data-parallel mesh

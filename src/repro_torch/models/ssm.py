@@ -28,6 +28,13 @@ min(ssm_chunk, S)``: a prompt longer than a chunk must be a whole number of
 chunks.  The port keeps that contract and raises ``ValueError`` where the
 reference asserts; it does not pad, which would serve prompts the
 reference's engine refuses.
+
+In a sharded step (DTensor inputs) the mixer runs split over its heads on
+the mesh's ``model`` dim where that dim divides them (``heads_split``,
+``SSMBlock._mix_heads``: each rank holds its heads' blocks of the weights
+and of the state, as the reference's rules lay them out), and per batch
+row with the weights gathered where it does not (``SSMBlock._mix_rows``,
+where the rules keep the weights whole).
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, rmsnorm
-from repro_torch.models.sharding_hooks import on_batch_rows, whole_sequence_grad
+from repro_torch.models.sharding_hooks import on_batch_rows, replicated, whole_sequence_grad
 
 
 def ssm_specs(cfg: ModelConfig) -> dict:
@@ -176,6 +183,14 @@ def ssd_chunked(
     return y, S_prev.reshape(b, h, p, n)
 
 
+def heads_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether a sharded step runs the mixer split over its heads on
+    ``mesh``'s ``model`` dim (``SSMBlock._mix_heads``): where that dim
+    divides the heads, as the reference's rules split the weights there."""
+    names = mesh.mesh_dim_names
+    return "model" in names and cfg.ssm_num_heads % mesh.size(names.index("model")) == 0
+
+
 class SSMBlock(torch.nn.Module):
     """The mamba2 mixer (the reference's ``ssm_block``): weight matrices and
     conv taps in the compute dtype, ``A_log``, ``D``, ``dt_bias`` and the
@@ -200,10 +215,17 @@ class SSMBlock(torch.nn.Module):
         recurrent step (S = 1), updating it in place."""
         if not isinstance(u, DTensor):
             return self._mix(u, cache, decode, self._parameters)
-        # the scan on DTensors (a sharded step): each rank's code on its
-        # batch rows, each row's sequence whole and the weights gathered
-        # (SSD has no DTensor strategy; rows are independent); a cache's new
-        # state comes back laid out as the cache's own
+        if heads_split(self.cfg, u.device_mesh):
+            return self._mix_heads(u, cache, decode)
+        return self._mix_rows(u, cache, decode)
+
+    def _mix_rows(self, u, cache: Optional[SSMCache], decode: bool):
+        """The mixer on DTensors where ``model`` does not divide the heads
+        (the rules keep the weights whole there, as the reference's
+        ``spec_for_param``): each rank's code on its batch rows, each row's
+        sequence whole and the weights gathered (SSD has no DTensor
+        strategy; rows are independent); a cache's new state comes back
+        laid out as the cache's own."""
         p = dict(self._parameters)
         if cache is None:
             y = on_batch_rows(lambda u, p: self._mix(u, None, decode, p), (u,), (p,))
@@ -218,12 +240,119 @@ class SSMBlock(torch.nn.Module):
         cache.conv.copy_(conv)
         return whole_sequence_grad(y)
 
-    def _mix(self, u, cache: Optional[SSMCache], decode: bool, p) -> torch.Tensor:
-        """The mixer on plain tensors, ``p`` its parameters by name."""
+    def _mix_heads(self, u, cache: Optional[SSMCache], decode: bool):
+        """The mixer split over its heads on ``model``, as the reference's
+        layout splits it: each rank's code (``distributed.comm``'s
+        collectives) on its batch rows (the split the data-parallel mesh
+        dims give ``u``'s dim 0) and its ``h / tp`` heads.
+
+        ``u`` is taken whole over ``model`` (gathered from sequence
+        parallelism, as the attention's input is).  ``w_z``, ``w_x``,
+        ``conv_x``, ``w_dt`` are the rank's column blocks, ``A_log``, ``D``,
+        ``dt_bias`` and ``norm`` its heads' and channels', ``out_proj`` its
+        row block; ``w_B``, ``w_C``, ``conv_B``, ``conv_C`` stay whole (one
+        group: every head reads the same B and C).  Under FSDP the weights'
+        ``data`` blocks are gathered, as every other layer's; nothing of a
+        weight moves over ``model``.  The gated norm averages over all of
+        ``d_inner``: each rank's float32 sum of squares (``[B, S, 1]``) is
+        all-reduced over ``model``.  ``out_proj``'s product, a partial sum
+        over ``model``, is reduce-scattered along the sequence where ``u``
+        came split by it (sequence parallelism), else all-reduced.
+
+        Gradients: ``u``'s and the whole weights' come back ``Partial`` over
+        ``model`` (each rank backpropagates its own heads' share), every
+        weight's ``Partial`` over the mesh dims that split the batch; the
+        norm's sum carries the sum of the ranks' gradients back
+        (``comm.vary``).
+
+        A cache's state ``ssm [B, h, p, n]`` stays on the rank's heads: it
+        is read and written where it lies.  Its conv window ``conv [B, W -
+        1, d_inner + 2 g n]`` is split over its concatenated channels on
+        ``model`` (the reference's layout), which do not align with the
+        rank's ``x`` channels beside whole B and C: a decode step gathers
+        the window over ``model`` (``B_l (W - 1) C`` elements a rank) and
+        the new row's ``x`` (``B_l d_inner``), a prefill the last ``W - 1``
+        rows of its ``x`` (``B_l (W - 1) d_inner``), and each rank writes
+        back its own channels of the new window.  In bf16 at mamba2-1.3b's
+        widths (C 4352, d_inner 4096) and 8 rows a rank (decode_32k on the
+        (16, 16) mesh), that is 209 KB and 66 KB a layer and decode step on
+        the ring model, and 197 KB a layer at prefill."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        from repro_torch.distributed import comm
+
+        cfg = self.cfg
+        if cfg.ssm_num_groups != 1:
+            raise ValueError(
+                f"the SSD split over its heads takes one group of B and C; got "
+                f"ssm_num_groups = {cfg.ssm_num_groups}: a rank's heads would need their "
+                "own groups' B and C"
+            )
+        mesh = u.device_mesh
+        mi = mesh.mesh_dim_names.index("model")
+        group = mesh.get_group(mi)
+
+        def at_model(pl, p) -> tuple:
+            return (*pl[:mi], p, *pl[mi + 1 :])
+
+        rows = tuple(
+            Shard(0) if i != mi and p.is_shard(0) else Replicate()
+            for i, p in enumerate(u.placements)
+        )
+        batch_grad = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+        sp = u.placements[mi].is_shard(1)
+
+        def local(t, want, grad):
+            return replicated(mesh, t).redistribute(mesh, want).to_local(grad_placements=grad)
+
+        u_l = local(u, at_model(rows, Replicate()), at_model(rows, Partial()))
+        p = {}
+        for name, spec in ssm_specs(cfg).items():
+            dim = next((i for i, a in enumerate(spec.axes) if a in ("mlp", "heads")), None)
+            split = Replicate() if dim is None else Shard(dim)
+            want = at_model((Replicate(),) * mesh.ndim, split)
+            grad = at_model(batch_grad, Partial() if dim is None else split)
+            p[name] = local(self._parameters[name], want, grad)
+
+        c = None
+        if cache is not None:
+            di, di_l = cfg.d_inner, p["w_x"].shape[-1]
+            state_pl = at_model(rows, Shard(1))
+            whole_pl = at_model(rows, Replicate())
+            ssm = cache.ssm.redistribute(mesh, state_pl).to_local().clone()
+            if decode:
+                win = cache.conv.redistribute(mesh, whole_pl).to_local()
+                x0 = mesh.get_local_rank(mi) * di_l
+                conv = torch.cat([win[..., x0 : x0 + di_l], win[..., di:]], dim=-1)
+            else:  # a prefill reads no window
+                win = None
+                shape = (u_l.shape[0], cfg.ssm_conv_width - 1, di_l + cfg.ssm_conv_dim - di)
+                conv = u_l.new_empty(shape, dtype=cache.conv.dtype)
+            c = SSMCache(ssm, conv)
+        y = self._mix(u_l, c, decode, p, norm_group=group)
+        if c is not None:
+            fresh = c.conv[:, -1:] if decode else c.conv
+            x_new = comm.all_gather(fresh[..., :di_l], 2, group, varying=False)
+            fresh = torch.cat([x_new, fresh[..., di_l:]], dim=-1)
+            conv = fresh if win is None else torch.cat([win[:, 1:], fresh], dim=1)
+            cache.ssm.copy_(DTensor.from_local(c.ssm, mesh, state_pl, run_check=False))
+            cache.conv.copy_(DTensor.from_local(conv, mesh, whole_pl, run_check=False))
+        y = comm.reduce_scatter(y, 1, group) if sp else comm.all_reduce(y, group)
+        out_pl = at_model(rows, Shard(1) if sp else Replicate())
+        return DTensor.from_local(y, mesh, out_pl, run_check=False)
+
+    def _mix(
+        self, u, cache: Optional[SSMCache], decode: bool, p, norm_group=None
+    ) -> torch.Tensor:
+        """The mixer on plain tensors, ``p`` its parameters by name: all the
+        heads, or (``norm_group``, ``_mix_heads``) a rank's heads, whose
+        gated norm sums its squares over the group's ranks; the heads and
+        ``d_inner`` are those of ``p``'s blocks, a cache's conv window
+        holds their ``x`` channels beside B and C."""
         cfg = self.cfg
         Bsz, S, _ = u.shape
-        h, ph, n, g = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim, cfg.ssm_num_groups
-        di, W = cfg.d_inner, cfg.ssm_conv_width
+        ph, n, g = cfg.ssm_head_dim, cfg.ssm_state_dim, cfg.ssm_num_groups
+        h, di, W = p["w_dt"].shape[-1], p["w_x"].shape[-1], cfg.ssm_conv_width
         dtype, f32 = u.dtype, torch.float32
         z = u @ p["w_z"].to(dtype)
         xr = u @ p["w_x"].to(dtype)
@@ -275,5 +404,23 @@ class SSMBlock(torch.nn.Module):
 
         y = y + p["D"].to(dtype)[:, None] * xh
         y = y.reshape(Bsz, S, di)
-        y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+        y = y * F.silu(z)
+        if norm_group is None:
+            y = rmsnorm(y, p["norm"], cfg.norm_eps)
+        else:
+            y = _rmsnorm_split(y, p["norm"], cfg.norm_eps, cfg.d_inner, norm_group)
         return y @ p["out_proj"].to(dtype)
+
+
+def _rmsnorm_split(x, scale, eps: float, width: int, group) -> torch.Tensor:
+    """``layers.rmsnorm`` over a feature dim of ``width`` split over
+    ``group``'s ranks, ``x`` and ``scale`` the rank's block of it: the
+    float32 sums of squares all-reduced (their gradient summed over the
+    group, where each rank normalises its own block), divided by the whole
+    width."""
+    from repro_torch.distributed import comm
+
+    dt = x.dtype
+    x = x.float()
+    ss = comm.vary(comm.all_reduce(x.square().sum(-1, keepdim=True), group), group)
+    return (x * torch.rsqrt(ss / width + eps) * scale.float()).to(dt)
