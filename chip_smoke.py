@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
-Phases, one JSON line each; any failure exits non-zero:
+Phases, one JSON line each (``t_s``: its seconds since the script started);
+any failure exits non-zero:
 
   1. build      compile every kernel of the port from ``src/repro_torch``
                 (one ``nvcc`` per source, all started together)
@@ -33,7 +34,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 these the count predicted from its drain, and it must equal
                 ``arbiter="ref"`` key for key
   5. profile    device kernels, device busy time and idle share per steady
-                cycle of the main path: fixed-horizon runs of 8 and 72
+                cycle of the main path: fixed-horizon runs of 8 and 24
                 cycles, differenced, under ``torch.profiler`` for device
                 time and without it for host time
   6. timing     per-call device time of each kernel, its plain version and
@@ -41,6 +42,20 @@ Phases, one JSON line each; any failure exits non-zero:
                 the main path's shape (B = 1) and a sweep's (B = 64), each
                 beside the empty kernel of its launch shape (its floor) and
                 at every cluster size
+  6p. paper_jobs  the paper's seven jobs that no other phase runs, through
+                ``repro_torch.paper`` at ``PAPER_JOBS`` (``benchmarks/run.py``'s
+                sizes): fig5_bulk (each payload's read and write as two lanes
+                of one batch), fig67_traces, comparators (the ``linear`` and
+                ``no_fractal`` bank maps), qos_isolation (B = 2), pool_balance
+                (host only), qos_isolation_sweep (B = 4) and slice_scaling
+                (1, 2 and 4 slices); each with its own asserts, its returned
+                dict and every lane's drained cycle against
+                ``paper_reference.json`` (every float to the bit), its arbiter
+                launches equal to the cycle bodies stepped in every simulator
+                run and these to the count predicted from the drains, and
+                ``<job>_seconds``; ``PAPER_CARD_CUTS`` names what the card
+                runs in place of ``PAPER_JOBS`` (fig5 without its 1024 KB
+                pair: a cut of the script's time), held to the capture's rows
   7. moe_whitening  the paper's MoE-whitening check: the reference
                 benchmark's inputs through the port's ``route`` with the
                 fractal slot permutation on and off, its two asserts, its
@@ -56,6 +71,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 weights keep the reference's init with ``wq``/``wk`` scaled
                 by 1/8: see ``_tempered``)
   9. serving_profile  device kernels, busy time and idle share per decode step
+                (2 decode-only steps under the profiler)
   10. llm_timing the three serving kernels' timing rows at the path's shapes
                 (and flash at the short prompts, S = 128 and 517); flash
                 against SDPA at S = 1024 in alternating rounds of queued calls;
@@ -64,7 +80,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 over twice L2) and the floor of an empty kernel of its
                 launch shape
   11. serving_moe  the MoE serving path: olmoe-1b-7b at full width (64
-                experts, top-8, QK-norm) with the same request mix and
+                experts, top-8, QK-norm) and 8 of its 16 layers (a cut of
+                the script's time, ``SERVE_LAYERS``) with the same request mix and
                 checks as 8 (no tempering: QK-norm keeps the scores of unit
                 scale), and the share of routing decisions that agree
                 between the kernel run and each teacher-forced run; then its
@@ -72,9 +89,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 their weight-read bound) and its kernels' timing rows (as 10,
                 flash at S = 1024)
   11m. serving_mla  the MLA serving path: deepseek-v2-lite-16b at full width
-                (27 layers, d 2048, 16 heads, kv_lora_rank 512, qk 128 + 64,
-                v 128, 64 experts top-6 of 1408 plus 2 shared, 16.2 B
-                parameters) with the same request mix and checks as 8: one
+                (d 2048, 16 heads, kv_lora_rank 512, qk 128 + 64, v 128, 64
+                experts top-6 of 1408 plus 2 shared) and 9 of its 27 layers
+                (``SERVE_LAYERS``) with the same request mix and checks as 8: one
                 576-wide latent row per token and layer in the pool (W =
                 15552), prefill through flash at QK width 192 / V width 128,
                 decode through the latent paged call in the absorbed form;
@@ -92,17 +109,16 @@ Phases, one JSON line each; any failure exits non-zero:
                 latent call at the first wave's mid-decode lengths with an
                 idle slot; banked_copy at the 497,664-byte tile)
   11d. serving_dense7b, serving_vlm, serving_3b  the dense configs at full
-                width with the checks of 8 and their profiles and timing
-                rows (flash at S = 1024): deepseek-7b (30 layers, 32 heads
-                of 128, 6.91 B parameters), tempered, teacher forced in bf16
-                and float32; chameleon-34b (family vlm run as the reference
-                runs it, a dense GQA 64:8 stack with QK-norm, 48 layers,
-                34.29 B parameters: 68.6 GB of bf16 weights beside its 6.44
-                GB pool), untempered, teacher forced in bf16 only (137 GB in
-                float32); stablelm-3b (32 heads of 80: every serving kernel
-                at D = 80), tempered, bf16 and float32.  Each prints its
-                seconds
-  11s. serving_swa, serving_ssm  h2o-danube-1.8b at full width and 12 of
+                width and cut depth (``SERVE_LAYERS``) with the checks of 8
+                and their profiles and timing rows (flash at S = 1024):
+                deepseek-7b (10 of 30 layers, 32 heads of 128), tempered,
+                teacher forced in bf16 and float32; chameleon-34b (family
+                vlm run as the reference runs it, a dense GQA 64:8 stack
+                with QK-norm, 16 of 48 layers), untempered, teacher forced
+                in bf16 only; stablelm-3b (8 of 32 layers, 32 heads of 80:
+                every serving kernel at D = 80), tempered, bf16 and float32.
+                Each prints its seconds
+  11s. serving_swa, serving_ssm  h2o-danube-1.8b at full width and 6 of
                 its 24 layers (a cut of the script's time; GQA 32:8 at 80, a
                 4096-token sliding window), tempered, with the checks of 8 on the FULL mix
                 (the window never masks there) and on the WINDOW mix (4
@@ -110,8 +126,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 position 4096: the paged kernel masks the keys before the
                 window), its WINDOW decode profiled and timing rows 3w
                 (paged with the window) and 4w (prefill flash at S 8192);
-                then mamba2-1.3b at full width and depth (48 SSM layers, tied
-                embeddings, 1.34 B parameters) on the FULL_SSD mix:
+                then mamba2-1.3b at full width and 12 of its 48 SSM layers
+                (tied embeddings; ``SERVE_LAYERS``) on the FULL_SSD mix:
                 isolation every step, the KV record, no attention or
                 banked_copy launch, each slot's SSM state beside the pool,
                 its decode profiled, and its two forms in float32 at 12
@@ -211,15 +227,15 @@ Phases, one JSON line each; any failure exits non-zero:
                  backward at q/k 192, v 128) with 4 of 27 layers at B 2 x S
                  4096, three steps kernel against plain, launches 24 / 12,
                  step time, tokens/s, peak memory and model-FLOPs share;
-                 stablelm-3b at full width and 16 of 32 layers (``train_3b``:
+                 stablelm-3b at full width and 8 of 32 layers (``train_3b``:
                  B 4 x S 4096, AdamW, remat full, three steps kernel against
-                 plain, launches 96 / 48); h2o-danube-1.8b at full width and
-                 12 of 24 layers (``train_swa``: S 8192, past its 4096-token window; three
+                 plain, launches 48 / 24); h2o-danube-1.8b at full width and
+                 6 of 24 layers (``train_swa``: S 8192, past its 4096-token window; three
                  steps kernel against plain at B 1, three timed kernel steps
                  at B 2, tokens/s, model-FLOPs share over the window's pairs,
                  peak memory; the forward's lse and the backward with the
                  window among the kernel checks; rows 4tw and 5w); mamba2-1.3b
-                 at full width and depth (``train_ssm``: B 4 x S 4096, AdamW,
+                 at full width and 16 of 48 layers (``train_ssm``: B 4 x S 4096, AdamW,
                  three steps, no launch, the loss finite and falling, step
                  time, tokens/s, model-FLOPs share, peak memory); jamba's
                  super-block at a stated reduced width (``train_hybrid``: d
@@ -330,7 +346,12 @@ LATENT_MARK_FLAGS = ("-DLATENT_MARKS",)
 MARKED: dict = {}
 
 
+#: the script's start: every line carries its seconds since then (``t_s``)
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
+    fields["t_s"] = time.perf_counter() - T0
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -696,8 +717,10 @@ def phase_full_width() -> dict:
     return main
 
 
-#: cycles of each profiled window beyond its lead-in run
-PROFILE_CYCLES = 64
+#: cycles of each profiled window beyond its lead-in run: the profiler's
+#: host cost grows with the kernel events it records (~330-1300 a cycle):
+#: at 64, the main path's window alone took 10.3 s on one H100 (PERF.md §4)
+PROFILE_CYCLES = 16
 #: cycles of the lead-in run whose set-up the window subtracts
 WINDOW_LEAD = 8
 #: unprofiled runs of each length, the fastest of which gives host time
@@ -1480,6 +1503,98 @@ def phase_fuzz() -> dict:
     _held_to_reference("fuzz planted", outcome.reproducers, want, COSIM_CAPTURE)
     emit("fuzz_planted", **runs["fuzz_planted"], shrunk=outcome.reproducers[0]["shrunk"])
     return runs
+
+
+#: the capture the paper jobs are held to
+PAPER_CAPTURE = "paper_reference.json"
+#: job -> arguments the card runs in place of ``PAPER_JOBS``'s, held to the
+#: capture's rows and drains of what it runs: fig5's 1024 KB pair (32,800 of
+#: the phase's 111,168 cycles; on an H100 80GB HBM3 at 700 W the phase took
+#: 57.8 s uncut, and the script 1018.5 s without the phase, against its
+#: 1050 s aim).  ``python -m repro_torch.paper --only fig5_bulk`` runs it uncut
+PAPER_CARD_CUTS = {"fig5_bulk": dict(payloads_kb=(4, 16, 64, 256))}
+
+
+@contextlib.contextmanager
+def sim_runs():
+    """While active, one record per simulator run (each ``simulate`` call and
+    each chunk of a ``simulate_batch`` call): its arbiter launches, cycle
+    bodies stepped, the drained cycle of each lane and the cycle bodies
+    ``predicted_cycles`` gives for them."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels import LAUNCHES
+
+    runs = []
+
+    def wrap(inner):
+        def run(args, prm, use_sched):
+            l0, c0 = LAUNCHES["bank_arbiter"], sim.DRIVER_COUNTS["cycles"]
+            out = inner(args, prm, use_sched)
+            drains = out["drained_cycle"].cpu().numpy().reshape(-1)
+            runs.append(
+                dict(
+                    launches=LAUNCHES["bank_arbiter"] - l0,
+                    stepped=sim.DRIVER_COUNTS["cycles"] - c0,
+                    drains=drains.tolist(),
+                    predicted=predicted_cycles(drains, prm),
+                )
+            )
+            return out
+
+        return run
+
+    with _patched(sim, "_run", wrap):
+        yield runs
+
+
+def phase_paper_jobs() -> dict:
+    """The paper's seven jobs that no other phase runs (``fig5_bulk``,
+    ``fig67_traces``, ``comparators``, ``qos_isolation``, ``pool_balance``,
+    ``qos_isolation_sweep``, ``slice_scaling``) through ``repro_torch.paper``
+    on the card at ``PAPER_JOBS`` (module docstring, 6p); returns each job's
+    row for the kernels line."""
+    from repro_torch.data import PAPER_JOBS, paper_record, paper_reference
+    from repro_torch.paper import job_table
+
+    ref = paper_reference()["jobs"]
+    table = job_table()
+    rows = {}
+    for name, args in PAPER_JOBS.items():
+        want = ref[name]
+        check(want["args"] == paper_record(args), f"{name}: the capture's arguments {want['args']}")
+        run_args = {**args, **PAPER_CARD_CUTS.get(name, {})}
+        t0 = time.perf_counter()
+        with sim_accounting() as acc, sim_runs() as runs:
+            out, wall, launches, stepped = counted(lambda: table[name][0](**run_args))
+        got = paper_record(out)
+        drains = [d for r in runs for d in r["drains"]]
+        if name in PAPER_CARD_CUTS:  # the rows it ran, and their lanes' drains
+            want = dict(want, result={k: want["result"][k] for k in got})
+            want["drains"] = want["drains"][: len(drains)]
+        _held_to_reference(name, got, want["result"], PAPER_CAPTURE)
+        check(drains == want["drains"], f"{name}: drains {drains}, the capture's {want['drains']}")
+        check(launches == stepped, f"{name}: {launches} arbiter launches for {stepped} cycles")
+        for i, r in enumerate(runs):
+            check(r["launches"] == r["stepped"], f"{name} run {i}: launches vs cycles {r}")
+            check(r["stepped"] == r["predicted"], f"{name} run {i}: cycles stepped vs drains {r}")
+        rows[name] = {
+            "args": paper_record(run_args),
+            "simulator_runs": len(runs),
+            "lanes_per_run": [len(r["drains"]) for r in runs],
+            "drains": drains,
+            "stepped_per_run": [r["stepped"] for r in runs],
+            "arbiter_launches": launches,
+            "host_s": wall,
+            "stepped_cycles": stepped,
+            "cycles_per_s": stepped / wall,
+            "lane_cycles_per_s": sum(r["stepped"] * len(r["drains"]) for r in runs) / wall,
+            "loop_s": acc["loop_s"],
+            "capture_s": acc["capture_s"],
+            "captures": acc["captures"],
+        }
+        emit("paper_job", job=name, **rows[name], result=got)
+        emit(f"{name}_seconds", seconds=time.perf_counter() - t0)
+    return rows
 
 
 def phase_timing(launches: int, max_abs_err: int) -> dict:
@@ -2296,6 +2411,20 @@ FORCING_BOUNDS = {
 #: kept, every width the published one: 25.82 B parameters, 51.6 GB of bf16
 #: weights (one super-block with all 16 experts is 90.3 GB, over the card)
 HYBRID_SERVE_LAYERS, HYBRID_SERVE_EXPERTS = 8, 8
+#: depth cuts of the serving paths beside the main one (stablelm-1.6b stays
+#: at full depth), a cut of the script's time: with every one of them at
+#: full depth the script ran 1217.7 s on one H100, over its 1200 s limit
+#: (PERF.md §4).  Every width is the published one, so every kernel keeps
+#: its shapes, and each path keeps its checks (launches, isolation every
+#: step, the KV record, teacher forcing, routing agreement)
+SERVE_LAYERS = {
+    "olmoe-1b-7b": 8,
+    "deepseek-v2-lite-16b": 9,
+    "deepseek-7b": 10,
+    "chameleon-34b": 16,
+    "stablelm-3b": 8,
+    "mamba2-1.3b": 12,
+}
 #: mamba2-1.3b's two forms of one function on the card (float32): the
 #: chunked prefill of 8 prompts of 512 tokens (two 256-token chunks) and 512
 #: recurrent decode steps from a zero state, held to each other as the
@@ -2387,44 +2516,64 @@ def phase_serving() -> dict:
     return _serving_path("stablelm-1.6b", "serving", temper=True)
 
 
+def _serve_cut(arch: str):
+    """``arch``'s config at its serving depth cut (``SERVE_LAYERS``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    return serve.cut(get_config(arch), layers=SERVE_LAYERS[arch])
+
+
 def phase_serving_moe() -> dict:
-    """The MoE serving path: olmoe-1b-7b at full width, untempered (its
-    QK-norm keeps the attention scores of unit scale), with the routing
-    decisions of the kernel and teacher-forced runs compared."""
-    return _serving_path("olmoe-1b-7b", "serving_moe", temper=False)
+    """The MoE serving path: olmoe-1b-7b at full width and ``SERVE_LAYERS``
+    of its 16 layers, untempered (its QK-norm keeps the attention scores of
+    unit scale), with the routing decisions of the kernel and teacher-forced
+    runs compared."""
+    arch = "olmoe-1b-7b"
+    return _serving_path(arch, "serving_moe", temper=False, cfg=_serve_cut(arch))
 
 
 def phase_serving_mla() -> dict:
-    """The MLA serving path: deepseek-v2-lite-16b at full width (27 layers,
-    16.2 B parameters), ``wq``/``w_uk`` tempered, decoding in the absorbed
-    form over the pool's latent rows; teacher forced in bf16 only (float32
-    weights, 64.8 GB beside the bf16 model's 32.4 GB, do not fit the card),
-    with the plain absorbed and non-absorbed forms also held to each other."""
-    return _serving_path("deepseek-v2-lite-16b", "serving_mla", temper=True, f32_forcing=False)
+    """The MLA serving path: deepseek-v2-lite-16b at full width and
+    ``SERVE_LAYERS`` of its 27 layers (16.2 B parameters at 27),
+    ``wq``/``w_uk`` tempered, decoding in the absorbed form over the pool's
+    latent rows; teacher forced in bf16 only (as at full depth, where the
+    float32 weights, 64.8 GB beside the bf16 model's 32.4 GB, do not fit the
+    card), with the plain absorbed and non-absorbed forms also held to each
+    other."""
+    arch = "deepseek-v2-lite-16b"
+    return _serving_path(
+        arch, "serving_mla", temper=True, f32_forcing=False, cfg=_serve_cut(arch)
+    )
 
 
 def phase_serving_dense7b() -> dict:
-    """deepseek-7b at full width (30 layers, d 4096, 32 heads of 128, MHA,
-    6.91 B parameters, 13.8 GB of bf16 weights; a 245760-wide pool row),
-    ``wq``/``wk`` tempered; teacher forced in bf16 and float32 (the float32
-    model, 27.6 GB, and its float32 pool, 32.2 GB, fit beside the bf16 one)."""
-    return _serving_path("deepseek-7b", "serving_dense7b", temper=True)
+    """deepseek-7b at full width (d 4096, 32 heads of 128, MHA) and
+    ``SERVE_LAYERS`` of its 30 layers (6.91 B parameters at 30),
+    ``wq``/``wk`` tempered; teacher forced in bf16 and float32."""
+    arch = "deepseek-7b"
+    return _serving_path(arch, "serving_dense7b", temper=True, cfg=_serve_cut(arch))
 
 
 def phase_serving_vlm() -> dict:
-    """chameleon-34b at full width (family vlm: 48 layers, d 8192, GQA 64:8 at
-    128 with QK-norm, 34.29 B parameters, 68.6 GB of bf16 weights beside a
-    6.44 GB pool), untempered as olmoe is (QK-norm keeps the scores of unit
-    scale); teacher forced in bf16 only (its float32 weights, 137 GB, do
-    not fit the card)."""
-    return _serving_path("chameleon-34b", "serving_vlm", temper=False, f32_forcing=False)
+    """chameleon-34b at full width (family vlm: d 8192, GQA 64:8 at 128 with
+    QK-norm) and ``SERVE_LAYERS`` of its 48 layers (34.29 B parameters at
+    48), untempered as olmoe is (QK-norm keeps the scores of unit scale);
+    teacher forced in bf16 only (as at full depth, where its float32
+    weights, 137 GB, do not fit the card)."""
+    arch = "chameleon-34b"
+    return _serving_path(
+        arch, "serving_vlm", temper=False, f32_forcing=False, cfg=_serve_cut(arch)
+    )
 
 
 def phase_serving_3b() -> dict:
-    """stablelm-3b at full width (32 layers, d 2560, 32 heads of 80: every
-    attention kernel at D = 80; 2.80 B parameters; a 163840-wide pool row),
-    ``wq``/``wk`` tempered; teacher forced in bf16 and float32."""
-    return _serving_path("stablelm-3b", "serving_3b", temper=True)
+    """stablelm-3b at full width (d 2560, 32 heads of 80: every attention
+    kernel at D = 80) and ``SERVE_LAYERS`` of its 32 layers (2.80 B
+    parameters at 32), ``wq``/``wk`` tempered; teacher forced in bf16 and
+    float32."""
+    arch = "stablelm-3b"
+    return _serving_path(arch, "serving_3b", temper=True, cfg=_serve_cut(arch))
 
 
 def phase_serving_swa_ssm(llm_errs: dict) -> list:
@@ -2472,9 +2621,9 @@ def phase_serving_swa() -> tuple:
 
 
 def phase_serving_ssm() -> dict:
-    """mamba2-1.3b at full width and depth (48 SSM layers, d 2048, 64 SSD
-    heads of 64 with a 128-wide state, tied embeddings, 1.34 B parameters)
-    on the FULL_SSD mix: the pool allocates and frees blocks as the
+    """mamba2-1.3b at full width (d 2048, 64 SSD heads of 64 with a 128-wide
+    state, tied embeddings) and ``SERVE_LAYERS`` of its 48 SSM layers (1.34
+    B parameters at 48) on the FULL_SSD mix: the pool allocates and frees blocks as the
     reference's engine does (its KV access record held to a traffic-only
     engine's), isolation every step, no attention or ``banked_copy``
     launch, each slot's SSM state and conv window beside the pool.  Then
@@ -2484,13 +2633,12 @@ def phase_serving_ssm() -> dict:
     a zero state."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.serving.record import KVAccessRecorder
 
-    cfg, spec = get_config("mamba2-1.3b"), serve.FULL_SSD
+    cfg, spec = _serve_cut("mamba2-1.3b"), serve.FULL_SSD
     t0 = time.perf_counter()
     model = M.init_params(cfg, 0)
     torch.cuda.synchronize()
@@ -3497,14 +3645,20 @@ def _serving_path(
     )
 
 
+#: decode-only steps of a serving path's profile: the profiler's host cost
+#: grows with the kernel events it records (~390-4430 a step), and 8 steps
+#: took 122 s of the script's 1217.7 s on one H100 (PERF.md §4)
+SERVING_PROFILE_STEPS = 2
+
+
 def phase_serving_profile(serving: dict) -> None:
-    """Where a decode step's time goes: 8 decode-only steps of the first wave
-    under ``torch.profiler`` against the unprofiled host time per step.  On
+    """Where a decode step's time goes: ``SERVING_PROFILE_STEPS``
+    decode-only steps of the first wave under ``torch.profiler`` against the unprofiled host time per step.  On
     an MoE path, also the expert products of one decode step (every layer's
     batched matmuls at the step's shapes) against their weight-read bound."""
     from repro_torch.launch import serve
 
-    spec, steps = serving["spec"], 8
+    spec, steps = serving["spec"], SERVING_PROFILE_STEPS
     eng, _ = serve.new_engine(
         serving["model"].cfg, serving["model"], spec, serving["prompts"][: spec.max_batch]
     )
@@ -3588,12 +3742,19 @@ def _timing_row(
     call from ctypes, and the profiler's per-call sessions drop some of
     them (in a profiled train step it records them all); banked_copy's
     rows and flash's serving rows too (the profiler read stablelm-3b's
-    flash at 8.69 us a call where its queued calls take 35.9)."""
-    call_ms = {k: time_ms(fn, iters, warmup=2 if queued else 20) for k, fn in fns.items()}
-    dev_ms = {k: device_ms(fn, max(5, iters // 5)) for k, fn in fns.items()}
+    flash at 8.69 us a call where its queued calls take 35.9).  The plain
+    version, 10-100 times slower than the kernel, is timed over a fifth of
+    ``iters`` calls (at least 2): at the training shapes (40-113 ms a call)
+    its calls took most of each row's time."""
+    n = {k: max(2, iters // 5) if k == "plain" else iters for k in fns}
+    call_ms = {k: time_ms(fn, n[k], warmup=2 if queued else 20) for k, fn in fns.items()}
+    dev_ms = {
+        k: device_ms(fn, max(2, n[k] // 5) if k == "plain" else max(5, n[k] // 5))
+        for k, fn in fns.items()
+    }
     ms = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in fns}
     if queued:
-        q_ms = {k: queued_ms(fn, iters) for k, fn in fns.items()}
+        q_ms = {k: queued_ms(fn, n[k]) for k, fn in fns.items()}
         ms = {k: q_ms[k] if q_ms[k] is not None else call_ms[k] for k in fns}
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / BF16_OPS_PER_S * 1e3
@@ -3744,7 +3905,8 @@ def phase_llm_timing(
     prompt (S = 1024; shorter ``flash_lengths`` on timing lines of their
     own), paged attention over 8 slots at the first wave's mid-decode
     lengths, banked_copy of a ``copy_blocks``-block burst into the
-    2048-block pool.  MLA's flash has QK width 192 and V width 128 at scale
+    2048-block pool (on a path at a depth cut, ``SERVE_LAYERS``, at the full
+    depth's pool row).  MLA's flash has QK width 192 and V width 128 at scale
     192^-0.5, and its paged call is the latent one (16 heads, K rows of 576,
     V their first 512 columns).  On whisper's path half of the paged
     launches are the cross-attention's (``_whisper_timing``): this row
@@ -3877,6 +4039,10 @@ def phase_llm_timing(
     del pool, kp, vp, kg, vg, lib
 
     nblk, W = copy_blocks, model.kv_width()
+    if cfg.name in SERVE_LAYERS:  # a depth cut: time the full depth's tile, as before the cut
+        from repro_torch.configs import get_config
+
+        W = W // cfg.num_attn_layers * get_config(cfg.name).num_attn_layers
     pool = _cuda_randn(gen, (NB, bs, W), bf16)
     burst = _cuda_randn(gen, (1, nblk, bs, W), bf16)
     tbl = _unique_tables(gen, 1, nblk, NB, [nblk])
@@ -3990,14 +4156,18 @@ TRAIN_3B_B = 4
 #: step, as train_4k's 4 x 4096 a card)
 SWA_TRAIN_S, SWA_TRAIN_B, SWA_TIMED_B = 8192, 1, 2
 #: depth cuts of earlier full-depth paths (the hybrid stack's phases pushed
-#: the script past its 1050 s aim: 1143.1 s on one H100, PERF.md §4):
-#: h2o-danube-1.8b served and trained at 12 of its 24 layers,
-#: stablelm-3b trained at 16 of its 32; every kernel keeps its shapes
-SWA_SERVE_LAYERS = SWA_TRAIN_LAYERS = 12
-TRAIN_3B_LAYERS = 16
-#: mamba2-1.3b's training run: full width and depth (AdamW's float32
-#: parameters, gradients and moments 21.4 GB), train_4k's batch of 256 cut
-#: to 4 sequences of 4096, the default run (LR 3e-4 after 20 warm-up steps)
+#: the script past its 1050 s aim: 1143.1 s on one H100, PERF.md §4; then
+#: the paper's jobs to 1217.7 s, over its 1200 s limit): h2o-danube-1.8b
+#: served and trained at 6 of its 24 layers (12 before the second cut),
+#: stablelm-3b trained at 8 of its 32 (16 before), mamba2-1.3b trained at
+#: 16 of its 48 (all 48 before); every kernel keeps its shapes
+SWA_SERVE_LAYERS = SWA_TRAIN_LAYERS = 6
+TRAIN_3B_LAYERS = 8
+SSM_TRAIN_LAYERS = 16
+#: mamba2-1.3b's training run: full width, ``SSM_TRAIN_LAYERS`` of its 48
+#: layers (at 48, AdamW's float32 parameters, gradients and moments 21.4
+#: GB), train_4k's batch of 256 cut to 4 sequences of 4096, the default run
+#: (LR 3e-4 after 20 warm-up steps)
 #: on one batch three times: the first step's LR is 0, so the second step's
 #: loss equals the first's, and the third reads the second step's update
 #: (LR 1.5e-5) on the batch it was taken on, which must lower the loss.
@@ -4758,8 +4928,9 @@ def _train_swa() -> dict:
 
 
 def _train_ssm() -> dict:
-    """mamba2-1.3b at full width and depth (48 SSD layers, tied embeddings,
-    1.34 B parameters; AdamW's float32 state 21.4 GB), the default run
+    """mamba2-1.3b at full width and ``SSM_TRAIN_LAYERS`` of its 48 SSD
+    layers (at 48, 1.34 B parameters, AdamW's float32 state 21.4 GB; tied
+    embeddings), the default run
     (remat full), B ``SSM_TRAIN_B`` x S 4096: three steps through
     ``make_train_step`` on one batch (``SSM_TRAIN_B`` says why) with no
     kernel launch (SSD has no TPU kernel), finite losses and the third
@@ -4769,7 +4940,7 @@ def _train_ssm() -> dict:
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.pipeline import TokenPipeline
 
-    cfg = get_config("mamba2-1.3b")
+    cfg = replace(get_config("mamba2-1.3b"), num_layers=SSM_TRAIN_LAYERS)
     run = RunConfig()
     batch = next(TokenPipeline(cfg.vocab_size, batch=SSM_TRAIN_B, seq_len=TRAIN_S, seed=0))
     r = _steps_kernel_vs_plain(
@@ -4782,7 +4953,10 @@ def _train_ssm() -> dict:
         "arch": cfg.name,
         "layers": cfg.num_layers,
         "params": cfg.num_params(),
-        "reduced": f"train_4k's batch of 256 cut to {SSM_TRAIN_B}; full width and depth",
+        "reduced": (
+            f"train_4k's batch of 256 cut to {SSM_TRAIN_B}; {SSM_TRAIN_LAYERS} of 48 layers (a "
+            "cut of the script's time); full width"
+        ),
         "batch": SSM_TRAIN_B,
         "seq": TRAIN_S,
         "optimizer": run.optimizer,
@@ -5699,6 +5873,7 @@ def main() -> int:
     main_path = timed_phase("fig4_table1", phase_full_width)
     timed_phase("profile", phase_profile, main_path)
     kernel = timed_phase("timing", phase_timing, main_path["launches"], max_abs_err)
+    paper = timed_phase("paper_jobs", phase_paper_jobs)
     llm_errs = timed_phase("llm_kernels", phase_llm_kernels)
     timed_phase("moe_whitening", phase_moe_whitening)
     rows = []
@@ -5734,6 +5909,7 @@ def main() -> int:
     }
     kernel["launches_by_path"] = {
         "fig4_x16": main_path["launches"],
+        **{f"paper_{k}": v["arbiter_launches"] for k, v in paper.items()},
         **{f"sweep_{k}": v["arbiter_launches"] for k, v in sweep.items()},
         **{f"cosim_{k}": v["arbiter_launches"] for k, v in cosim.items()},
     }

@@ -29,6 +29,12 @@ job (``FUZZ_JOB``) case by case, and the planted find with its shrunk spec
 slot permutation on and off: drop rate, the share of drops in the last
 quarter of the sequence, and every (b, s, k) expert choice and slot
 (:func:`moe_whitening_record`).  ``tests/data/capture_torch_moe.py`` makes it.
+
+``paper_reference.json`` holds the reference's results for seven of the
+paper's jobs at the arguments ``benchmarks/run.py`` passes them
+(``PAPER_JOBS``): each job's returned dict (:func:`paper_record`) and the
+drained cycle of every lane of every simulator call it makes, in call order.
+``tests/data/capture_torch_paper.py`` makes it.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ GOLDEN_INPUTS = Path(__file__).resolve().parent / "golden_inputs.npz"
 SWEEP_REFERENCE = Path(__file__).resolve().parent / "sweep_reference.json"
 COSIM_REFERENCE = Path(__file__).resolve().parent / "cosim_reference.json"
 MOE_REFERENCE = Path(__file__).resolve().parent / "moe_reference.json"
+PAPER_REFERENCE = Path(__file__).resolve().parent / "paper_reference.json"
 TRACE_COLUMNS = ("is_write", "burst", "addr", "start", "prio")
 
 #: metric keys the golden file pins
@@ -354,3 +361,42 @@ def moe_whitening_record(top_e, slot, capacity: int) -> dict:
 
 def moe_reference() -> dict:
     return json.loads(MOE_REFERENCE.read_text())
+
+
+# ---------------------------------------------------------------------------
+# The paper's jobs: the arguments the capture and the card run them at
+# ---------------------------------------------------------------------------
+
+#: job name (``benchmarks/run.py``'s) -> the keyword arguments ``run.py``
+#: passes without ``--full``, for the seven jobs ``paper_reference.json``
+#: holds (``slice_scaling`` is ``slice_scaling_bench``)
+PAPER_JOBS = {
+    "fig5_bulk": dict(payloads_kb=(4, 16, 64, 256, 1024)),
+    "fig67_traces": dict(max_txns=1200),
+    "comparators": {},
+    "qos_isolation": {},
+    "pool_balance": {},
+    "qos_isolation_sweep": dict(txns=64, max_cycles=10_000),
+    "slice_scaling": dict(txns=64, max_cycles=10_000),
+}
+
+
+def _plain(x):
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    raise TypeError(f"{type(x).__name__} is not a job result's type")
+
+
+def paper_record(result) -> dict:
+    """A job's returned dict as JSON keeps it: numpy scalars as Python
+    numbers, tuples as lists, integer keys as strings, NaN kept.  Takes the
+    reference's results and the port's alike."""
+    return json.loads(json.dumps(result, default=_plain))
+
+
+def paper_reference() -> dict:
+    """``paper_reference.json``: ``{"jobs": {name: {"args", "result",
+    "drains"}}}`` (see the module docstring)."""
+    return json.loads(PAPER_REFERENCE.read_text())

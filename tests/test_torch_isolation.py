@@ -1,6 +1,7 @@
 """The port stands alone: nothing in ``src/repro_torch`` or ``chip_smoke.py``
 imports JAX or the reference package, and the port (simulator, serving, the
-co-sim's recording and the fuzzer's sampling) runs with both blocked."""
+co-sim's recording, the fuzzer's sampling and the paper's jobs) runs with
+both blocked."""
 
 import ast
 import os
@@ -75,6 +76,9 @@ from repro_torch.models import ssm  # noqa: F401
 serve.main(["--smoke", "--device", "cpu", "--requests", "3", "--arch", "mamba2-1.3b"])
 serve.main(["--smoke", "--device", "cpu", "--requests", "3", "--arch", "h2o-danube-1.8b"])
 out = simulate(random_uniform(2, 4, burst=4, seed=1), SimParams(max_cycles=400), device="cpu")
+from repro_torch.paper.paper_figures import fig5_bulk, pool_balance
+assert pool_balance(device="cpu")["fractal"]["worst_imbalance"] > 0
+assert fig5_bulk(payloads_kb=(4,), device="cpu")[4]["read"]["ideal"] == 128
 assert bool(out["all_done"]) and out["throughput"].shape == (4,)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
