@@ -56,6 +56,20 @@ any failure exits non-zero:
                 ``<job>_seconds``; ``PAPER_CARD_CUTS`` names what the card
                 runs in place of ``PAPER_JOBS`` (fig5 without its 1024 KB
                 pair: a cut of the script's time), held to the capture's rows
+  6e. examples  the repo's seven example scripts through
+                ``repro_torch.examples`` at their own sizes (``EXAMPLES``):
+                memory_sim_sweep, adas_scenarios, qos_isolation and
+                slice_scaling, each one's printed text equal to the
+                reference's (``examples_reference.json``; adas_scenarios'
+                host timings masked), its arbiter launches equal to the cycle
+                bodies stepped; serve_batch (smoke stablelm-1.6b: 4 heads of
+                16, blocks of 8, 64-token contexts) and quickstart (40
+                training steps of it) with every flash, paged, banked_copy,
+                forward-with-lse and backward launch held to its plain version
+                on the same inputs (``EXAMPLE_TOLS``), serve_batch's fields
+                against the capture's and quickstart's loss falling;
+                long_context_decode's state KiB against the capture's (no
+                launch: mamba2's SSD is plain PyTorch); ``<name>_seconds``
   7. moe_whitening  the paper's MoE-whitening check: the reference
                 benchmark's inputs through the port's ``route`` with the
                 fractal slot permutation on and off, its two asserts, its
@@ -5838,6 +5852,195 @@ def _multi_device_ssd(mesh) -> dict:
     }
 
 
+#: the capture the examples are held to
+EXAMPLES_CAPTURE = "examples_reference.json"
+#: the kernels each model example must launch on its run (the examples'
+#: shapes: 4 heads of 16, blocks of 8, 64-token contexts); the SSM decode
+#: launches none (its SSD is plain PyTorch)
+EXAMPLE_KERNELS = {
+    "serve_batch": ("flash_attention", "paged_attention", "banked_copy"),
+    "quickstart": ("flash_attention", "flash_attention_bwd"),
+    "long_context_decode": (),
+}
+#: (example, kernel) -> the ``held_to_plain`` check that holds its calls
+EXAMPLE_HELD = {
+    ("serve_batch", "flash_attention"): "flash_attention",
+    ("serve_batch", "paged_attention"): "paged_attention",
+    ("serve_batch", "banked_copy"): "banked_copy",
+    ("quickstart", "flash_attention"): "flash_attention_fwd_lse",
+    ("quickstart", "flash_attention_bwd"): "flash_attention_bwd",
+}
+#: each example launch against its plain version on the same inputs, with
+#: ``_train_kernel_checks``'s tolerances: the outputs of flash, paged and the
+#: training forward and the backward's dQ, dK, dV relative to their largest
+#: entry (the model's attention outputs reach |13.5| at these widths, where
+#: one bf16 step is 0.0625: ``phase_llm_kernels``' absolute 2e-2 is for
+#: outputs of randn values, below 1), the log-sum-exp absolute, banked_copy's
+#: pool exact
+EXAMPLE_TOLS = {
+    "flash_attention": TRAIN_OUT_REL_TOL,
+    "paged_attention": TRAIN_OUT_REL_TOL,
+    "banked_copy": {"bf16": 0.0, "f32": 0.0},
+    "flash_attention_fwd_lse": TRAIN_OUT_REL_TOL,
+    "flash_attention_lse": TRAIN_LSE_TOL,
+    "flash_attention_bwd": TRAIN_BWD_REL_TOL,
+}
+
+
+@contextlib.contextmanager
+def held_to_plain():
+    """While active, every kernel call the model and the engine make through
+    their tables (``models.attention.ATTENTION``/``TRAIN_ATTENTION``,
+    ``serving.engine.BANKED_COPY``) is followed by its plain version on the
+    same inputs (banked_copy's on a copy of the pool taken before) and held
+    to ``EXAMPLE_TOLS``; yields ``{check: {"calls", "max_err", "tol",
+    "shapes"}}``.  The plain versions launch no kernel, so the launch counts
+    are the kernels' own."""
+    import torch
+
+    from repro_torch.kernels.banked_copy.ref import banked_copy_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        FlashAttentionFunction,
+        flash_attention_bwd_ref,
+        flash_attention_fwd_ref,
+        flash_attention_ref,
+    )
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import attention as A
+    from repro_torch.serving import engine as E
+
+    seen: dict = {}
+
+    def note(name, dtype, shape, err):
+        tol = EXAMPLE_TOLS[name]["bf16" if dtype == torch.bfloat16 else "f32"]
+        s = seen.setdefault(name, {"calls": 0, "max_err": 0.0, "tol": tol, "shapes": []})
+        s["calls"] += 1
+        s["max_err"] = max(s["max_err"], err)
+        if shape not in s["shapes"]:
+            s["shapes"].append(shape)
+        check(err <= tol, f"{name} at {shape}: the kernel differs from its plain version by {err}")
+
+    def shape_of(*ts):
+        return [list(t.shape) for t in ts]
+
+    flash, paged = A.ATTENTION["kernel"]
+    copy, train = E.BANKED_COPY["kernel"], A.TRAIN_ATTENTION["kernel"]
+
+    def flash_held(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        note("flash_attention", q.dtype, shape_of(q, k), _rel_err(out, want))
+        return out
+
+    def paged_held(q, k_pool, v_pool, table, lengths, **kw):
+        got = paged(q, k_pool, v_pool, table, lengths, **kw)
+        want = paged_attention_ref(q, k_pool, v_pool, table, lengths, **kw)
+        pair = (got, want) if kw.get("return_lse") else ((got,), (want,))
+        err = _rel_err(pair[0][0], pair[1][0])
+        note("paged_attention", q.dtype, shape_of(q, k_pool, table), err)
+        return got
+
+    def copy_held(pool, new_kv, table):
+        want = banked_copy_ref(pool.clone(), new_kv, table)
+        copy(pool, new_kv, table)
+        err = 0.0 if torch.equal(pool, want) else 1.0
+        note("banked_copy", pool.dtype, shape_of(pool, new_kv), err)
+
+    def fwd_held(q, k, v, **kw):
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        w_out, w_lse = flash_attention_fwd_ref(q, k, v, **kw)
+        note("flash_attention_fwd_lse", q.dtype, shape_of(q, k), _rel_err(out, w_out))
+        note("flash_attention_lse", q.dtype, shape_of(q, k), _max_err(lse, w_lse))
+        return out, lse
+
+    def bwd_held(q, k, v, out, lse, dout, **kw):
+        got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        err = max(_rel_err(g, w) for g, w in zip(got, want))
+        note("flash_attention_bwd", q.dtype, shape_of(q, k), err)
+        return got
+
+    def train_held(q, k, v, *, causal=True, window=0, scale=None):
+        return FlashAttentionFunction.apply(q, k, v, causal, window, scale, fwd_held, bwd_held)
+
+    A.ATTENTION["kernel"] = (flash_held, paged_held)
+    E.BANKED_COPY["kernel"], A.TRAIN_ATTENTION["kernel"] = copy_held, train_held
+    try:
+        yield seen
+    finally:
+        A.ATTENTION["kernel"] = (flash, paged)
+        E.BANKED_COPY["kernel"], A.TRAIN_ATTENTION["kernel"] = copy, train
+
+
+def phase_examples() -> dict:
+    """The seven example scripts through ``repro_torch.examples`` on the
+    card at their own sizes (``EXAMPLES[name]["full"]``; module docstring,
+    6e): the simulator examples' printed text against the capture's (host
+    timings masked), their arbiter launches equal to the cycle bodies
+    stepped in every simulator run and these to the drains' prediction; the
+    model examples' fields against the capture's and the script's asserts,
+    every kernel launch held to its plain version (``held_to_plain``), the
+    kernels ``EXAMPLE_KERNELS`` names launched and no other LLM kernel.
+    Returns each simulator example's row for the kernels line."""
+    import importlib
+
+    from repro_torch.data import EXAMPLES, example_record, examples_reference, paper_record
+    from repro_torch.examples import NAMES
+    from repro_torch.kernels import LAUNCHES
+
+    ref = examples_reference()["examples"]
+    rows = {}
+    for name in NAMES:
+        want, sizes = ref[name]["full"], EXAMPLES[name]["full"]
+        args = paper_record(sizes)
+        check(want["args"] == args, f"{name}: the capture's arguments {want['args']}")
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        with sim_accounting() as acc, sim_runs() as runs, held_to_plain() as held:
+            out, wall, launches, stepped = counted(lambda: mod.run(**sizes))
+        llm = {k: LAUNCHES[k] for k in LAUNCHES if k != "bank_arbiter"}
+        mod.check(out)
+        text = mod.text(out)
+        got = example_record(name, text)
+        check(got == want["record"], f"{name}: {got} against {EXAMPLES_CAPTURE}'s {want['record']}")
+        if name in EXAMPLE_KERNELS:
+            expected = EXAMPLE_KERNELS[name]
+            for k in expected:
+                check(llm[k] > 0, f"{name}: {k} never launched: {llm}")
+                h = held.get(EXAMPLE_HELD[name, k], {}).get("calls", 0)
+                check(h >= llm[k], f"{name}: {llm[k]} {k} launches, {h} held to plain")
+            merge = ("paged_attention_merge",) if "paged_attention" in expected else ()
+            others = {k: v for k, v in llm.items() if v and k not in expected + merge}
+            check(not others, f"{name}: launches outside {expected}: {others}")
+            emit(
+                "example", name=name, args=sizes, host_s=wall, launches=llm, held=held,
+                record=got, text=text.strip(),
+            )
+        else:
+            check(launches == stepped, f"{name}: {launches} arbiter launches for {stepped} cycles")
+            for i, r in enumerate(runs):
+                check(r["launches"] == r["stepped"], f"{name} run {i}: launches vs cycles {r}")
+                check(r["stepped"] == r["predicted"], f"{name} run {i}: stepped vs drains {r}")
+            check(not any(llm.values()), f"{name}: LLM kernel launches {llm}")
+            rows[name] = {
+                "args": sizes,
+                "simulator_runs": len(runs),
+                "lanes_per_run": [len(r["drains"]) for r in runs],
+                "drains": [d for r in runs for d in r["drains"]],
+                "arbiter_launches": launches,
+                "host_s": wall,
+                "stepped_cycles": stepped,
+                "cycles_per_s": stepped / wall,
+                "loop_s": acc["loop_s"],
+                "capture_s": acc["capture_s"],
+                "text_bytes": len(text.encode()),
+            }
+            emit("example", name=name, **rows[name])
+        emit(f"{name}_seconds", seconds=time.perf_counter() - t0)
+    return rows
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in tree for x in _leaves(tree[k])]
@@ -5874,6 +6077,7 @@ def main() -> int:
     timed_phase("profile", phase_profile, main_path)
     kernel = timed_phase("timing", phase_timing, main_path["launches"], max_abs_err)
     paper = timed_phase("paper_jobs", phase_paper_jobs)
+    examples = timed_phase("examples", phase_examples)
     llm_errs = timed_phase("llm_kernels", phase_llm_kernels)
     timed_phase("moe_whitening", phase_moe_whitening)
     rows = []
@@ -5910,6 +6114,7 @@ def main() -> int:
     kernel["launches_by_path"] = {
         "fig4_x16": main_path["launches"],
         **{f"paper_{k}": v["arbiter_launches"] for k, v in paper.items()},
+        **{f"examples_{k}": v["arbiter_launches"] for k, v in examples.items()},
         **{f"sweep_{k}": v["arbiter_launches"] for k, v in sweep.items()},
         **{f"cosim_{k}": v["arbiter_launches"] for k, v in cosim.items()},
     }

@@ -35,6 +35,12 @@ paper's jobs at the arguments ``benchmarks/run.py`` passes them
 (``PAPER_JOBS``): each job's returned dict (:func:`paper_record`) and the
 drained cycle of every lane of every simulator call it makes, in call order.
 ``tests/data/capture_torch_paper.py`` makes it.
+
+``examples_reference.json`` holds what the reference's seven example
+scripts (``examples/*.py``) print, run as they are at their own sizes (for
+the card) and at the CPU tests' cut sizes (``EXAMPLES``), each as
+:func:`example_record` keeps it.  ``tests/data/capture_torch_examples.py``
+makes it.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import base64
 import hashlib
 import itertools
 import json
+import re
 from dataclasses import replace
 from pathlib import Path
 
@@ -56,6 +63,7 @@ SWEEP_REFERENCE = Path(__file__).resolve().parent / "sweep_reference.json"
 COSIM_REFERENCE = Path(__file__).resolve().parent / "cosim_reference.json"
 MOE_REFERENCE = Path(__file__).resolve().parent / "moe_reference.json"
 PAPER_REFERENCE = Path(__file__).resolve().parent / "paper_reference.json"
+EXAMPLES_REFERENCE = Path(__file__).resolve().parent / "examples_reference.json"
 TRACE_COLUMNS = ("is_write", "burst", "addr", "start", "prio")
 
 #: metric keys the golden file pins
@@ -400,3 +408,76 @@ def paper_reference() -> dict:
     """``paper_reference.json``: ``{"jobs": {name: {"args", "result",
     "drains"}}}`` (see the module docstring)."""
     return json.loads(PAPER_REFERENCE.read_text())
+
+
+# ---------------------------------------------------------------------------
+# The example scripts: their sizes and what the capture keeps of their output
+# ---------------------------------------------------------------------------
+
+#: example (``repro_torch.examples``' module, the script's name) -> its sizes
+#: as keyword arguments of the module's ``run``: ``"full"`` the script's own
+#: (what it runs with no arguments; the card's), ``"cut"`` the CPU tests'.
+#: The simulator examples are cut in transactions a master and bulk payload
+#: (the qos preset at 24 transactions, where its safety Radars still read),
+#: ``quickstart`` to 16 steps (the loss falls by then; at 10 it has not),
+#: and the other two model examples run whole
+EXAMPLES = {
+    "memory_sim_sweep": {
+        "full": dict(txns=200, bulk_kb=64),
+        "cut": dict(txns=8, bulk_kb=4),
+    },
+    "adas_scenarios": {"full": dict(txns=48), "cut": dict(txns=8)},
+    "qos_isolation": {"full": dict(txns=48), "cut": dict(txns=24)},
+    "slice_scaling": {"full": dict(txns=48), "cut": dict(txns=16)},
+    "serve_batch": {
+        "full": dict(arch="stablelm-1.6b", requests=8),
+        "cut": dict(arch="stablelm-1.6b", requests=8),
+    },
+    "quickstart": {
+        "full": dict(arch="stablelm-1.6b", steps=40),
+        "cut": dict(arch="stablelm-1.6b", steps=16),
+    },
+    "long_context_decode": {"full": {}, "cut": {}},
+}
+
+#: a host timing's value in printed JSON (``adas_scenarios`` prints ``sim_rate``)
+_TIMING = re.compile(r'("(?:%s)": )[^,\n}]+' % "|".join(SWEEP_TIMING_KEYS))
+_SERVE = re.compile(
+    r"^(?P<arch>\S+): (?P<done>\d+)/(?P<requests>\d+) requests done, (?P<tokens>\d+) tokens "
+    r"in [\d.]+s; pool imbalance (?P<imbalance>[\d.]+), isolation (?P<isolation>\w+)$"
+)
+_QUICKSTART = re.compile(
+    r"^(?P<arch>\S+): loss (?P<head>[\d.]+) -> (?P<tail>[\d.]+) in (?P<steps>\d+) steps"
+)
+_DECODE = re.compile(
+    r"^decoded (?P<tokens>\d+) tokens in [\d.]+s with a constant "
+    r"(?P<kib>[\d.]+) KiB recurrent state"
+)
+
+
+def example_record(name: str, text: str) -> dict:
+    """What ``examples_reference.json`` keeps of an example's printed
+    ``text``: a simulator example's whole text, its host timings (the
+    ``sim_rate`` of ``adas_scenarios``) masked; ``serve_batch``'s requests
+    done, tokens out, pool imbalance and isolation; ``quickstart``'s steps
+    run and whether the printed loss fell (its values are not kept: the
+    reference's weights are salted per process); ``long_context_decode``'s
+    tokens and state KiB.  Takes the reference's output and the port's."""
+    line = text.strip()
+    if name == "serve_batch":
+        m = _SERVE.match(line)
+        return {**m.groupdict(), **{k: int(m[k]) for k in ("done", "requests", "tokens")}}
+    if name == "quickstart":
+        m = _QUICKSTART.match(line)
+        fell = float(m["tail"]) < float(m["head"])
+        return {"arch": m["arch"], "steps_run": int(m["steps"]), "loss_fell": fell}
+    if name == "long_context_decode":
+        m = _DECODE.match(line)
+        return {"tokens": int(m["tokens"]), "state_kib": m["kib"]}
+    return {"text": _TIMING.sub(r"\1null", text)}
+
+
+def examples_reference() -> dict:
+    """``examples_reference.json``: ``{"examples": {name: {"full", "cut"}}}``,
+    each ``{"args", "record"}`` (see the module docstring)."""
+    return json.loads(EXAMPLES_REFERENCE.read_text())

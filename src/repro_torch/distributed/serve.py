@@ -37,7 +37,12 @@ from repro_torch.distributed import comm
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.train import _plain, shard_batch
 from repro_torch.models import model as M
-from repro_torch.models.sharding_hooks import CacheOps, replicated, set_activation_sharder
+from repro_torch.models.sharding_hooks import (
+    CacheOps,
+    replicated,
+    set_activation_sharder,
+    shard_activations,
+)
 
 
 def merge_lse(o: torch.Tensor, lse: torch.Tensor, group) -> tuple:
@@ -189,8 +194,61 @@ def cache_attention(cfg: ModelConfig, q, new: dict, positions, cache: dict, *, i
     return run(qs, new, dt(positions), [cache[k] for k in names], weights)
 
 
-#: what the sharded steps register for the model's cache layers
-CACHE_OPS = CacheOps(attention=cache_attention, write_prefill=write_prefill)
+def lookup_moves_less(table_bytes: int, rows_bytes: int, *, seq_split: bool) -> bool:
+    """Whether a sharded serving step looks its tokens up vocab-parallel
+    (``models.model.embed_lookup``: each rank finds the rows it holds, and
+    the rows, ``rows_bytes`` of ``[B_rank, S, d]`` a rank, are summed over
+    ``model``) rather than gathering the table (``table_bytes`` of ``[Vp,
+    d]``, which the rules shard over the vocab only) and indexing it: the
+    one that moves less over ``model``.  The rows are reduce-scattered into
+    a residual split by sequence (``seq_split``, the prefill) and
+    all-reduced into a whole one (the decode), twice their bytes on the
+    ring; every payload moves (n - 1) / n of itself a rank, so the group's
+    size cancels.  Static shapes only, so every rank chooses alike.
+
+    On the (16, 16) mesh in bf16: a decode_32k step's rows are ``[8, 1,
+    2048]``, 32 KiB, against mamba2-1.3b's 209.7 MB table (``[51200,
+    2048]``) and stablelm-1.6b's 411.0 MB (``[100352, 2048]``), so decode
+    looks up; a prefill_32k step's rows are ``[2, 32768, 2048]``, 268.4 MB,
+    so mamba2 gathers its table and stablelm looks up.  The train step
+    always looks up (``forward_train``): its lookup carries the
+    deterministic backward, which the gather has not."""
+    return rows_bytes * (1 if seq_split else 2) < table_bytes
+
+
+def _embed(table: DTensor, tokens, *, seq_parallel: bool):
+    """``CacheOps.embed``: the tokens' rows of the vocab-sharded ``table``
+    laid out as the residual (``make_activation_sharder``), by the payload
+    ``lookup_moves_less`` picks.  The lookup's rows come out ``Partial``
+    over ``model`` and are reduced straight into that layout: a
+    reduce-scatter where it splits the sequence, else an all-reduce.  The
+    gathered table's rows are whole on every rank and are sliced into it
+    (no collective): either way the first block takes the residual as the
+    sharder lays it out, so the two payloads are all that differ."""
+    B, S = tokens.shape
+    mesh, d, size = table.device_mesh, table.shape[1], table.dtype.itemsize
+    spec = SH.activation_spec(mesh, (B, S, d), "resid", seq_parallel=seq_parallel)
+    seq_split = spec is not None and spec[1] is not None
+    local = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    rows_bytes = local.shape[0] * S * d * size
+    if lookup_moves_less(table.numel() * size, rows_bytes, seq_split=seq_split):
+        x = M.embed_lookup(table, tokens)
+    else:
+        x = table[tokens.long()]
+    x = shard_activations(x, "resid")
+    if any(p.is_partial() for p in x.placements):  # no constraint: a batch dp does not divide
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
+#: what the sharded prefill and decode steps register for the model's cache
+#: layers and its embedding table
+PREFILL_OPS = CacheOps(
+    attention=cache_attention,
+    write_prefill=write_prefill,
+    embed=functools.partial(_embed, seq_parallel=True),
+)
+DECODE_OPS = PREFILL_OPS._replace(embed=functools.partial(_embed, seq_parallel=False))
 
 
 def make_sharded_prefill(cfg: ModelConfig, mesh):
@@ -202,7 +260,7 @@ def make_sharded_prefill(cfg: ModelConfig, mesh):
 
     @torch.no_grad()
     def prefill(model, batch, cache):
-        set_activation_sharder(sharder, mesh=mesh, fsdp=False, cache_ops=CACHE_OPS)
+        set_activation_sharder(sharder, mesh=mesh, fsdp=False, cache_ops=PREFILL_OPS)
         try:
             b = shard_batch(cfg, mesh, {"tokens": batch["tokens"]})
             with implicit_replication():
@@ -224,7 +282,7 @@ def make_sharded_decode(cfg: ModelConfig, mesh, *, mla_absorbed: bool = False):
 
     @torch.no_grad()
     def decode(model, cache, tokens, pos):
-        set_activation_sharder(sharder, mesh=mesh, fsdp=False, cache_ops=CACHE_OPS)
+        set_activation_sharder(sharder, mesh=mesh, fsdp=False, cache_ops=DECODE_OPS)
         try:
             t = shard_batch(cfg, mesh, {"tokens": tokens})["tokens"]
             with implicit_replication():

@@ -117,7 +117,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mlp import MLP, mlp_specs
 from repro_torch.models.moe import MoE, moe_specs
-from repro_torch.models.sharding_hooks import gather_sequence, shard_activations
+from repro_torch.models.sharding_hooks import cache_ops, gather_sequence, shard_activations
 from repro_torch.models.ssm import SSMBlock, SSMCache, init_ssm_cache, ssm_specs
 
 
@@ -468,8 +468,14 @@ class Transformer(torch.nn.Module):
 
     def _embed(self, tokens: torch.Tensor, positions=None) -> torch.Tensor:
         """Token rows; whisper's decoder adds the sin/cos table at the
-        tokens' absolute ``positions`` (the reference's ``_embed_tokens``)."""
-        x = self.embed[tokens.long()]
+        tokens' absolute ``positions`` (the reference's ``_embed_tokens``).
+        In a sharded serving step (a DTensor table) the step's
+        ``CacheOps.embed`` looks them up."""
+        ops = cache_ops()
+        if ops is not None and isinstance(self.embed, DTensor):
+            x = ops.embed(self.embed, tokens)
+        else:
+            x = self.embed[tokens.long()]
         return x if self.encoder is None else self._add_sinusoid(x, positions)
 
     def _add_sinusoid(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

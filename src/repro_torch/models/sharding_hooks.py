@@ -20,13 +20,16 @@ _CACHE_OPS: Optional["CacheOps"] = None
 
 class CacheOps(NamedTuple):
     """A sharded serving step's operations on a contiguous cache of
-    DTensors (``distributed.serve``): ``attention(cfg, q, new, positions,
-    cache, impl=, mla=)`` writes a decode step's rows and attends over the
-    cache, ``write_prefill(layer, updates, positions)`` writes a prompt
-    into a rolling cache."""
+    DTensors and on the vocab-sharded table (``distributed.serve``):
+    ``attention(cfg, q, new, positions, cache, impl=, mla=)`` writes a
+    decode step's rows and attends over the cache, ``write_prefill(layer,
+    updates, positions)`` writes a prompt into a rolling cache,
+    ``embed(table, tokens)`` looks the tokens up, the rows laid out as the
+    residual stream."""
 
     attention: Callable
     write_prefill: Callable
+    embed: Callable
 
 
 def set_activation_sharder(

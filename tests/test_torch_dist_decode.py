@@ -11,7 +11,10 @@ log-sum-exp.  Held to the single-process cache form (``prefill_cache``,
 on the same weights and inputs, step by step, and the final cache leaf by
 leaf.
 
-Cases: dense (stablelm-1.6b, ``decode_32k``'s layout, pos ``[B]``),
+Cases: dense (stablelm-1.6b, ``decode_32k``'s layout, pos ``[B]``; and
+at a vocabulary of 2048 with tokens on both vocab shards of ``model``, which
+the vocab-parallel lookup of the sharded steps reads from both ranks, and
+again with the steps gathering the table instead),
 windowed (h2o-danube-1.8b, window 16, ``long_500k``'s layout: a
 two-window prompt rolled into 16 slots, 4 a rank, then 20 steps across
 the wrap), MLA (deepseek-v2-lite-16b, both decode forms) and SSM
@@ -48,7 +51,18 @@ CASES = {
     "mla": ("deepseek-v2-lite-16b", {}, "decode_32k", 2, 8, 16, 3, False, [0, -3]),
     "mla-absorbed": ("deepseek-v2-lite-16b", {}, "decode_32k", 2, 8, 16, 3, True, [0, 0]),
     "ssm": ("mamba2-1.3b", {}, "decode_32k", 2, 8, 8, 4, False, [0, 0]),
+    # a vocabulary of 2048 (the smoke one's padded width), its tokens drawn
+    # over all of it: the prompt's and each step's fall on both vocab
+    # shards of ``model`` (1024 rows a rank)
+    "dense-vocab": ("stablelm-1.6b", {"num_kv_heads": 2, "vocab_size": 2048}, "decode_32k", 4, 8,
+                    16, 4, False, [0, 0, -2, 0]),
+    # the same with the steps made to gather the table (``serve.
+    # lookup_moves_less`` answering no), its rows sliced into the residual
+    "dense-gather": ("stablelm-1.6b", {"num_kv_heads": 2, "vocab_size": 2048}, "decode_32k", 4,
+                     8, 16, 4, False, [0, 0, -2, 0]),
 }
+#: the tokens' range of a case (default: 200, all on the first vocab shard)
+TOKENS_HIGH = {"dense-vocab": 2048, "dense-gather": 2048}
 LOGIT_TOL = 1e-4
 CACHE_TOL = 1e-5
 
@@ -73,10 +87,15 @@ def leaves(tree, prefix=()):
 
 
 def main(rank, world, tmp):
+    from repro_torch.distributed import serve
+
     jobs = eval(open(tmp + "/job.txt").read())
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out = {}
+    rule = serve.lookup_moves_less
     for name, (arch, overrides, shape, B, S, T, steps, absorbed, _) in jobs.items():
+        gather = name.endswith("-gather")
+        serve.lookup_moves_less = (lambda *a, **k: False) if gather else rule
         d = np.load(f"{tmp}/{name}.npz")
         cfg = smoke(get_config(arch), **overrides)
         model = M.init_params(
@@ -104,8 +123,9 @@ def main(rank, world, tmp):
 def _inputs(name):
     arch, overrides, shape, B, S, T, steps, absorbed, off = CASES[name]
     rng = np.random.default_rng(7)
-    prompt = rng.integers(0, 200, (B, S)).astype(np.int32)
-    tokens = rng.integers(0, 200, (steps, B, 1)).astype(np.int32)
+    high = TOKENS_HIGH.get(name, 200)
+    prompt = rng.integers(0, high, (B, S)).astype(np.int32)
+    tokens = rng.integers(0, high, (steps, B, 1)).astype(np.int32)
     pos = (S + np.asarray(off))[None] + np.arange(steps)[:, None]
     return prompt, tokens, pos.astype(np.int64)
 
